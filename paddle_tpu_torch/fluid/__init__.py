@@ -1,0 +1,23 @@
+"""paddle_tpu_torch.fluid — the Fluid front-end on PyTorch: Program IR built by
+fluid.layers, run by an Executor on one torch.device (the card by default)."""
+from . import core_types
+from . import unique_name
+from . import framework
+from .framework import (Program, Variable, Parameter, Operator, Block,
+                        default_main_program, default_startup_program,
+                        program_guard, CPUPlace, CUDAPlace,
+                        cpu_places, cuda_places)
+from .core_types import VarType, OpRole
+
+from . import ops  # registers all op lowerings
+from . import initializer
+from .param_attr import ParamAttr
+from . import layers
+from .layer_helper import LayerHelper
+from .executor import Executor, Scope, global_scope, scope_guard
+from .interop import params_from_numpy
+
+__all__ = framework.__all__ + [
+    "ops", "initializer", "ParamAttr", "layers", "LayerHelper", "Executor",
+    "Scope", "global_scope", "scope_guard", "params_from_numpy",
+]

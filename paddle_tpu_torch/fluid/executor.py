@@ -1,0 +1,245 @@
+"""Executor: runs a Program's block 0 eagerly, op by op, on one torch.device.
+
+The port's counterpart of ``paddle_tpu/fluid/executor.py``. Where the JAX
+executor traces the block into one jitted XLA function, this one walks the
+ops and calls each op's PyTorch lowering on the executor's device. What XLA
+did for free is done here by a per-(program, fetch list) plan:
+
+- only the ops that the fetches or a persistable write need are run
+  (XLA's dead-code elimination);
+- each intermediate is dropped after its last reader, so a long request
+  holds only its live activations (XLA's buffer liveness).
+
+``Executor()`` runs on ``CUDAPlace(0)`` and raises when there is no card;
+the CPU is used only when the caller passes ``CPUPlace()``.
+"""
+import contextlib
+import zlib
+
+import numpy as np
+import torch
+
+from . import framework
+from .core_types import to_torch_dtype
+from .framework import Variable, default_main_program
+from .interop import tensor_from_numpy
+from .ops.registry import LoweringContext, lower_op
+
+__all__ = ["Executor", "Scope", "global_scope", "scope_guard", "as_numpy"]
+
+
+class Scope(object):
+    """name -> runtime value (torch tensor) (reference: framework/scope.h:48),
+    plus the random streams of the programs run in it."""
+
+    def __init__(self):
+        self._vars = {}
+        self._generators = {}   # (program fingerprint, device) -> Generator
+
+    def var(self, name):
+        """Create (or get) a slot."""
+        self._vars.setdefault(name, None)
+        return _VarHandle(self, name)
+
+    def find_var(self, name):
+        return _VarHandle(self, name) if name in self._vars else None
+
+    def get(self, name):
+        return self._vars.get(name)
+
+    def has(self, name):
+        return self._vars.get(name) is not None
+
+    def set(self, name, value):
+        self._vars[name] = value
+
+
+class _VarHandle(object):
+    """The reference pybind Variable handle surface (get_tensor etc.)."""
+
+    def __init__(self, scope, name):
+        self._scope = scope
+        self._name = name
+
+    def get_tensor(self):
+        return self
+
+    def set(self, value, place=None):
+        self._scope.set(self._name, value if isinstance(value, torch.Tensor)
+                        else tensor_from_numpy(np.asarray(value)))
+
+    def value(self):
+        return self._scope.get(self._name)
+
+    def __array__(self, dtype=None):
+        v = as_numpy(self._scope.get(self._name))
+        return v.astype(dtype) if dtype else v
+
+    def shape(self):
+        return list(self._scope.get(self._name).shape)
+
+
+_global_scope = Scope()
+_scope_stack = [_global_scope]
+
+
+def global_scope():
+    return _scope_stack[-1]
+
+
+@contextlib.contextmanager
+def scope_guard(scope):
+    _scope_stack.append(scope)
+    try:
+        yield
+    finally:
+        _scope_stack.pop()
+
+
+def as_numpy(value):
+    """Host numpy copy of a tensor. numpy has no bfloat16, so a bf16 tensor
+    comes back as float32 (exact: every bf16 value is a float32 value)."""
+    if not isinstance(value, torch.Tensor):
+        return np.asarray(value)
+    value = value.detach().cpu()
+    if value.dtype == torch.bfloat16:
+        value = value.float()
+    return value.numpy()
+
+
+def _program_rng_fp(program):
+    """Structural fingerprint keying a program's random stream in a scope
+    (the same string the JAX executor builds)."""
+    return "|".join("%s>%s" % (op.type, ",".join(
+        n for ns in op.outputs.values() for n in ns))
+        for b in program.blocks for op in b.ops)
+
+
+class _Plan(object):
+    """The ops a run must execute, and after each op the names no later op
+    or fetch reads."""
+
+    def __init__(self, program, fetch_names):
+        block = program.global_block()
+        self.rng_fp = _program_rng_fp(program)
+
+        def persistable(n):
+            meta = block.vars.get(n)
+            return meta is not None and meta.persistable
+
+        needed = set(fetch_names)
+        kept = []
+        for op in reversed(block.ops):
+            outs = op.output_arg_names
+            if any(o in needed or persistable(o) for o in outs):
+                kept.append(op)
+                needed.update(n for n in op.input_arg_names if n != "@EMPTY@")
+        kept.reverse()
+        last_read = {}
+        for i, op in enumerate(kept):
+            for n in op.input_arg_names:
+                last_read[n] = i
+        keep = set(fetch_names)
+        self.steps = []
+        for i, op in enumerate(kept):
+            touched = set(op.input_arg_names) | set(op.output_arg_names)
+            drop = [n for n in touched
+                    if n not in keep and last_read.get(n, -1) <= i]
+            self.steps.append((op, drop))
+        self.persistable = {n for op in kept for n in op.output_arg_names
+                            if persistable(n)}
+
+
+class Executor(object):
+    """Reference surface: Executor(place).run(program, feed, fetch_list, ...)
+    (reference: python/paddle/fluid/executor.py:262,451)."""
+
+    def __init__(self, place=None):
+        self.place = place if place is not None else framework.CUDAPlace(0)
+        if self.place.kind == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "%r needs a CUDA card and torch.cuda.is_available() is "
+                "False; pass fluid.CPUPlace() to run on the CPU" % self.place)
+        self.device = self.place.torch_device()
+        self._plans = {}
+
+    def run(self, program=None, feed=None, fetch_list=None,
+            feed_var_name="feed", fetch_var_name="fetch", scope=None,
+            return_numpy=True, use_program_cache=True):
+        if program is None:
+            program = default_main_program()
+        scope = scope if scope is not None else global_scope()
+        feed = feed or {}
+        fetch_names = [v.name if isinstance(v, Variable) else str(v)
+                       for v in (fetch_list or [])]
+        block = program.global_block()
+        key = (program.id, program.version, tuple(fetch_names))
+        plan = self._plans.get(key)
+        if plan is None:
+            plan = self._plans[key] = _Plan(program, fetch_names)
+
+        env = {n: self._to_device(v, block.vars.get(n))
+               for n, v in feed.items()}
+        ctx = LoweringContext(self.device,
+                              self._generator(scope, program, plan.rng_fp),
+                              is_test=program._is_test)
+        with torch.no_grad():
+            for op, drop in plan.steps:
+                for n in op.input_arg_names:
+                    if n not in env and n != "@EMPTY@":
+                        env[n] = self._read_state(scope, n, block)
+                lower_op(op, env, ctx)
+                for n in op.output_arg_names:
+                    if n in env and (n in plan.persistable or scope.has(n)):
+                        scope.set(n, env[n])
+                for n in drop:
+                    env.pop(n, None)
+
+        results = []
+        for n in fetch_names:
+            v = env.get(n)
+            if v is None:
+                v = scope.get(n)
+            if v is None:
+                raise ValueError(
+                    "fetch variable %r was not produced by the program and is "
+                    "not in the scope" % n)
+            results.append(v)
+        if return_numpy:
+            results = [as_numpy(r) for r in results]
+        return results
+
+    def _read_state(self, scope, name, block):
+        v = scope.get(name)
+        if v is None:
+            raise RuntimeError(
+                "variable %r is not initialized (feed it or run the startup "
+                "program first)" % name)
+        moved = self._to_device(v, block.vars.get(name))
+        if moved is not v:
+            scope.set(name, moved)
+        return moved
+
+    def _to_device(self, value, var_meta):
+        """A feed or state value as a tensor of the variable's dtype on the
+        executor's device."""
+        if not isinstance(value, torch.Tensor):
+            value = tensor_from_numpy(np.asarray(value))
+        dtype = value.dtype
+        if var_meta is not None and var_meta.dtype is not None:
+            dtype = to_torch_dtype(var_meta.dtype)
+        return value.to(device=self.device, dtype=dtype)
+
+    def _generator(self, scope, program, fp):
+        """One random stream per (scope, program structure, device): the
+        seed comes from the program's random_seed or its structure `fp`,
+        never from a global stream, and each run advances only its own
+        stream."""
+        key = (fp, str(self.device))
+        gen = scope._generators.get(key)
+        if gen is None:
+            seed = program.random_seed or (zlib.crc32(fp.encode()) & 0x7FFFFFFF)
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed)
+            scope._generators[key] = gen
+        return gen

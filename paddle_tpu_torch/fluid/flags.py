@@ -1,0 +1,35 @@
+"""FLAGS_* environment flag system.
+
+The port's copy of ``paddle_tpu/fluid/flags.py``: the same ``FLAGS_*``
+names, types and defaults for the flags the ported modules read, so one
+environment configures both packages alike. Flags of modules not yet
+ported join the table with those modules.
+"""
+import os
+
+__all__ = ["get", "WHITELIST"]
+
+# name (without FLAGS_ prefix) -> (type, default, help)
+WHITELIST = {
+    "flash_min_seq": (int, 1024,
+                      "key length from which the flash attention kernel "
+                      "takes over from the dense path (ops/attention.py)"),
+    "onepass_max_seq": (int, 512,
+                        "longest sequence for the one-pass attention "
+                        "kernel (bounded by its shared-memory score tile)"),
+}
+
+
+def get(name, default=None):
+    """Read flag `name` (without the FLAGS_ prefix) from the environment,
+    typed per the whitelist. Unknown names fall through to `default`."""
+    raw = os.environ.get("FLAGS_" + name)
+    spec = WHITELIST.get(name)
+    if spec is None:
+        return raw if raw is not None else default
+    typ, dflt, _ = spec
+    if raw is None:
+        return dflt if default is None else default
+    if typ is bool:
+        return raw.lower() not in ("", "0", "false", "no")
+    return typ(raw)

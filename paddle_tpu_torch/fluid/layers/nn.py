@@ -1,0 +1,197 @@
+"""Neural-network layers (the port's counterpart of
+``paddle_tpu/fluid/layers/nn.py``): the layer functions the Transformer
+calls, with the same signatures and the same ops, slots and attrs."""
+import numpy as np
+
+from ..layer_helper import LayerHelper
+from ..initializer import Constant
+
+__all__ = [
+    "fc", "embedding", "layer_norm", "dropout", "softmax",
+    "softmax_with_cross_entropy", "matmul", "transpose", "reshape", "mean",
+    "elementwise_add", "scale", "add_position_encoding",
+]
+
+
+def _single_out(helper, op_type, inputs, attrs=None, dtype=None, slot="Out"):
+    out = helper.create_variable_for_type_inference(
+        dtype=dtype or helper.input_dtype())
+    helper.append_op(type=op_type, inputs=inputs, outputs={slot: [out]},
+                     attrs=attrs or {})
+    return out
+
+
+def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
+       act=None, is_test=False, name=None):
+    """Fully connected (reference: layers/nn.py fc) — mul per input + sum +
+    bias + act."""
+    helper = LayerHelper("fc", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = helper.input_dtype()
+    mul_results = []
+    for input_var, p_attr in zip(helper.multiple_input(),
+                                 helper.multiple_param_attr(
+                                     len(helper.multiple_input()))):
+        input_shape = input_var.shape
+        param_shape = [
+            int(np.prod([abs(d) for d in input_shape[num_flatten_dims:]]))
+        ] + [size]
+        w = helper.create_parameter(attr=p_attr, shape=param_shape,
+                                    dtype=dtype)
+        tmp = helper.create_variable_for_type_inference(dtype)
+        helper.append_op(type="mul",
+                         inputs={"X": [input_var], "Y": [w]},
+                         outputs={"Out": [tmp]},
+                         attrs={"x_num_col_dims": num_flatten_dims,
+                                "y_num_col_dims": 1})
+        mul_results.append(tmp)
+    if len(mul_results) != 1:
+        raise NotImplementedError("fc over several inputs is not ported yet")
+    pre_act = helper.append_bias_op(mul_results[0], dim_start=num_flatten_dims)
+    return helper.append_activation(pre_act)
+
+
+def embedding(input, size, is_sparse=False, is_distributed=False,
+              padding_idx=None, param_attr=None, dtype="float32"):
+    """Lookup table (reference: layers/nn.py embedding / lookup_table_op.cc)."""
+    helper = LayerHelper("embedding", param_attr=param_attr)
+    w = helper.create_parameter(attr=helper.param_attr, shape=list(size),
+                                dtype=dtype, is_bias=False)
+    if is_distributed:
+        w.is_distributed = True
+    tmp = helper.create_variable_for_type_inference(dtype)
+    padding_idx = -1 if padding_idx is None else (
+        padding_idx if padding_idx >= 0 else size[0] + padding_idx)
+    helper.append_op(type="lookup_table",
+                     inputs={"Ids": [input], "W": [w]},
+                     outputs={"Out": [tmp]},
+                     attrs={"is_sparse": is_sparse,
+                            "is_distributed": is_distributed,
+                            "padding_idx": padding_idx,
+                            "remote_prefetch": False})
+    return tmp
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1, epsilon=1e-5,
+               param_attr=None, bias_attr=None, act=None, name=None):
+    helper = LayerHelper("layer_norm", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = helper.input_dtype()
+    input_shape = input.shape
+    param_shape = [int(np.prod([abs(d) for d in
+                                input_shape[begin_norm_axis:]]))]
+    inputs = {"X": [input]}
+    if scale:
+        s = helper.create_parameter(attr=helper.param_attr, shape=param_shape,
+                                    dtype="float32",
+                                    default_initializer=Constant(1.0))
+        inputs["Scale"] = [s]
+    if shift:
+        b = helper.create_parameter(attr=helper.bias_attr, shape=param_shape,
+                                    dtype="float32", is_bias=True)
+        inputs["Bias"] = [b]
+    mean_out = helper.create_variable_for_type_inference("float32",
+                                                         stop_gradient=True)
+    var_out = helper.create_variable_for_type_inference("float32",
+                                                        stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="layer_norm", inputs=inputs,
+                     outputs={"Y": [out], "Mean": [mean_out],
+                              "Variance": [var_out]},
+                     attrs={"epsilon": epsilon,
+                            "begin_norm_axis": begin_norm_axis})
+    return helper.append_activation(out)
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    helper = LayerHelper("dropout", input=x, name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    mask = helper.create_variable_for_type_inference(dtype="uint8",
+                                                     stop_gradient=True)
+    helper.append_op(type="dropout", inputs={"X": [x]},
+                     outputs={"Out": [out], "Mask": [mask]},
+                     attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+                            "seed": seed if seed is not None else 0,
+                            "dropout_implementation": dropout_implementation})
+    return out
+
+
+def softmax(input, use_cudnn=True, name=None):
+    helper = LayerHelper("softmax", input=input, name=name)
+    return _single_out(helper, "softmax", {"X": [input]})
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=False,
+                               return_softmax=False):
+    helper = LayerHelper("softmax_with_cross_entropy", input=logits)
+    softmax_out = helper.create_variable_for_type_inference(logits.dtype)
+    loss = helper.create_variable_for_type_inference(logits.dtype)
+    lse_out = helper.create_variable_for_type_inference("float32")
+    helper.append_op(type="softmax_with_cross_entropy",
+                     inputs={"Logits": [logits], "Label": [label]},
+                     outputs={"Softmax": [softmax_out], "Loss": [loss],
+                              "LSE": [lse_out]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    if return_softmax:
+        return loss, softmax_out
+    return loss
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", input=x, name=name)
+    return _single_out(helper, "matmul", {"X": [x], "Y": [y]},
+                       {"transpose_X": transpose_x, "transpose_Y": transpose_y,
+                        "alpha": float(alpha)}, dtype=x.dtype)
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose", input=x, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype,
+                                                       stop_gradient=True)
+    helper.append_op(type="transpose2", inputs={"X": [x]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"axis": list(perm)})
+    return out
+
+
+def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
+    helper = LayerHelper("reshape2", input=x, act=act)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype,
+                                                       stop_gradient=True)
+    helper.append_op(type="reshape2", inputs={"X": [x]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"shape": [int(s) for s in shape]})
+    return helper.append_activation(out)
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", input=x, name=name)
+    return _single_out(helper, "mean", {"X": [x]}, dtype=x.dtype)
+
+
+def elementwise_add(x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper("elementwise_add", input=x, act=act, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="elementwise_add", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return helper.append_activation(out)
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
+    helper = LayerHelper("scale", input=x, act=act, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="scale", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"scale": float(scale), "bias": float(bias),
+                            "bias_after_scale": bias_after_scale})
+    return helper.append_activation(out)
+
+
+def add_position_encoding(input, alpha, beta, name=None):
+    helper = LayerHelper("add_position_encoding", input=input, name=name)
+    return _single_out(helper, "add_position_encoding", {"X": [input]},
+                       {"alpha": alpha, "beta": beta}, dtype=input.dtype)

@@ -60,9 +60,11 @@ setup(
     version=_version(),
     description=("TPU-native deep-learning framework with the PaddlePaddle "
                  "Fluid programming model (JAX/XLA/Pallas execution)"),
-    packages=find_packages(include=["paddle_tpu", "paddle_tpu.*"]),
+    packages=find_packages(include=["paddle_tpu", "paddle_tpu.*",
+                                    "paddle_tpu_torch", "paddle_tpu_torch.*"]),
     package_data={
         "paddle_tpu.native": ["*.cc", "*.h"],
+        "paddle_tpu_torch.ops": ["csrc/*.cu"],
     },
     python_requires=">=3.9",
     install_requires=[
