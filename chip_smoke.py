@@ -9,14 +9,16 @@ Phases, each printing one JSON line (any failure ends the script with a
 non-zero exit):
 
 1. build    - nvcc builds the CUDA kernels from paddle_tpu_torch/ops/csrc.
-2. kernels  - each kernel against its plain PyTorch version on the card, at
-              the serving path's shapes plus ragged and float32 cases, held
-              to the elementwise bound OUT_TOL; at the serving shapes the
-              bound must also reject a control (the plain version with the
-              last key tile dropped). It reports the kernel's, the plain
-              version's and one PyTorch library call's time
-              (scaled_dot_product_attention, timed as a yardstick only), and
-              the least time the card could take.
+2. kernels  - each kernel (attention forward and backward, fused Adam)
+              against its plain PyTorch version on the card, at the serving
+              and training paths' shapes plus ragged and float32 cases, held
+              to the elementwise bounds below; at the paths' shapes the
+              bound must also reject a control (a plain version with the
+              last key tile or delta dropped, or a wrong beta2). It reports
+              the kernel's, the plain version's and one PyTorch library
+              call's time (scaled_dot_product_attention forward or backward,
+              torch._fused_adam_: yardsticks only), and the least time the
+              card could take. Shapes the kernels refuse must raise.
 3. serve256 - the flagship Transformer (bench.py's config: vocab 8192, 4+4
               layers, 8 heads, d_model 512, d_ff 2048, bf16, random weights
               from a seed) built with is_test=True, pruned to its logits as
@@ -30,6 +32,20 @@ non-zero exit):
 5. logits_control - the card-vs-CPU limits of phase 3 must reject the
               serving program with its decoder self-attention made
               non-causal.
+6. train256 - the flagship training program (bench.py's training leg: the
+              same config, dropout 0.1, append_backward + Adam(1e-4).minimize)
+              at batch TRAIN_BATCH, seq 256: startup on the card, one warm
+              step, then Executor.run_steps over 4 stacked steps. Every loss
+              must be finite and each step must launch 12 one-pass forward,
+              12 one-pass backward, 0 flash and 67 Adam kernels.
+7. train_parity - the same program with dropout 0, batch 2, one step on the
+              card and one on the CPU from the same weights: the loss and
+              the gradients of a q/k weight of each attention kind and of
+              src_emb must agree within limits that reject the program with
+              its decoder self-attention made non-causal.
+8. train4096 - the training program at seq 4096, batch 8, one warm step then
+              2 steps through run_steps; each step must launch 12 flash
+              forward, 12 dq, 12 dkv, 0 one-pass and 67 Adam kernels.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
 with every kernel's numbers, and last {"ok": true, "device": {...}}. It
@@ -43,6 +59,9 @@ import time
 SEED = 1234
 LONG_SEQ = 4096
 REQUESTS, BATCH = 4, 8
+# bench.py's BATCH and LONGSEQ_BATCH: the training legs' batches
+TRAIN_BATCH, TRAIN_STEPS = 256, 4
+LONG_TRAIN_BATCH, LONG_TRAIN_STEPS = 8, 2
 
 # H100 SXM published dense peaks (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
@@ -60,6 +79,15 @@ PEAK_BYTES = 3.35e12
 # the row's rms; atol allows 2^-5, eight times 2^-8, for the largest of
 # millions of such errors. float32 differs by summation order only.
 OUT_TOL = {"bfloat16": (2.0 ** -7, 2.0 ** -5), "float32": (1e-5, 1e-5)}
+# The backward kernels' gradients, by the same elementwise bound. One-pass:
+# the kernel sums delta = rowsum(dP o P) in another order than the plain
+# version, so dS can round to the other side in bf16; the forward's bound
+# holds it. Flash: delta comes from outside and the two compute S, dP and
+# each sum in the same order on the card (sound readings 0 in bf16), so
+# atol drops to 2^-8, which rejects the flash controls by a wide margin.
+BWD_TOL = {"onepass_bwd": OUT_TOL,
+           "flash_bwd": {"bfloat16": (2.0 ** -7, 2.0 ** -8),
+                         "float32": (1e-5, 1e-5)}}
 # lse (f32, O(log T_k)): rtol and an absolute atol
 LSE_TOL = (1e-5, 1e-5)
 # A control the bound must reject: the kernel's output against the plain
@@ -94,23 +122,6 @@ def time_ms(fn, iters=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def attention_bound_ms(b, t_q, t_k, h, d, causal, itemsize, with_lse):
-    """Least time for one call: the larger of its bytes (q, k, v read once,
-    out and lse written once) over the memory rate and its operations
-    (4*D per unmasked (row, col) pair) over the peak for its type."""
-    offset = t_k - t_q
-    if causal:
-        pairs = sum(min(t_k, max(0, r + offset + 1)) for r in range(t_q))
-    else:
-        pairs = t_q * t_k
-    flops = 4.0 * b * h * d * pairs
-    nbytes = itemsize * b * h * d * (2 * t_q + 2 * t_k) + \
-        (4 * b * t_q * h if with_lse else 0)
-    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def phase_build():
@@ -150,49 +161,155 @@ def _sdpa(q, k, v, causal):
                                                   is_causal=causal)
 
 
-# (kernel, B, T_q, T_k, H, D, causal, dtype, weight on the serving path)
+# (kernel, B, T_q, T_k, H, D, causal, dtype, path, weight on that path):
+# a case with a path is timed and enters that kernel's summary over the
+# path's mix, and its bound must reject a control
 KERNEL_CASES = [
-    ("onepass", 8, 256, 256, 8, 64, False, "bfloat16", 8),
-    ("onepass", 8, 256, 256, 8, 64, True, "bfloat16", 4),
-    ("onepass", 8, 200, 256, 8, 64, True, "bfloat16", 0),
-    ("onepass", 2, 77, 77, 2, 40, True, "float32", 0),
-    ("onepass", 1, 130, 100, 2, 128, True, "float32", 0),
-    ("onepass", 1, 512, 512, 4, 128, True, "bfloat16", 0),  # largest tile
-    ("flash", 1, 4096, 4096, 8, 64, False, "bfloat16", 8),
-    ("flash", 1, 4096, 4096, 8, 64, True, "bfloat16", 4),
-    ("flash", 1, 1100, 1100, 8, 64, True, "bfloat16", 0),
-    ("flash", 1, 1030, 1100, 2, 128, False, "float32", 0),
-    ("flash", 1, 130, 100, 2, 40, True, "float32", 0),
-    ("flash", 2, 1000, 1100, 2, 64, True, "bfloat16", 0),
+    ("onepass", 8, 256, 256, 8, 64, False, "bfloat16", "serve256", 8),
+    ("onepass", 8, 256, 256, 8, 64, True, "bfloat16", "serve256", 4),
+    ("onepass", 256, 256, 256, 8, 64, False, "bfloat16", "train256", 8),
+    ("onepass", 256, 256, 256, 8, 64, True, "bfloat16", "train256", 4),
+    ("onepass", 8, 200, 256, 8, 64, True, "bfloat16", None, 0),
+    ("onepass", 2, 77, 77, 2, 40, True, "float32", None, 0),
+    ("onepass", 1, 130, 100, 2, 128, True, "float32", None, 0),
+    ("onepass", 1, 512, 512, 4, 128, True, "bfloat16", None, 0),  # largest
+    ("flash", 1, 4096, 4096, 8, 64, False, "bfloat16", "serve4096", 8),
+    ("flash", 1, 4096, 4096, 8, 64, True, "bfloat16", "serve4096", 4),
+    ("flash", 8, 4096, 4096, 8, 64, False, "bfloat16", "train4096", 8),
+    ("flash", 8, 4096, 4096, 8, 64, True, "bfloat16", "train4096", 4),
+    ("flash", 1, 1100, 1100, 8, 64, True, "bfloat16", None, 0),
+    ("flash", 1, 1030, 1100, 2, 128, False, "float32", None, 0),
+    ("flash", 1, 130, 100, 2, 40, True, "float32", None, 0),
+    ("flash", 2, 1000, 1100, 2, 64, True, "bfloat16", None, 0),
 ]
+BWD_CASES = [
+    ("onepass_bwd", 256, 256, 256, 8, 64, False, "bfloat16", "train256", 8),
+    ("onepass_bwd", 256, 256, 256, 8, 64, True, "bfloat16", "train256", 4),
+    ("onepass_bwd", 8, 256, 256, 8, 64, False, "bfloat16", None, 0),
+    ("onepass_bwd", 8, 256, 256, 8, 64, True, "bfloat16", None, 0),
+    ("onepass_bwd", 8, 200, 256, 8, 64, True, "bfloat16", None, 0),
+    ("onepass_bwd", 2, 77, 77, 2, 40, True, "float32", None, 0),
+    ("onepass_bwd", 1, 130, 100, 2, 128, True, "float32", None, 0),
+    ("onepass_bwd", 1, 512, 512, 4, 128, True, "bfloat16", None, 0),
+    ("flash_bwd", 8, 4096, 4096, 8, 64, False, "bfloat16", "train4096", 8),
+    ("flash_bwd", 8, 4096, 4096, 8, 64, True, "bfloat16", "train4096", 4),
+    ("flash_bwd", 1, 4096, 4096, 8, 64, False, "bfloat16", None, 0),
+    ("flash_bwd", 1, 4096, 4096, 8, 64, True, "bfloat16", None, 0),
+    ("flash_bwd", 1, 1100, 1100, 8, 64, True, "bfloat16", None, 0),
+    ("flash_bwd", 2, 1000, 1100, 2, 64, True, "bfloat16", None, 0),
+    ("flash_bwd", 1, 1030, 1100, 2, 128, False, "float32", None, 0),
+    ("flash_bwd", 1, 130, 100, 2, 40, True, "float32", None, 0),
+]
+# the 2-D parameters of the flagship model that the fused Adam kernel takes,
+# with their count per step (48 + 8 + 8 + 2 + 1 = 67), and one f32 case
+ADAM_CASES = [((512, 512), "bfloat16", 48), ((512, 2048), "bfloat16", 8),
+              ((2048, 512), "bfloat16", 8), ((8192, 512), "bfloat16", 2),
+              ((512, 8192), "bfloat16", 1), ((16, 256), "float32", 0)]
+# Adam kernel vs plain version (assert_allclose semantics, |got - want| <=
+# atol + rtol*|want|): the moments at tests/test_adam_kernel.py's tolerance;
+# p within one unit in the last place of its dtype
+ADAM_MOMENT_TOL = (1e-5, 1e-7)
+ADAM_P_RTOL = {"bfloat16": 2.0 ** -7, "float32": 2.0 ** -23}
+ADAM_HPARAMS = (0.9, 0.999, 1e-8)
 # shapes each kernel must refuse with an exception: (kernel, T_k, D)
 REJECT_CASES = [("onepass", 513, 64), ("onepass", 256, 136),
-                ("flash", 1024, 12)]
+                ("flash", 1024, 12), ("onepass_bwd", 513, 64),
+                ("flash_bwd", 1024, 12)]
+ADAM_REJECT_SHAPES = [(512,), (7, 128), (8, 100)]
+# TPU kernel each port kernel replaces
+REPLACES = {
+    "onepass": "paddle_tpu/ops/attention.py:123",
+    "flash": "paddle_tpu/ops/attention.py:272",
+    "onepass_bwd": "paddle_tpu/ops/attention.py:146",
+    "flash_bwd_dq": "paddle_tpu/ops/attention.py:400",
+    "flash_bwd_dkv": "paddle_tpu/ops/attention.py:447",
+    "adam": "paddle_tpu/ops/adam_kernel.py:53",
+}
 
 
 def err_ratio(got, want, rtol, atol, row_scale=True):
     """max over elements of |got - want| / (rtol*|want| + atol*scale), where
-    scale is the rms of want's last dim (row_scale) or 1; <= 1 passes."""
+    scale is the rms of want's last dim (row_scale) or 1; <= 1 passes. An
+    element equal to its want counts 0, also where its bound is 0 (a causal
+    row whose gradient is exactly zero)."""
+    import torch
     got, want = got.float(), want.float()
     scale = want.pow(2).mean(-1, keepdim=True).sqrt() if row_scale else 1.0
-    return ((got - want).abs() / (rtol * want.abs() + atol * scale)).max().item()
+    diff = (got - want).abs()
+    ratio = diff / (rtol * want.abs() + atol * scale)
+    return torch.where(diff == 0, torch.zeros_like(ratio), ratio).max().item()
 
 
-def phase_kernels():
+def _pairs(t_q, t_k, causal):
+    """Unmasked (row, col) pairs of one (batch, head)."""
+    if not causal:
+        return t_q * t_k
+    offset = t_k - t_q
+    return sum(min(t_k, max(0, r + offset + 1)) for r in range(t_q))
+
+
+def _bound(flops, nbytes, itemsize):
+    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bwd_bound_ms(part, b, t_q, t_k, h, d, causal, itemsize):
+    """Least time of one backward call. Operations per unmasked pair: 10*D
+    one-pass (S, dP, dQ, dK, dV), 6*D flash dq (S, dP, dQ), 8*D flash dkv
+    (S, dP, dK, dV). Bytes: each input read once, each output written
+    once (q, k, v, dO; lse and delta f32 for flash; dq, dk, dv)."""
+    per_pair, rows_q, rows_k, f32_rows = {
+        "onepass_bwd": (10, 3, 4, 0), "flash_bwd_dq": (6, 3, 2, 2),
+        "flash_bwd_dkv": (8, 2, 4, 2)}[part]
+    flops = per_pair * d * b * h * _pairs(t_q, t_k, causal)
+    nbytes = itemsize * b * h * d * (rows_q * t_q + rows_k * t_k) + \
+        4 * f32_rows * b * t_q * h
+    return _bound(flops, nbytes, itemsize)
+
+
+def _sdpa_bwd(q, k, v, do, causal):
+    """PyTorch's fused attention backward on the same tensors (the
+    yardstick; the port never calls it): one autograd.grad of an SDPA
+    output, computing dq, dk and dv."""
     import torch
-    from paddle_tpu_torch.ops import attention as A
+    import torch.nn.functional as F
+    tr = lambda x: x.transpose(1, 2)
+    leaves = [tr(x).detach().requires_grad_(True) for x in (q, k, v)]
+    t_q, t_k = q.shape[1], k.shape[1]
+    if causal and t_q != t_k:
+        mask = torch.ones(t_q, t_k, dtype=torch.bool,
+                          device=q.device).tril(diagonal=t_k - t_q)
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+    else:
+        out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+    g = tr(do)
+    return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+
+def _summary_add(summary, key, path, weight, rec, bound_by):
+    s = summary.setdefault((key, path), dict(
+        weight=0.0, kernel_ms=0.0, plain_ms=0.0, library_ms=0.0,
+        bound_ms=0.0, ops_bound_ms=0.0, library=True))
+    s["weight"] += weight
+    for k in ("kernel_ms", "plain_ms", "bound_ms"):
+        s[k] += weight * rec[k]
+    if rec.get("library_ms") is None:
+        s["library"] = False
+    else:
+        s["library_ms"] += weight * rec["library_ms"]
+    if bound_by == "operations":
+        s["ops_bound_ms"] += weight * rec["bound_ms"]
+
+
+def _fwd_cases(A, gen, summary, max_err, failed):
+    import torch
     wrappers = {"onepass": (A.onepass_attention_fwd_bthd,
                             A.onepass_attention_fwd_plain),
                 "flash": (A.flash_attention_fwd_bthd,
                           A.flash_attention_fwd_plain)}
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED)
-    timed = ("kernel_ms", "plain_ms", "library_ms", "bound_ms")
-    # per kernel: weighted sums over the serving mix, and the bf16 max error
-    summary = {k: dict(dict.fromkeys(timed + ("weight", "ops_bound_ms"), 0.0),
-                       max_abs_err=0.0) for k in wrappers}
-    failed = []
-    for kernel, b, t_q, t_k, h, d, causal, dtype, weight in KERNEL_CASES:
+    for kernel, b, t_q, t_k, h, d, causal, dtype, path, weight in \
+            KERNEL_CASES:
         tdtype = getattr(torch, dtype)
         q, k, v = _qkv(gen, b, t_q, t_k, h, d, tdtype)
         fn, plain = wrappers[kernel]
@@ -201,7 +318,7 @@ def phase_kernels():
         torch.cuda.synchronize()
         rec = {"phase": "kernels", "kernel": kernel,
                "shape": [b, t_q, t_k, h, d], "causal": causal,
-               "dtype": dtype, "tol": OUT_TOL[dtype]}
+               "dtype": dtype, "path": path, "tol": OUT_TOL[dtype]}
         if kernel == "flash":
             (got, got_lse), (want, want_lse) = got, want
             rec["lse_err_ratio"] = err_ratio(got_lse, want_lse, *LSE_TOL,
@@ -213,7 +330,7 @@ def phase_kernels():
         rec["ok"] = rec["err_ratio"] <= 1 and \
             rec.get("lse_err_ratio", 0.0) <= 1 and \
             bool(torch.isfinite(got.float()).all())
-        s = summary[kernel]
+        del want
         if weight:
             drop = slice(0, t_k - CONTROL_DROP_KEYS)
             wrong = plain(q, k[:, drop].contiguous(), v[:, drop].contiguous(),
@@ -221,36 +338,254 @@ def phase_kernels():
             wrong = wrong[0] if kernel == "flash" else wrong
             rec["control_err_ratio"] = err_ratio(got, wrong, *OUT_TOL[dtype])
             rec["ok"] = rec["ok"] and rec["control_err_ratio"] > 1
-            bound, by = attention_bound_ms(b, t_q, t_k, h, d, causal,
-                                           q.element_size(), kernel == "flash")
+            del wrong
+            bound, by = _bound(
+                4.0 * b * h * d * _pairs(t_q, t_k, causal),
+                q.element_size() * b * h * d * (2 * t_q + 2 * t_k) +
+                (4 * b * t_q * h if kernel == "flash" else 0),
+                q.element_size())
             rec.update(kernel_ms=time_ms(lambda: fn(q, k, v, causal)),
-                       plain_ms=time_ms(lambda: plain(q, k, v, causal), iters=5),
+                       plain_ms=time_ms(lambda: plain(q, k, v, causal),
+                                        iters=5),
                        library_ms=time_ms(_sdpa(q, k, v, causal)),
                        bound_ms=bound, bound_by=by)
-            s["weight"] += weight
-            for key in timed:
-                s[key] += weight * rec[key]
-            if by == "operations":
-                s["ops_bound_ms"] += weight * bound
+            _summary_add(summary, kernel, path, weight, rec, by)
         if dtype == "bfloat16":
-            s["max_abs_err"] = max(s["max_abs_err"], rec["max_abs_err"])
+            max_err[kernel] = max(max_err.get(kernel, 0.0),
+                                  rec["max_abs_err"])
         emit(rec)
         if not rec["ok"]:
             failed.append(rec)
-        del q, k, v, got, want
+        del q, k, v, got
+
+
+def _onepass_bwd_no_delta(A, q, k, v, do, causal):
+    """Control: the one-pass backward's plain version with delta dropped."""
+    import torch
+    scale = A._scale_of(q, None)
+    s = A._scores(q, k, causal, scale)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = A._ds(p, dp, 0.0, A._masked(q, k, causal), scale, q.dtype)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.float(), k.float()).to(q.dtype)
+    return (dq,) + A._dkv(q, do, p, ds, k, v)
+
+
+def _bwd_cases(A, gen, summary, max_err, failed):
+    import torch
+    for kernel, b, t_q, t_k, h, d, causal, dtype, path, weight in BWD_CASES:
+        tdtype = getattr(torch, dtype)
+        q, k, v = _qkv(gen, b, t_q, t_k, h, d, tdtype)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(tdtype)
+        rtol, atol = BWD_TOL[kernel][dtype]
+        rec = {"phase": "kernels", "kernel": kernel,
+               "shape": [b, t_q, t_k, h, d], "causal": causal,
+               "dtype": dtype, "path": path, "tol": [rtol, atol]}
+        names = ("dq", "dk", "dv")
+        if kernel == "onepass_bwd":
+            fn = A.onepass_attention_bwd_bthd
+            before = fn.launches
+            got = fn(q, k, v, do, causal)
+            want = A.onepass_attention_bwd_plain(q, k, v, do, causal)
+            rec["launches"] = fn.launches - before
+            parts = {"onepass_bwd": (lambda: fn(q, k, v, do, causal),
+                                     lambda: A.onepass_attention_bwd_plain(
+                                         q, k, v, do, causal))}
+        else:
+            out, lse = A.flash_attention_fwd_bthd(q, k, v, causal)
+            delta = A.flash_delta(out, do)
+            before = (A.flash_attention_bwd_dq.launches,
+                      A.flash_attention_bwd_dkv.launches)
+            got = (A.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal),
+                   ) + A.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                 causal)
+            rec["launches"] = [A.flash_attention_bwd_dq.launches - before[0],
+                               A.flash_attention_bwd_dkv.launches - before[1]]
+            want = (A.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                   causal),) + \
+                A.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                causal)
+            parts = {
+                "flash_bwd_dq": (
+                    lambda: A.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                     causal),
+                    lambda: A.flash_attention_bwd_dq_plain(
+                        q, k, v, do, lse, delta, causal)),
+                "flash_bwd_dkv": (
+                    lambda: A.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                      causal),
+                    lambda: A.flash_attention_bwd_dkv_plain(
+                        q, k, v, do, lse, delta, causal))}
+        torch.cuda.synchronize()
+        rec["err_ratio"] = {n: err_ratio(g, w, rtol, atol)
+                            for n, g, w in zip(names, got, want)}
+        rec["max_abs_err"] = {n: (g.float() - w.float()).abs().max().item()
+                              for n, g, w in zip(names, got, want)}
+        rec["ok"] = max(rec["err_ratio"].values()) <= 1 and \
+            all(bool(torch.isfinite(g.float()).all()) for g in got)
+        del want
+        if weight:
+            # controls: delta dropped (dq, dk), the last key tile dropped (dv)
+            drop = slice(0, t_k - CONTROL_DROP_KEYS)
+            kd, vd = k[:, drop].contiguous(), v[:, drop].contiguous()
+            if kernel == "onepass_bwd":
+                wrong = _onepass_bwd_no_delta(A, q, k, v, do, causal)[:2]
+                wrong_dv = A.onepass_attention_bwd_plain(q, kd, vd, do,
+                                                         causal)[2]
+            else:
+                zero = torch.zeros_like(delta)
+                wrong = (A.flash_attention_bwd_dq_plain(
+                    q, k, v, do, lse, zero, causal),
+                    A.flash_attention_bwd_dkv_plain(
+                        q, k, v, do, lse, zero, causal)[0])
+                out_d, lse_d = A.flash_attention_fwd_plain(q, kd, vd, causal)
+                wrong_dv = A.flash_attention_bwd_dkv_plain(
+                    q, kd, vd, do, lse_d, A.flash_delta(out_d, do),
+                    causal)[1]
+                del out_d, lse_d, zero
+            rec["control_err_ratio"] = {
+                "dq": err_ratio(got[0], wrong[0], rtol, atol),
+                "dk": err_ratio(got[1], wrong[1], rtol, atol),
+                "dv": err_ratio(got[2][:, drop], wrong_dv, rtol, atol)}
+            rec["ok"] = rec["ok"] and \
+                min(rec["control_err_ratio"].values()) > 1
+            del wrong, wrong_dv, kd, vd
+            lib = _sdpa_bwd(q, k, v, do, causal)
+            rec["library_ms"] = time_ms(lib, iters=10)
+            del lib
+            for part, (kfn, pfn) in parts.items():
+                bound, by = bwd_bound_ms(part, b, t_q, t_k, h, d, causal,
+                                         q.element_size())
+                prec = {"kernel_ms": time_ms(kfn, iters=10),
+                        "plain_ms": time_ms(pfn, iters=3, warmup=1),
+                        "bound_ms": bound, "bound_by": by,
+                        # SDPA's backward computes dq, dk and dv together:
+                        # a yardstick for the one-pass kernel, and for the
+                        # flash pair only summed (per-case line, PERF.md)
+                        "library_ms": rec["library_ms"]
+                        if part == "onepass_bwd" else None}
+                rec[part] = prec
+                _summary_add(summary, part, path, weight, prec, by)
+        if dtype == "bfloat16":
+            err = max(rec["max_abs_err"].values())
+            for part in (("onepass_bwd",) if kernel == "onepass_bwd" else
+                         ("flash_bwd_dq", "flash_bwd_dkv")):
+                max_err[part] = max(max_err.get(part, 0.0), err)
+        emit(rec)
+        if not rec["ok"]:
+            failed.append(rec)
+        del q, k, v, do, got, parts
+        if kernel == "flash_bwd":
+            del out, lse, delta
+        torch.cuda.empty_cache()
+
+
+def _adam_cases(K, gen, summary, max_err, failed):
+    import torch
+    b1, b2, eps = ADAM_HPARAMS
+    for shape, dtype, weight in ADAM_CASES:
+        tdtype = getattr(torch, dtype)
+        rnd = lambda: torch.randn(shape, generator=gen, device="cuda")
+        p, g = rnd().to(tdtype), rnd().to(tdtype)
+        m1, m2 = rnd() * 0.1, rnd().abs() * 0.1
+        lr_t = torch.tensor(0.003, device="cuda")
+        want = K.adam_update_plain(p, g, m1, m2, lr_t, b1, b2, eps)
+        before = K.adam_update.launches
+        got = K.adam_update(p.clone(), g, m1.clone(), m2.clone(), lr_t,
+                            b1, b2, eps)
+        torch.cuda.synchronize()
+        rtol, atol = ADAM_MOMENT_TOL
+        close = lambda x, y, r, a: bool(
+            ((x.float() - y.float()).abs() <= a + r * y.float().abs()).all())
+        rec = {"phase": "kernels", "kernel": "adam", "shape": list(shape),
+               "dtype": dtype, "launches": K.adam_update.launches - before,
+               "p_elements_differing": int((got[0] != want[0]).sum()),
+               "m1_elements_differing": int((got[1] != want[1]).sum()),
+               "m2_elements_differing": int((got[2] != want[2]).sum()),
+               "max_abs_err": max((x.float() - y.float()).abs().max().item()
+                                  for x, y in zip(got, want))}
+        rec["ok"] = close(got[0], want[0], ADAM_P_RTOL[dtype], 0.0) and \
+            close(got[1], want[1], rtol, atol) and \
+            close(got[2], want[2], rtol, atol)
+        if weight:
+            # control: the plain update with a wrong beta2
+            wrong = K.adam_update_plain(p, g, m1, m2, lr_t, b1, 0.99, eps)
+            rec["control_rejected"] = not close(got[2], wrong[2], rtol, atol)
+            rec["ok"] = rec["ok"] and rec["control_rejected"]
+            n = p.numel()
+            nbytes = n * (2 * p.element_size() + g.element_size() + 16)
+            bound, by = _bound(12.0 * n, nbytes, 4)
+            pk, m1k, m2k = p.clone(), m1.clone(), m2.clone()
+            f32 = [x.float().clone() for x in (p, g, m1, m2)]
+            steps = [torch.ones((), device="cuda")]
+            rec.update(
+                kernel_ms=time_ms(lambda: K.adam_update(
+                    pk, g, m1k, m2k, lr_t, b1, b2, eps)),
+                plain_ms=time_ms(lambda: K.adam_update_plain(
+                    p, g, m1, m2, lr_t, b1, b2, eps)),
+                library="torch._fused_adam_ on float32 p, g, m1, m2",
+                library_ms=time_ms(lambda: torch._fused_adam_(
+                    [f32[0]], [f32[1]], [f32[2]], [f32[3]], [], steps,
+                    lr=1e-4, beta1=b1, beta2=b2, weight_decay=0.0, eps=eps,
+                    amsgrad=False, maximize=False)),
+                bound_ms=bound, bound_by=by)
+            _summary_add(summary, "adam", "train", weight, rec, by)
+            del pk, m1k, m2k, f32, wrong
+        if dtype == "bfloat16":
+            max_err["adam"] = max(max_err.get("adam", 0.0),
+                                  rec["max_abs_err"])
+        emit(rec)
+        if not rec["ok"]:
+            failed.append(rec)
+
+
+def phase_kernels():
+    """Every kernel against its plain version. Returns (summary {(kernel,
+    path): weighted sums over the path's mix}, {kernel: max |err| over the
+    bf16 cases})."""
+    import torch
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops import adam_kernel as K
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    summary, max_err, failed = {}, {}, []
+    _fwd_cases(A, gen, summary, max_err, failed)
+    torch.cuda.empty_cache()
+    _bwd_cases(A, gen, summary, max_err, failed)
+    _adam_cases(K, gen, summary, max_err, failed)
+    rejecting = {"onepass": lambda q, k, v: A.onepass_attention_fwd_bthd(
+                     q, k, v),
+                 "flash": lambda q, k, v: A.flash_attention_fwd_bthd(q, k, v),
+                 "onepass_bwd": lambda q, k, v: A.onepass_attention_bwd_bthd(
+                     q, k, v, q),
+                 "flash_bwd": lambda q, k, v: A.flash_attention_bwd_dq(
+                     q, k, v, q, *[torch.zeros(q.shape[:3], device="cuda")] *
+                     2)}
     for kernel, t_k, d in REJECT_CASES:
         q, k, v = _qkv(gen, 1, 16, t_k, 2, d, torch.bfloat16)
         try:
-            wrappers[kernel][0](q, k, v)
+            rejecting[kernel](q, k, v)
         except ValueError as e:
             emit({"phase": "kernels", "kernel": kernel, "rejects":
                   [1, 16, t_k, 2, d], "error": str(e), "ok": True})
         else:
             raise AssertionError("%s accepted T_k=%d D=%d" % (kernel, t_k, d))
+    for shape in ADAM_REJECT_SHAPES:
+        p = torch.zeros(shape, device="cuda")
+        try:
+            K.adam_update(p, p, p, p, torch.zeros((), device="cuda"),
+                          *ADAM_HPARAMS)
+        except ValueError as e:
+            emit({"phase": "kernels", "kernel": "adam", "rejects":
+                  list(shape), "error": str(e), "ok": True})
+        else:
+            raise AssertionError("adam accepted shape %s" % (shape,))
+    torch.cuda.empty_cache()
     if failed:
         raise AssertionError("kernels disagree with their plain versions (or "
                              "the bound misses the control): %r" % failed)
-    return summary
+    return summary, max_err
 
 
 def _request(transformer, batch, seq_len, seed):
@@ -368,6 +703,169 @@ def phase_logits_control(exe, scope, serve, feed, logits, cpu):
         raise AssertionError("the logits limits pass a faulty program")
 
 
+def _counters(A, K):
+    """name -> the wrapper whose `launches` counts its kernel."""
+    return {"onepass": A.onepass_attention_fwd_bthd,
+            "flash": A.flash_attention_fwd_bthd,
+            "onepass_bwd": A.onepass_attention_bwd_bthd,
+            "flash_bwd_dq": A.flash_attention_bwd_dq,
+            "flash_bwd_dkv": A.flash_attention_bwd_dkv,
+            "adam": K.adam_update}
+
+
+def _zero(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def _read(counters):
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def train_flops_per_token(cfg):
+    """bench.py's 6N rule (train_matmul_flops_per_token): matmul params
+    times 6, plus the attention score and context products times 3."""
+    d, dff, nl = cfg["d_model"], cfg["d_ff"], cfg["n_layer"]
+    n_matmul = nl * (4 * d * d + 2 * d * dff) + \
+        nl * (8 * d * d + 2 * d * dff) + d * cfg["tgt_vocab"]
+    return 6 * n_matmul + 3 * nl * 3 * 2 * (2 * cfg["seq_len"] * d)
+
+
+def _stacked(transformer, batch, seq_len, vocab, steps, seed):
+    import numpy as np
+    b = transformer.synthetic_batch(batch, seq_len, vocab, seed)
+    return {n: np.stack([x] * steps) for n, x in b.items()}
+
+
+def _train_phase(name, fluid, transformer, counters, cfg, batch, steps,
+                 want_per_step):
+    """Startup on the card, one warm step, then `steps` steps through
+    run_steps with every launch count zeroed just before and read just
+    after."""
+    import numpy as np
+    import torch
+    main, startup, loss = transformer.training_programs(SEED, **cfg)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    vocab = cfg["tgt_vocab"]
+    warm = exe.run_steps(main, feed=_stacked(transformer, batch,
+                                             cfg["seq_len"], vocab, 1, SEED),
+                         n_steps=1, fetch_list=[loss], scope=scope)
+    feed = _stacked(transformer, batch, cfg["seq_len"], vocab, steps,
+                    SEED + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    t0 = time.perf_counter()
+    losses, = exe.run_steps(main, feed=feed, n_steps=steps,
+                            fetch_list=[loss], scope=scope,
+                            return_numpy=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = _read(counters)
+    losses = losses.float().cpu().numpy()
+    want = {k: v * steps for k, v in want_per_step.items()}
+    tokens = batch * cfg["seq_len"] * steps
+    ok = losses.shape == (steps,) and bool(np.isfinite(losses).all()) and \
+        bool(np.isfinite(np.asarray(warm[0])).all()) and launched == want
+    emit({"phase": name, "ok": ok, "batch": batch,
+          "seq_len": cfg["seq_len"], "dropout_rate": cfg["dropout_rate"],
+          "steps": steps, "losses": losses.tolist(),
+          "warm_loss": float(np.asarray(warm[0]).reshape(-1)[0]),
+          "window_seconds": seconds, "step_ms": seconds / steps * 1e3,
+          "tokens_per_s": tokens / seconds,
+          "model_tflops_per_s": tokens * train_flops_per_token(cfg) /
+          seconds / 1e12,
+          "launches": launched, "launches_want": want,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    if not ok:
+        raise AssertionError("%s failed: launches %s, want %s, losses %s"
+                             % (name, launched, want, losses))
+    del exe, scope
+    torch.cuda.empty_cache()
+    return launched
+
+
+# Card vs CPU after one training step of the bf16 model with dropout 0
+# (same weights, same batch): the loss by |card - cpu| / |cpu|, each
+# gradient by max |card - cpu| / max |cpu|. The limits sit between the sound
+# reading (loss 2.6e-6, gradients 0.031-0.038) and that of the program with
+# its decoder self-attention made non-causal (loss 2.0e-4, gradients
+# 0.159-0.969), which phase train_parity must reject. Both readings: NVIDIA
+# H100 80GB HBM3, 700 W (PERF.md).
+TRAIN_LOSS_REL_MAX = 3e-5
+TRAIN_GRAD_REL_MAX = 0.08
+PARITY_GRADS = ["enc.0.attn.q.w", "dec.0.self.q.w", "dec.0.self.k.w",
+                "dec.0.cross.q.w", "dec.3.cross.k.w", "src_emb"]
+
+
+def _make_noncausal(program):
+    """The decoder's self-attention made non-causal, in its forward ops and
+    in the fwd_attrs of their grad ops."""
+    changed = 0
+    for op in program.global_block().ops:
+        if op.type == "fused_attention" and op.attr("causal"):
+            op.attrs["causal"] = False
+            changed += 1
+        elif op.type == "grad_of" and \
+                op.attr("fwd_type") == "fused_attention" and \
+                op.attr("fwd_attrs").get("causal"):
+            # a new dict: a clone shares its attrs' nested values
+            op.attrs["fwd_attrs"] = dict(op.attr("fwd_attrs"), causal=False)
+            changed += 1
+    return changed
+
+
+def phase_train_parity(fluid, transformer):
+    import numpy as np
+    import torch
+    cfg = dict(transformer.FLAGSHIP_CFG, dropout_rate=0.0)
+    main, startup, loss = transformer.training_programs(SEED, **cfg)
+    feed = transformer.synthetic_batch(2, cfg["seq_len"], cfg["tgt_vocab"],
+                                       SEED + 300)
+    fetch = [loss.name] + [n + "@GRAD" for n in PARITY_GRADS]
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    state = {v.name: scope.get(v.name).cpu().clone()
+             for v in main.global_block().vars.values()
+             if v.persistable and scope.get(v.name) is not None}
+
+    def run(program, place):
+        sc = fluid.Scope()
+        for n, t in state.items():
+            sc.set(n, t.clone())
+        e = exe if place == "card" else fluid.Executor(fluid.CPUPlace())
+        return e.run(program, feed=feed, fetch_list=fetch, scope=sc)
+
+    def agreement(card, cpu):
+        rel = {"loss": float(abs(card[0] - cpu[0]) / abs(cpu[0]))}
+        for n, c, w in zip(PARITY_GRADS, card[1:], cpu[1:]):
+            rel[n] = float(np.abs(c - w).max() / np.abs(w).max())
+        ok = rel["loss"] <= TRAIN_LOSS_REL_MAX and \
+            max(v for k, v in rel.items() if k != "loss") <= \
+            TRAIN_GRAD_REL_MAX
+        return rel, ok
+
+    cpu = run(main, "cpu")
+    card = run(main, "card")
+    rel, ok = agreement(card, cpu)
+    faulty = main.clone()
+    changed = _make_noncausal(faulty)
+    wrong, control_ok = agreement(run(faulty, "card"), cpu)
+    emit({"phase": "train_parity", "ok": ok and not control_ok,
+          "batch": 2, "seq_len": cfg["seq_len"], "dropout_rate": 0.0,
+          "loss_card": float(card[0]), "loss_cpu": float(cpu[0]),
+          "rel_err": rel, "loss_rel_max": TRAIN_LOSS_REL_MAX,
+          "grad_rel_max": TRAIN_GRAD_REL_MAX,
+          "control": "decoder self-attention not causal",
+          "control_ops_changed": changed, "control_rel_err": wrong,
+          "control_rejected": not control_ok})
+    if not ok or control_ok:
+        raise AssertionError("train_parity: card vs CPU %s (control %s)"
+                             % (rel, wrong))
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -378,43 +876,72 @@ def main():
         import paddle_tpu_torch.fluid as fluid
         from paddle_tpu_torch.models import transformer
         from paddle_tpu_torch.ops import attention as A
+        from paddle_tpu_torch.ops import adam_kernel as K
     except ImportError as e:
         print("chip_smoke: run from the root of a checkout (%s)" % e,
               file=sys.stderr)
         return 2
 
     phase_build()
-    summary = phase_kernels()
+    summary, max_err = phase_kernels()
+    counters = _counters(A, K)
+    launches = dict.fromkeys(counters, 0)
+
+    def add(launched):
+        for k, n in launched.items():
+            launches[k] += n
 
     exe, scope = fluid.Executor(), fluid.Scope()   # CUDAPlace(0)
-    A.onepass_attention_fwd_bthd.launches = 0
-    A.flash_attention_fwd_bthd.launches = 0
+    _zero(counters)
     check = phase_serve256(fluid, transformer, A, exe, scope)
+    add(_read(counters))
+    _zero(counters)
     phase_serve4096(fluid, transformer, A, exe, scope)
-    launches = {"onepass": A.onepass_attention_fwd_bthd.launches,
-                "flash": A.flash_attention_fwd_bthd.launches}
+    add(_read(counters))
     phase_logits_control(exe, scope, *check)
+    del exe, scope, check
+    torch.cuda.empty_cache()
+
+    cfg = dict(transformer.FLAGSHIP_CFG)
+    attn = 3 * cfg["n_layer"]
+    none = dict.fromkeys(counters, 0)
+    add(_train_phase("train256", fluid, transformer, counters, cfg,
+                     TRAIN_BATCH, TRAIN_STEPS,
+                     dict(none, onepass=attn, onepass_bwd=attn, adam=67)))
+    phase_train_parity(fluid, transformer)
+    add(_train_phase("train4096", fluid, transformer, counters,
+                     dict(cfg, seq_len=LONG_SEQ), LONG_TRAIN_BATCH,
+                     LONG_TRAIN_STEPS,
+                     dict(none, flash=attn, flash_bwd_dq=attn,
+                          flash_bwd_dkv=attn, adam=67)))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
           else "nvidia-smi: %s" % smi.stderr.strip())
-    replaces = {"onepass": "paddle_tpu/ops/attention.py:123",
-                "flash": "paddle_tpu/ops/attention.py:272"}
+    sources = {"onepass": "attention.cu", "flash": "attention.cu",
+               "onepass_bwd": "attention_bwd.cu",
+               "flash_bwd_dq": "attention_bwd.cu",
+               "flash_bwd_dkv": "attention_bwd.cu", "adam": "adam.cu"}
+    # the forward kernels are summarised over the serving mix (as in the
+    # first slice), the others over the training paths'
+    paths = {"onepass": "serve256", "flash": "serve4096",
+             "onepass_bwd": "train256", "flash_bwd_dq": "train4096",
+             "flash_bwd_dkv": "train4096", "adam": "train"}
     kernels = []
-    for name in ("onepass", "flash"):
-        s = summary[name]
+    for name, path in paths.items():
+        s = summary[(name, path)]
         w = s["weight"]
         kernels.append({
-            "name": name + "_attention_fwd_bthd", "route": "cuda",
-            "source": "paddle_tpu_torch/ops/csrc/attention.cu",
-            "replaces": replaces[name], "launches": launches[name],
-            "max_abs_err": s["max_abs_err"], "ms": s["kernel_ms"] / w,
+            "name": counters[name].__name__, "route": "cuda",
+            "source": "paddle_tpu_torch/ops/csrc/" + sources[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": max_err[name], "ms": s["kernel_ms"] / w,
             "plain_ms": s["plain_ms"] / w, "bound_ms": s["bound_ms"] / w,
             "bound_by": "operations" if 2 * s["ops_bound_ms"] >= s["bound_ms"]
             else "bytes",
-            "library_ms": s["library_ms"] / w})
+            "library_ms": s["library_ms"] / w if s["library"] else None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 """paddle_tpu_torch.fluid — the Fluid front-end on PyTorch: Program IR built by
-fluid.layers, run by an Executor on one torch.device (the card by default)."""
+fluid.layers, trained through append_backward and fluid.optimizer, run by an
+Executor on one torch.device (the card by default)."""
 from . import core_types
 from . import unique_name
 from . import framework
@@ -14,10 +15,20 @@ from . import initializer
 from .param_attr import ParamAttr
 from . import layers
 from .layer_helper import LayerHelper
+from . import backward
+from .backward import append_backward
+from . import optimizer
+from . import regularizer
+from . import clip
+from .clip import (GradientClipByValue, GradientClipByNorm,
+                   GradientClipByGlobalNorm, set_gradient_clip)
 from .executor import Executor, Scope, global_scope, scope_guard
 from .interop import params_from_numpy
 
 __all__ = framework.__all__ + [
-    "ops", "initializer", "ParamAttr", "layers", "LayerHelper", "Executor",
-    "Scope", "global_scope", "scope_guard", "params_from_numpy",
+    "ops", "initializer", "ParamAttr", "layers", "LayerHelper", "backward",
+    "append_backward", "optimizer", "regularizer", "clip",
+    "GradientClipByValue", "GradientClipByNorm", "GradientClipByGlobalNorm",
+    "set_gradient_clip",
+    "Executor", "Scope", "global_scope", "scope_guard", "params_from_numpy",
 ]

@@ -8,12 +8,20 @@ did for free is done here by a per-(program, fetch list) plan:
 - only the ops that the fetches or a persistable write need are run
   (XLA's dead-code elimination);
 - each intermediate is dropped after its last reader, so a long request
-  holds only its live activations (XLA's buffer liveness).
+  holds only its live activations (XLA's buffer liveness);
+- a training program's forward ops run once: each ``grad_of`` op is paired
+  with its forward op, which runs under autograd and keeps its record until
+  the grad op takes the gradient (XLA merged the JAX package's recomputed
+  forward with the real one; ops/grad_ops.py).
+
+``run_steps`` runs a training program over stacked feeds, one eager step
+after another.
 
 ``Executor()`` runs on ``CUDAPlace(0)`` and raises when there is no card;
 the CPU is used only when the caller passes ``CPUPlace()``.
 """
 import contextlib
+import json
 import zlib
 
 import numpy as np
@@ -23,7 +31,8 @@ from . import framework
 from .core_types import to_torch_dtype
 from .framework import Variable, default_main_program
 from .interop import tensor_from_numpy
-from .ops.registry import LoweringContext, lower_op
+from .ops.grad_ops import record_forward
+from .ops.registry import LoweringContext, lower_op, is_host_op
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard", "as_numpy"]
 
@@ -107,6 +116,11 @@ def as_numpy(value):
     return value.numpy()
 
 
+def _fetch_names(fetch_list):
+    return [v.name if isinstance(v, Variable) else str(v)
+            for v in (fetch_list or [])]
+
+
 def _program_rng_fp(program):
     """Structural fingerprint keying a program's random stream in a scope
     (the same string the JAX executor builds)."""
@@ -115,9 +129,38 @@ def _program_rng_fp(program):
         for b in program.blocks for op in b.ops)
 
 
+def _attrs_key(attrs):
+    return json.dumps(attrs, sort_keys=True, default=repr)
+
+
+def _pair_grad_ops(ops):
+    """{index of a grad_of op: index of its forward op}: the latest forward
+    op before it, not yet paired, of the same type, attrs and inputs."""
+    pairs, taken, keys = {}, set(), {}
+    for i, op in enumerate(ops):
+        if op.type != "grad_of":
+            continue
+        fwd_in = {k[len("FWD_IN:"):]: list(v) for k, v in op.inputs.items()
+                  if k.startswith("FWD_IN:")}
+        key = _attrs_key(op.attrs["fwd_attrs"])
+        for j in range(i - 1, -1, -1):
+            f = ops[j]
+            if j in taken or f.type != op.attrs["fwd_type"] or \
+                    dict(f.inputs) != fwd_in:
+                continue
+            if j not in keys:
+                keys[j] = _attrs_key(f.attrs)
+            if keys[j] == key:
+                pairs[i] = j
+                taken.add(j)
+                break
+    return pairs
+
+
 class _Plan(object):
     """The ops a run must execute, and after each op the names no later op
-    or fetch reads."""
+    or fetch reads. Each ``grad_of`` op is paired with its forward op, which
+    the run tapes (ops/grad_ops.py): a kept grad op keeps its forward op."""
 
     def __init__(self, program, fetch_names):
         block = program.global_block()
@@ -127,32 +170,47 @@ class _Plan(object):
             meta = block.vars.get(n)
             return meta is not None and meta.persistable
 
+        ops = block.ops
+        pairs = _pair_grad_ops(ops)
         needed = set(fetch_names)
-        kept = []
-        for op in reversed(block.ops):
-            outs = op.output_arg_names
-            if any(o in needed or persistable(o) for o in outs):
-                kept.append(op)
+        forced, kept_idx = set(), []
+        for i in range(len(ops) - 1, -1, -1):
+            op = ops[i]
+            if i in forced or any(o in needed or persistable(o)
+                                  for o in op.output_arg_names):
+                kept_idx.append(i)
                 needed.update(n for n in op.input_arg_names if n != "@EMPTY@")
-        kept.reverse()
+                if i in pairs:
+                    forced.add(pairs[i])
+        kept_idx.reverse()
+        pos = {i: k for k, i in enumerate(kept_idx)}
+        kept = [ops[i] for i in kept_idx]
         last_read = {}
         for i, op in enumerate(kept):
             for n in op.input_arg_names:
                 last_read[n] = i
         keep = set(fetch_names)
         self.steps = []
-        for i, op in enumerate(kept):
+        for k, op in enumerate(kept):
             touched = set(op.input_arg_names) | set(op.output_arg_names)
             drop = [n for n in touched
-                    if n not in keep and last_read.get(n, -1) <= i]
+                    if n not in keep and last_read.get(n, -1) <= k]
             self.steps.append((op, drop))
+        # step of a grad_of -> step of its forward op; step of a taped
+        # forward op -> the need_grad flags of its grad_of
+        self.grad_fwd = {pos[i]: pos[pairs[i]] for i in kept_idx
+                         if i in pairs}
+        self.taped = {pos[pairs[i]]: ops[i].attrs["need_grad"]
+                      for i in kept_idx if i in pairs}
         self.persistable = {n for op in kept for n in op.output_arg_names
                             if persistable(n)}
+        self.host_ops = sorted({op.type for op in kept
+                                if is_host_op(op.type)})
 
 
 class Executor(object):
     """Reference surface: Executor(place).run(program, feed, fetch_list, ...)
-    (reference: python/paddle/fluid/executor.py:262,451)."""
+    (reference: python/paddle/fluid/executor.py:262,451), and run_steps."""
 
     def __init__(self, place=None):
         self.place = place if place is not None else framework.CUDAPlace(0)
@@ -163,51 +221,109 @@ class Executor(object):
         self.device = self.place.torch_device()
         self._plans = {}
 
+    def _plan(self, program, fetch_names):
+        key = (program.id, program.version, tuple(fetch_names))
+        plan = self._plans.get(key)
+        if plan is None:
+            plan = self._plans[key] = _Plan(program, fetch_names)
+        return plan
+
     def run(self, program=None, feed=None, fetch_list=None,
             feed_var_name="feed", fetch_var_name="fetch", scope=None,
             return_numpy=True, use_program_cache=True):
         if program is None:
             program = default_main_program()
         scope = scope if scope is not None else global_scope()
-        feed = feed or {}
-        fetch_names = [v.name if isinstance(v, Variable) else str(v)
-                       for v in (fetch_list or [])]
+        fetch_names = _fetch_names(fetch_list)
         block = program.global_block()
-        key = (program.id, program.version, tuple(fetch_names))
-        plan = self._plans.get(key)
-        if plan is None:
-            plan = self._plans[key] = _Plan(program, fetch_names)
-
+        plan = self._plan(program, fetch_names)
         env = {n: self._to_device(v, block.vars.get(n))
-               for n, v in feed.items()}
-        ctx = LoweringContext(self.device,
-                              self._generator(scope, program, plan.rng_fp),
-                              is_test=program._is_test)
+               for n, v in (feed or {}).items()}
+        gen = self._generator(scope, program, plan.rng_fp)
+        self._run_step(plan, env, scope, block, gen, program._is_test)
+        results = [self._fetch(env, scope, n) for n in fetch_names]
+        if return_numpy:
+            results = [as_numpy(r) for r in results]
+        return results
+
+    def run_steps(self, program=None, feed=None, n_steps=1, fetch_list=None,
+                  scope=None, return_numpy=True):
+        """Run ``program`` ``n_steps`` times, one training step after
+        another: every feed is stacked on a leading [n_steps] axis and
+        moved to the device once, step i reads slice i, each step draws
+        from the run's generator, and the parameters, moments and beta
+        powers in the scope are updated after every step. Fetches come
+        back stacked the same way. The step loop runs eagerly on the host.
+        Host ops cannot run inside the loop: use run()."""
+        if program is None:
+            program = default_main_program()
+        scope = scope if scope is not None else global_scope()
+        fetch_names = _fetch_names(fetch_list)
+        block = program.global_block()
+        plan = self._plan(program, fetch_names)
+        if plan.host_ops:
+            raise NotImplementedError(
+                "run_steps cannot cross host op(s) %s; use run()"
+                % plan.host_ops)
+        stacked = {}
+        for name, value in (feed or {}).items():
+            shape = tuple(value.shape) if hasattr(value, "shape") \
+                else np.shape(value)
+            if not shape or shape[0] != n_steps:
+                raise ValueError(
+                    "run_steps feed %r must be stacked [n_steps, ...]; got "
+                    "shape %s for n_steps %d" % (name, shape, n_steps))
+            stacked[name] = self._to_device(value, block.vars.get(name))
+        gen = self._generator(scope, program, plan.rng_fp)
+        per_step = []
+        for i in range(n_steps):
+            env = {n: v[i] for n, v in stacked.items()}
+            self._run_step(plan, env, scope, block, gen, program._is_test)
+            # a fetched state tensor may be updated in place next step
+            per_step.append([
+                v.clone() if n in plan.persistable or scope.has(n) else v
+                for n, v in ((n, self._fetch(env, scope, n))
+                             for n in fetch_names)])
+        results = [torch.stack([s[j] for s in per_step])
+                   for j in range(len(fetch_names))]
+        if return_numpy:
+            results = [as_numpy(r) for r in results]
+        return results
+
+    def _run_step(self, plan, env, scope, block, gen, is_test):
+        """Run the plan once on env; taped forward ops keep their autograd
+        record until their grad_of consumes it."""
+        ctx = LoweringContext(self.device, gen, is_test=is_test)
+        tape = {}
         with torch.no_grad():
-            for op, drop in plan.steps:
+            for k, (op, drop) in enumerate(plan.steps):
                 for n in op.input_arg_names:
                     if n not in env and n != "@EMPTY@":
                         env[n] = self._read_state(scope, n, block)
-                lower_op(op, env, ctx)
+                if k in plan.taped:
+                    tape[k] = record_forward(op, env, ctx, plan.taped[k])
+                elif op.type == "grad_of":
+                    ctx.record = tape.pop(plan.grad_fwd.get(k), None)
+                    lower_op(op, env, ctx)
+                    ctx.record = None
+                else:
+                    lower_op(op, env, ctx)
                 for n in op.output_arg_names:
                     if n in env and (n in plan.persistable or scope.has(n)):
                         scope.set(n, env[n])
                 for n in drop:
                     env.pop(n, None)
 
-        results = []
-        for n in fetch_names:
-            v = env.get(n)
-            if v is None:
-                v = scope.get(n)
-            if v is None:
-                raise ValueError(
-                    "fetch variable %r was not produced by the program and is "
-                    "not in the scope" % n)
-            results.append(v)
-        if return_numpy:
-            results = [as_numpy(r) for r in results]
-        return results
+    @staticmethod
+    def _fetch(env, scope, name):
+        v = env.get(name)
+        if v is None:
+            v = scope.get(name)
+        if v is None:
+            raise ValueError(
+                "fetch variable %r was not produced by the program and is "
+                "not in the scope" % name)
+        return v.detach()
 
     def _read_state(self, scope, name, block):
         v = scope.get(name)

@@ -11,6 +11,13 @@ __all__ = ["get", "WHITELIST"]
 
 # name (without FLAGS_ prefix) -> (type, default, help)
 WHITELIST = {
+    "adam_kernel": (bool, True,
+                    "use the fused dense-Adam CUDA kernel on the card "
+                    "(ops/adam_kernel.py; 0 forces the plain path for A/B)"),
+    "dropout_save_mask": (bool, False,
+                          "materialize dropout masks for the backward pass "
+                          "instead of redrawing them from the saved "
+                          "generator state"),
     "flash_min_seq": (int, 1024,
                       "key length from which the flash attention kernel "
                       "takes over from the dense path (ops/attention.py)"),

@@ -25,8 +25,15 @@ __all__ = [
     "default_main_program", "default_startup_program",
     "switch_main_program", "switch_startup_program", "program_guard",
     "cpu_places", "cuda_places",
-    "CPUPlace", "CUDAPlace",
+    "CPUPlace", "CUDAPlace", "GRAD_VAR_SUFFIX", "grad_var_name",
 ]
+
+GRAD_VAR_SUFFIX = "@GRAD"
+
+
+def grad_var_name(name):
+    return name + GRAD_VAR_SUFFIX
+
 
 class Variable(object):
     """A named tensor slot in a Block.
@@ -262,6 +269,13 @@ class Block(object):
             blk = blk.parent_block
         raise ValueError("variable %r not found in block %d or ancestors"
                          % (name, self.idx))
+
+    def _has_var_recursive(self, name):
+        try:
+            self._var_recursive(name)
+            return True
+        except ValueError:
+            return False
 
     def all_parameters(self):
         return [v for v in self.vars.values() if isinstance(v, Parameter)]

@@ -1,4 +1,4 @@
-"""Activation lowerings: relu and softmax (the port's counterpart of
+"""Activation lowerings: relu, sqrt and softmax (the port's counterpart of
 ``paddle_tpu/fluid/ops/activation_ops.py``)."""
 import torch
 
@@ -15,3 +15,8 @@ def _relu(ctx, inputs, attrs):
 def _softmax(ctx, inputs, attrs):
     # fluid softmax normalizes over the last dim
     return {"Out": [torch.softmax(one(inputs, "X"), dim=-1)]}
+
+
+@register_lowering("sqrt")
+def _sqrt(ctx, inputs, attrs):
+    return {"Out": [torch.sqrt(one(inputs, "X"))]}

@@ -1,5 +1,6 @@
-"""Math op lowerings: mul/matmul, elementwise_add, scale (the port's
-counterpart of ``paddle_tpu/fluid/ops/math_ops.py``). Large products stay
+"""Math op lowerings: mul/matmul, elementwise add/mul/div, scale, sum and
+the gradient-clip helpers (the port's counterpart of
+``paddle_tpu/fluid/ops/math_ops.py``). Large products stay
 ``torch.matmul``, as the JAX package leaves them to XLA."""
 import torch
 
@@ -35,10 +36,17 @@ def _matmul(ctx, inputs, attrs):
     return {"Out": [out]}
 
 
-@register_lowering("elementwise_add")
-def _elementwise_add(ctx, inputs, attrs):
-    x, y = one(inputs, "X"), one(inputs, "Y")
-    return {"Out": [x + align_rank(x, y, attrs.get("axis", -1))]}
+def _elementwise(fn):
+    def lower(ctx, inputs, attrs):
+        x, y = one(inputs, "X"), one(inputs, "Y")
+        return {"Out": [fn(x, align_rank(x, y, attrs.get("axis", -1)))]}
+    return lower
+
+
+for _name, _fn in [("elementwise_add", torch.add),
+                   ("elementwise_mul", torch.mul),
+                   ("elementwise_div", torch.div)]:
+    register_lowering(_name)(_elementwise(_fn))
 
 
 @register_lowering("scale")
@@ -49,3 +57,39 @@ def _scale(ctx, inputs, attrs):
     if attrs.get("bias_after_scale", True):
         return {"Out": [x * scale + bias]}
     return {"Out": [(x + bias) * scale]}
+
+
+@register_lowering("sum")
+def _sum(ctx, inputs, attrs):
+    xs = [x for x in inputs.get("X", []) if x is not None]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return {"Out": [out]}
+
+
+@register_lowering("sign")
+def _sign(ctx, inputs, attrs):
+    return {"Out": [torch.sign(one(inputs, "X"))]}
+
+
+@register_lowering("clip")
+def _clip(ctx, inputs, attrs):
+    return {"Out": [torch.clamp(one(inputs, "X"), attrs["min"],
+                                attrs["max"])]}
+
+
+@register_lowering("clip_by_norm")
+def _clip_by_norm(ctx, inputs, attrs):
+    x = one(inputs, "X")
+    max_norm = attrs["max_norm"]
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    scale = torch.where(norm > max_norm,
+                        max_norm / torch.clamp(norm, min=1e-12),
+                        torch.ones_like(norm))
+    return {"Out": [x * scale.to(x.dtype)]}
+
+
+@register_lowering("squared_l2_norm")
+def _squared_l2_norm(ctx, inputs, attrs):
+    return {"Out": [torch.sum(torch.square(one(inputs, "X"))).reshape(1)]}

@@ -4,13 +4,13 @@
 import torch
 
 from ..core_types import to_torch_dtype
-from .registry import register_lowering
+from .registry import register_lowering, register_grad_maker
 from .common import one
 
 
 # ---------- creation ----------
 
-@register_lowering("fill_constant")
+@register_lowering("fill_constant", no_grad=True)
 def _fill_constant(ctx, inputs, attrs):
     shape = tuple(attrs.get("shape", ()))
     dtype = to_torch_dtype(attrs.get("dtype", "float32"))
@@ -30,17 +30,22 @@ def _random(ctx, attrs, fill):
     return {"Out": [out.to(dtype)]}
 
 
-@register_lowering("uniform_random")
+@register_lowering("uniform_random", no_grad=True)
 def _uniform_random(ctx, inputs, attrs):
     lo, hi = attrs.get("min", -1.0), attrs.get("max", 1.0)
     return _random(ctx, attrs, lambda t, g: t.uniform_(lo, hi, generator=g))
 
 
-@register_lowering("gaussian_random")
+@register_lowering("gaussian_random", no_grad=True)
 def _gaussian_random(ctx, inputs, attrs):
     mean, std = attrs.get("mean", 0.0), attrs.get("std", 1.0)
     return _random(ctx, attrs,
                    lambda t, g: t.normal_(mean, std, generator=g))
+
+
+@register_lowering("assign")
+def _assign(ctx, inputs, attrs):
+    return {"Out": [one(inputs, "X")]}
 
 
 @register_lowering("cast")
@@ -94,7 +99,49 @@ def _lookup_table(ctx, inputs, attrs):
     return {"Out": [out.reshape(out_shape)]}
 
 
-@register_lowering("causal_mask")
+@register_grad_maker("lookup_table")
+def _lookup_table_grad_maker(op, block, no_grad_set):
+    """Dense embedding grad: a scatter-add of the output grads into a
+    [vocab, dim] table. The sparse (rows, values) grad of the JAX package
+    comes with the DeepFM slice."""
+    w_name = op.input("W")[0]
+    uses = sum(1 for o in block.ops if w_name in o.input_arg_names)
+    if op.attrs.get("is_sparse") and uses == 1:
+        raise NotImplementedError(
+            "lookup_table(is_sparse=True): sparse row gradients are not "
+            "ported yet; build the embedding with is_sparse=False")
+    attrs = dict(op.attrs)
+    attrs["is_sparse"] = False
+    grad_op = {
+        "type": "lookup_table_grad",
+        "inputs": {"W": op.input("W"), "Ids": op.input("Ids"),
+                   "Out@GRAD": [op.output("Out")[0] + "@GRAD"]},
+        "outputs": {"W@GRAD": [w_name + "@GRAD"]},
+        "attrs": attrs,
+    }
+    return [grad_op], {w_name + "@GRAD": w_name}
+
+
+@register_lowering("lookup_table_grad")
+def _lookup_table_grad(ctx, inputs, attrs):
+    """dW = zeros.index_add_(ids, dout) in the table dtype. An id outside
+    [0, vocab) contributes nothing (its forward row read NaN)."""
+    w, ids = one(inputs, "W"), one(inputs, "Ids")
+    dout = one(inputs, "Out@GRAD")
+    flat = ids.reshape(-1).long()
+    if dout.ndim < 2:
+        lead = tuple(ids.shape[:-1] if ids.shape and ids.shape[-1] == 1
+                     else ids.shape)
+        dout = torch.broadcast_to(dout, lead + (w.shape[1],))
+    dflat = dout.reshape(flat.shape[0], w.shape[1]).to(w.dtype)
+    valid = (flat >= 0) & (flat < w.shape[0])
+    dflat = torch.where(valid[:, None], dflat, torch.zeros_like(dflat))
+    dw = torch.zeros_like(w).index_add_(0, flat.clamp(0, w.shape[0] - 1),
+                                        dflat)
+    return {"W@GRAD": [dw]}
+
+
+@register_lowering("causal_mask", no_grad=True)
 def _causal_mask(ctx, inputs, attrs):
     """Additive causal attention bias [1, 1, T, T]: 0 on/below diagonal,
     -1e9 above (decoder self-attention)."""

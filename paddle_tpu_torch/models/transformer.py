@@ -5,8 +5,9 @@ The port's counterpart of ``paddle_tpu/models/transformer.py``: the same
 (``enc.0.attn.q.w``, ``src_emb``, ``proj.w``, ...), so a Program built here
 is op-for-op identical to the JAX package's and takes its weights. Every
 attention instance is one ``fused_attention`` op on [B, T, H, Dh], which
-runs the one-pass or flash CUDA kernel on the card. Sharding (``strategy``)
-is not ported yet.
+runs the one-pass or flash CUDA kernel on the card, forward and backward.
+``serving_programs`` and ``training_programs`` build the two paths.
+Sharding (``strategy``) is not ported yet.
 """
 import numpy as np
 
@@ -217,6 +218,19 @@ def serving_programs(seed, **cfg):
         _, avg_loss = build(is_test=True, **cfg)
     serve, logits = inference_program(main, avg_loss)
     return serve, startup, logits
+
+
+def training_programs(seed, **cfg):
+    """Build the model with ``build``'s keywords ``cfg`` in fresh programs,
+    the startup program seeded with ``seed``, and append its training step
+    as bench.py's training leg does (``Adam(1e-4).minimize``). Returns
+    (main program, startup program, avg_loss)."""
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = seed
+    with fluid.program_guard(main, startup):
+        _, avg_loss = build(**cfg)
+        fluid.optimizer.Adam(learning_rate=1e-4).minimize(avg_loss)
+    return main, startup, avg_loss
 
 
 def synthetic_batch(batch, seq_len, vocab, seed=0):

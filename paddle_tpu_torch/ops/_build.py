@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with nvcc for Hopper (sm_90a) into its own
 shared library with a plain C interface, loaded with ctypes. A build goes
 into ``build/paddle_tpu_torch/<name>-<hash>/`` beside the package, keyed by
-a hash of the source and the flags, so an edited source rebuilds and an
+a hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
+so an edited source rebuilds and an
 unchanged one loads. Nothing is built at import: ``library(name)`` builds
 at first use, and ``build_all()`` starts one nvcc per source together.
 """
@@ -31,6 +32,17 @@ SIGNATURES = {
          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P]),
         ("attention_error_string", [_I]),
     ],
+    "attention_bwd": [
+        ("onepass_attention_bwd",
+         [_P] * 10 + [_I] * 5 + [_F, _I, _I, _P]),
+        ("flash_attention_bwd_dq",
+         [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P]),
+        ("flash_attention_bwd_dkv",
+         [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P]),
+    ],
+    "adam": [
+        ("adam_update", [_P] * 5 + [_I] + [_F] * 5 + [_I, _I, _P]),
+    ],
 }
 
 _libs = {}
@@ -46,9 +58,14 @@ def _nvcc():
 
 
 def _paths(name):
+    """Source, build directory and library of csrc/<name>.cu; the directory
+    is keyed by the source, the shared headers and the flags."""
     src = os.path.join(_CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(_CSRC, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     out_dir = os.path.join(_BUILD_ROOT, "%s-%s" % (name, digest.hexdigest()[:16]))
     return src, out_dir, os.path.join(out_dir, "lib%s.so" % name)
 
@@ -113,3 +130,21 @@ def library(name):
 
 def error_string(err):
     return library("attention").attention_error_string(err).decode()
+
+
+def launch(wrapper, name, entry, device, *args):
+    """Call C entry point ``entry`` of csrc/<name>.cu on ``device``'s
+    current stream (tensor arguments are passed as pointers; the stream
+    goes last), raise on the CUDA error it returns, and count the launch
+    on ``wrapper.launches``."""
+    import torch
+    lib = library(name)
+    args = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
+            else a for a in args]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(*args, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError("%s: CUDA error %d (%s)"
+                           % (wrapper.__name__, err, error_string(err)))
+    wrapper.launches += 1

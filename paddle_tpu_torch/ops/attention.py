@@ -1,6 +1,7 @@
-"""Attention forward on the native [B, T, H, D] ("bthd") layout: the one-pass
-and flash CUDA kernels for Hopper, their plain PyTorch versions, the dense
-path, and ``fused_attention_bthd`` with the JAX package's dispatch.
+"""Attention on the native [B, T, H, D] ("bthd") layout: the one-pass and
+flash CUDA kernels for Hopper, forward and backward, their plain PyTorch
+versions, the dense path, and ``fused_attention_bthd`` with the JAX
+package's dispatch.
 
 Counterpart of ``paddle_tpu/ops/attention.py``. Dispatch (``_bthd_mode``)
 is kept exactly: on the card, T_q and T_k <= FLAGS_onepass_max_seq with
@@ -9,8 +10,8 @@ T_k >= FLAGS_flash_min_seq takes the flash kernel; everything else, and
 every tensor off the card, takes the dense path, which stays plain
 PyTorch as it stays XLA in the JAX package.
 
-Both kernels live in ``csrc/attention.cu`` and keep their Pallas kernels'
-rounding points:
+The forward kernels live in ``csrc/attention.cu`` and keep their Pallas
+kernels' rounding points:
 
 - one-pass (replaces ``_onepass_fwd_kernel``, paddle_tpu/ops/attention.py:123):
   S = QK^T*scale in f32, causal mask to NEG_INF, exact row max and sum,
@@ -23,13 +24,24 @@ rounding points:
 Causal masks are bottom-right aligned (col <= row + T_k - T_q), as in the
 JAX package. A row with no key (causal, T_q > T_k) gets a uniform softmax
 over all keys on every path here; the Pallas flash kernel's answer for it
-depends on its tiles (0/0 where a whole q-tile has no key). Each wrapper runs the kernel for a CUDA tensor (or raises)
-and the plain version only for a CPU tensor; ``launches`` on the wrapper
-counts kernel launches.
+depends on its tiles (0/0 where a whole q-tile has no key). Each wrapper
+runs the kernel for a CUDA tensor (or raises) and the plain version only
+for a CPU tensor; ``launches`` on the wrapper counts kernel launches.
 
-Forward only: the backward kernels come with the training slice.
+The backward kernels live in ``csrc/attention_bwd.cu``:
+
+- one-pass backward (replaces ``_onepass_bwd_kernel``, attention.py:146):
+  P recomputed and normalised in f32, delta = rowsum(dP o P) from P, dS
+  rounded to the input dtype, dQ = dS K, dK = dS^T Q, dV = P^T dO with P
+  rounded first; two launches per call (dq, then dk and dv).
+- flash backward (replaces ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``,
+  attention.py:400 and :447): P = exp(S - lse) per tile, delta =
+  rowsum(dO o O) computed outside; one wrapper per kernel.
+
+In the backward a keyless row keeps the dense path's answer: P = 1/T_k over
+all keys, dS = 0. ``fused_attention_bthd`` is differentiable: an
+autograd.Function runs the kernels with the JAX package's residuals.
 """
-import ctypes
 import math
 
 import torch
@@ -122,16 +134,6 @@ def _check_kernel_inputs(name, q, k, v, max_tk):
         raise ValueError("%s: q, k, v must be contiguous" % name)
 
 
-def _launch_check(name, err):
-    if err != 0:
-        raise RuntimeError("%s: CUDA error %d (%s)" % (
-            name, err, _build.error_string(err)))
-
-
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
-
-
 def onepass_attention_fwd_bthd(q, k, v, causal=False, scale=None):
     """Short-sequence fused attention forward on [B, T, H, D]: the one-pass
     CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
@@ -141,15 +143,10 @@ def onepass_attention_fwd_bthd(q, k, v, causal=False, scale=None):
                          _ONEPASS_KERNEL_MAX_TK)
     b, t_q, h, d = q.shape
     out = torch.empty_like(q)
-    lib = _build.library("attention")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.onepass_attention_fwd(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(out), b, t_q, k.shape[1], h, d,
-            float(_scale_of(q, scale)), int(bool(causal)),
-            _DTYPE_CODE[q.dtype], ctypes.c_void_p(stream))
-    _launch_check("onepass_attention_fwd_bthd", err)
-    onepass_attention_fwd_bthd.launches += 1
+    _build.launch(onepass_attention_fwd_bthd, "attention",
+                  "onepass_attention_fwd", q.device, q, k, v, out, b, t_q,
+                  k.shape[1], h, d, float(_scale_of(q, scale)),
+                  int(bool(causal)), _DTYPE_CODE[q.dtype])
     return out
 
 
@@ -183,19 +180,202 @@ def flash_attention_fwd_bthd(q, k, v, causal=False, scale=None):
     b, t_q, h, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, t_q, h), dtype=torch.float32, device=q.device)
-    lib = _build.library("attention")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_fwd(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), b, t_q,
-            k.shape[1], h, d, float(_scale_of(q, scale)), int(bool(causal)),
-            _DTYPE_CODE[q.dtype], ctypes.c_void_p(stream))
-    _launch_check("flash_attention_fwd_bthd", err)
-    flash_attention_fwd_bthd.launches += 1
+    _build.launch(flash_attention_fwd_bthd, "attention",
+                  "flash_attention_fwd", q.device, q, k, v, out, lse, b, t_q,
+                  k.shape[1], h, d, float(_scale_of(q, scale)),
+                  int(bool(causal)), _DTYPE_CODE[q.dtype])
     return out, lse
 
 
 flash_attention_fwd_bthd.launches = 0
+
+
+# --------------------------------------------------------------------------
+# backward kernels (csrc/attention_bwd.cu)
+# --------------------------------------------------------------------------
+
+def _keyless(q, k, causal):
+    """[T_q, 1] bool: rows with no key (causal, row + T_k - T_q < 0)."""
+    t_q, t_k = q.shape[1], k.shape[1]
+    rows = torch.arange(t_q, device=q.device)[:, None]
+    return (rows + (t_k - t_q) < 0) if causal else \
+        torch.zeros(t_q, 1, dtype=torch.bool, device=q.device)
+
+
+def _masked(q, k, causal):
+    """[T_q, T_k] bool: the positions the causal mask removes."""
+    t_q, t_k = q.shape[1], k.shape[1]
+    keep = torch.ones(t_q, t_k, dtype=torch.bool, device=q.device)
+    return ~keep.tril(diagonal=t_k - t_q) if causal else ~keep
+
+
+def _ds(p, dp, delta, masked, scale, dtype):
+    """dS = P o (dP - delta) * scale rounded to dtype, 0 where masked."""
+    ds = p * (dp - delta) * scale
+    return torch.where(masked, torch.zeros_like(ds), ds).to(dtype)
+
+
+def _dkv(q, do, p, ds, k, v):
+    """dK = dS^T Q and dV = P^T dO (P rounded to dO's dtype), accumulated
+    in f32, rounded once."""
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.float(), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def onepass_attention_bwd_plain(q, k, v, do, causal=False, scale=None):
+    """Plain version of the one-pass backward kernel: P recomputed with the
+    exact row max and sum and normalised in f32, delta = rowsum(dP o P)
+    from P (not from O), dS rounded to the input dtype. Returns (dq, dk,
+    dv)."""
+    scale = _scale_of(q, scale)
+    s = _scores(q, k, causal, scale)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    delta = (dp * p).sum(dim=-1, keepdim=True)
+    ds = _ds(p, dp, delta, _masked(q, k, causal), scale, q.dtype)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.float(), k.float()).to(q.dtype)
+    return (dq,) + _dkv(q, do, p, ds, k, v)
+
+
+def onepass_attention_bwd_bthd(q, k, v, do, causal=False, scale=None):
+    """Short-sequence fused attention backward on [B, T, H, D]: the one-pass
+    CUDA kernel (two launches: dq with the row statistics and delta, then dk
+    and dv) for CUDA tensors, the plain version for CPU tensors. Returns
+    (dq, dk, dv)."""
+    if q.device.type == "cpu":
+        return onepass_attention_bwd_plain(q, k, v, do, causal, scale)
+    name = "onepass_attention_bwd_bthd"
+    _check_kernel_inputs(name, q, k, v, _ONEPASS_KERNEL_MAX_TK)
+    _check_like(name, do, q, "do")
+    b, t_q, h, d = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # kernel (a)'s row max, row sum and delta, read by kernel (b)
+    m, l, delta = torch.empty((3, b, t_q, h), dtype=torch.float32,
+                              device=q.device)
+    _build.launch(onepass_attention_bwd_bthd, "attention_bwd",
+                  "onepass_attention_bwd", q.device, q, k, v, do, dq, dk, dv,
+                  m, l, delta, b, t_q, k.shape[1], h, d,
+                  float(_scale_of(q, scale)), int(bool(causal)),
+                  _DTYPE_CODE[q.dtype])
+    return dq, dk, dv
+
+
+onepass_attention_bwd_bthd.launches = 0
+
+
+def _flash_p(q, k, lse, causal, scale):
+    """P = exp(S - lse) in f32, [B, H, T_q, T_k]; a keyless row gets the
+    dense path's uniform 1/T_k."""
+    s = _scores(q, k, causal, scale)
+    p = torch.exp(s - lse.permute(0, 2, 1)[..., None])
+    return torch.where(_keyless(q, k, causal),
+                       torch.full_like(p, 1.0 / k.shape[1]), p)
+
+
+def _flash_ds(q, k, v, do, lse, delta, causal, scale):
+    scale = _scale_of(q, scale)
+    p = _flash_p(q, k, lse, causal, scale)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = _ds(p, dp, delta.permute(0, 2, 1)[..., None],
+             _masked(q, k, causal), scale, q.dtype)
+    return p, ds
+
+
+def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal=False,
+                                 scale=None):
+    """Plain version of the flash dq kernel: dq = dS K in f32, rounded
+    once."""
+    _, ds = _flash_ds(q, k, v, do, lse, delta, causal, scale)
+    return torch.einsum("bhqk,bkhd->bqhd", ds.float(), k.float()).to(q.dtype)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal=False,
+                                  scale=None):
+    """Plain version of the flash dkv kernel. Returns (dk, dv)."""
+    p, ds = _flash_ds(q, k, v, do, lse, delta, causal, scale)
+    return _dkv(q, do, p, ds, k, v)
+
+
+def _check_like(name, t, ref, what):
+    if t.shape != ref.shape or t.dtype != ref.dtype or \
+            t.device != ref.device or not t.is_contiguous():
+        raise ValueError("%s: %s must be a contiguous tensor like q, got %s %s"
+                         % (name, what, tuple(t.shape), t.dtype))
+
+
+def _check_rows(name, t, q, what):
+    b, t_q, h, _ = q.shape
+    if tuple(t.shape) != (b, t_q, h) or t.dtype != torch.float32 or \
+            t.device != q.device or not t.is_contiguous():
+        raise ValueError("%s: %s must be contiguous [B, T_q, H] float32, got "
+                         "%s %s" % (name, what, tuple(t.shape), t.dtype))
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False,
+                           scale=None):
+    """Flash backward, dq: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors. lse and delta are [B, T_q, H] f32."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal,
+                                            scale)
+    name = "flash_attention_bwd_dq"
+    _check_kernel_inputs(name, q, k, v, 2 ** 31 - 1)
+    _check_like(name, do, q, "do")
+    _check_rows(name, lse, q, "lse")
+    _check_rows(name, delta, q, "delta")
+    b, t_q, h, d = q.shape
+    dq = torch.empty_like(q)
+    _build.launch(flash_attention_bwd_dq, "attention_bwd",
+                  "flash_attention_bwd_dq", q.device, q, k, v, do, lse, delta,
+                  dq, b, t_q, k.shape[1], h, d, float(_scale_of(q, scale)),
+                  int(bool(causal)), _DTYPE_CODE[q.dtype])
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
+                            scale=None):
+    """Flash backward, dk and dv: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors. Returns (dk, dv)."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
+                                             scale)
+    name = "flash_attention_bwd_dkv"
+    _check_kernel_inputs(name, q, k, v, 2 ** 31 - 1)
+    _check_like(name, do, q, "do")
+    _check_rows(name, lse, q, "lse")
+    _check_rows(name, delta, q, "delta")
+    b, t_q, h, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _build.launch(flash_attention_bwd_dkv, "attention_bwd",
+                  "flash_attention_bwd_dkv", q.device, q, k, v, do, lse,
+                  delta, dk, dv, b, t_q, k.shape[1], h, d,
+                  float(_scale_of(q, scale)), int(bool(causal)),
+                  _DTYPE_CODE[q.dtype])
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_delta(out, do):
+    """delta = rowsum(dO o O) in f32, [B, T_q, H] (outside the kernels, as
+    in the JAX package)."""
+    return (do.float() * out.float()).sum(dim=-1)
+
+
+def flash_attention_bwd_bthd(q, k, v, out, lse, do, causal=False,
+                             scale=None):
+    """Flash backward on [B, T, H, D] from the forward's out and lse:
+    delta, then the dq and dkv kernels. Returns (dq, dk, dv)."""
+    delta = flash_delta(out, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
 
 
 # --------------------------------------------------------------------------
@@ -227,14 +407,43 @@ def _bthd_mode(q, k):
     return _MODE_DENSE
 
 
+class _FusedAttention(torch.autograd.Function):
+    """The one-pass or flash kernel with its backward kernel. Residuals are
+    the JAX package's: (q, k, v) for one-pass, (q, k, v, out, lse) for
+    flash."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, mode):
+        if mode == _MODE_FLASH:
+            out, lse = flash_attention_fwd_bthd(q, k, v, causal, scale)
+            ctx.save_for_backward(q, k, v, out, lse)
+        else:
+            out = onepass_attention_fwd_bthd(q, k, v, causal, scale)
+            ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale, ctx.mode = causal, scale, mode
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        if ctx.mode == _MODE_FLASH:
+            q, k, v, out, lse = ctx.saved_tensors
+            grads = flash_attention_bwd_bthd(q, k, v, out, lse, g,
+                                             ctx.causal, ctx.scale)
+        else:
+            q, k, v = ctx.saved_tensors
+            grads = onepass_attention_bwd_bthd(q, k, v, g, ctx.causal,
+                                               ctx.scale)
+        return grads + (None, None, None)
+
+
 def fused_attention_bthd(q, k, v, causal=False, scale=None):
     """[B,T,H,D] attention — the transpose-free path used by the Transformer.
-    Forward only."""
+    Differentiable: the kernel modes backpropagate through their backward
+    kernels, the dense mode through torch autograd (as the JAX package's
+    dense mode through jax.vjp)."""
     mode = _bthd_mode(q, k)
-    if mode == _MODE_FLASH:
-        return flash_attention_fwd_bthd(q.contiguous(), k.contiguous(),
-                                        v.contiguous(), causal, scale)[0]
-    if mode == _MODE_ONEPASS:
-        return onepass_attention_fwd_bthd(q.contiguous(), k.contiguous(),
-                                          v.contiguous(), causal, scale)
-    return dense_attention_bthd(q, k, v, causal, scale)
+    if mode == _MODE_DENSE:
+        return dense_attention_bthd(q, k, v, causal, scale)
+    return _FusedAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal, scale, mode)

@@ -152,3 +152,123 @@ def test_kernel_sources_exist_and_name_their_pallas_kernels():
     assert os.path.basename(os.path.dirname(out_dir)) == "paddle_tpu_torch"
     assert os.path.basename(os.path.dirname(os.path.dirname(out_dir))) == \
         "build"
+
+
+# --------------------------------------------------------------------------
+# backward: the plain versions against the Pallas backward kernels
+# --------------------------------------------------------------------------
+
+def _do(seed, q):
+    return np.random.RandomState(seed).randn(*q.shape).astype("float32")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t_q,t_k", [(32, 32), (16, 32)])
+def test_onepass_bwd_plain_matches_pallas_interpret(causal, t_q, t_k):
+    q, k, v = _qkv(11, 2, t_q, t_k, 2, 8)
+    do = _do(12, q)
+    want = JA.onepass_attention_bwd_bthd(
+        *(jnp.asarray(a) for a in (q, k, v, do)), causal=causal,
+        interpret=True)
+    before = TA.onepass_attention_bwd_bthd.launches
+    got = TA.onepass_attention_bwd_bthd(
+        *(torch.from_numpy(a) for a in (q, k, v, do)), causal=causal)
+    assert TA.onepass_attention_bwd_bthd.launches == before
+    for g, w, a in zip(got, want, (q, k, v)):
+        assert g.dtype == torch.float32 and g.shape == a.shape
+        _close(g, w)
+
+
+@pytest.mark.parametrize("causal,t_q,t_k", [
+    (False, 32, 32), (True, 32, 32), (False, 16, 32), (True, 16, 32),
+    (False, 32, 16), (True, 24, 40)])
+def test_flash_bwd_plain_matches_pallas_interpret(causal, t_q, t_k):
+    q, k, v = _qkv(13, 1, t_q, t_k, 2, 8)
+    do = _do(14, q)
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
+    jout, jlse = JA.flash_attention_fwd_bthd(jq, jk, jv, causal=causal,
+                                             block_q=8, block_k=8,
+                                             interpret=True)
+    want = JA.flash_attention_bwd_bthd(jq, jk, jv, jout, jlse, jdo,
+                                       causal=causal, block_q=8, block_k=8,
+                                       interpret=True)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    out, lse = TA.flash_attention_fwd_bthd(tq, tk, tv, causal)
+    counts = (TA.flash_attention_bwd_dq.launches,
+              TA.flash_attention_bwd_dkv.launches)
+    got = TA.flash_attention_bwd_bthd(tq, tk, tv, out, lse, tdo, causal)
+    assert counts == (TA.flash_attention_bwd_dq.launches,
+                      TA.flash_attention_bwd_dkv.launches)
+    for g, w in zip(got, want):
+        _close(g, w)
+    # the two wrappers alone, with the delta the composite computes
+    delta = TA.flash_delta(out, tdo)
+    _close(TA.flash_attention_bwd_dq(tq, tk, tv, tdo, lse, delta, causal),
+           want[0])
+    for g, w in zip(TA.flash_attention_bwd_dkv(tq, tk, tv, tdo, lse, delta,
+                                               causal), want[1:]):
+        _close(g, w)
+
+
+def _dense_vjp(q, k, v, do, causal):
+    import jax
+    _, vjp = jax.vjp(lambda a, b, c: JA.dense_attention_bthd(a, b, c, causal),
+                     *(jnp.asarray(x) for x in (q, k, v)))
+    return vjp(jnp.asarray(do))
+
+
+@pytest.mark.parametrize("t_q", [32, 28])
+def test_bwd_keyless_rows_follow_the_dense_path(t_q):
+    """Causal with T_q > T_k: a row with no key has the dense path's uniform
+    softmax, so its scores get no gradient (dq rows 0, nothing into dk) and
+    dv takes its dO / T_k. Both backward kernels' plain versions give the
+    dense path's vjp."""
+    t_k = 16
+    q, k, v = _qkv(15, 1, t_q, t_k, 2, 8)
+    do = _do(16, q)
+    want = _dense_vjp(q, k, v, do, True)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    for g, w in zip(TA.onepass_attention_bwd_bthd(tq, tk, tv, tdo, True),
+                    want):
+        _close(g, w)
+    out, lse = TA.flash_attention_fwd_bthd(tq, tk, tv, causal=True)
+    got = TA.flash_attention_bwd_bthd(tq, tk, tv, out, lse, tdo, True)
+    for g, w in zip(got, want):
+        _close(g, w)
+    assert not got[0][:, :t_q - t_k].abs().max()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fused_attention_cpu_grads_match_dense_vjp(causal):
+    """fused_attention_bthd is differentiable; on the CPU (dense mode) torch
+    autograd gives the JAX dense path's vjp."""
+    q, k, v = _qkv(17, 2, 16, 24, 2, 8)
+    do = _do(18, q)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = TA.fused_attention_bthd(*leaves, causal=causal)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(do))
+    for g, w in zip(got, _dense_vjp(q, k, v, do, causal)):
+        _close(g, w)
+
+
+@pytest.mark.parametrize("fn,n_in", [
+    (TA.onepass_attention_bwd_bthd, 4), (TA.flash_attention_bwd_dq, 4),
+    (TA.flash_attention_bwd_dkv, 4)])
+def test_bwd_wrappers_never_fall_back_off_the_cpu(fn, n_in):
+    x = torch.empty(1, 8, 2, 8, device="meta")
+    rows = torch.empty(1, 8, 2, device="meta")
+    args = [x] * n_in + ([rows, rows] if n_in == 4 and
+                         fn is not TA.onepass_attention_bwd_bthd else [])
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(*args)
+
+
+def test_bwd_kernel_source_names_its_pallas_kernels():
+    import os
+    from paddle_tpu_torch.ops import _build
+    src = open(os.path.join(_build._CSRC, "attention_bwd.cu")).read()
+    for sym in ("onepass_attention_bwd", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkv", "_onepass_bwd_kernel",
+                "_bwd_dq_kernel", "_bwd_dkv_kernel", "Hopper"):
+        assert sym in src
+    assert set(_build.SIGNATURES) == {"attention", "attention_bwd", "adam"}

@@ -151,10 +151,20 @@ def test_build_rejects_sharding_strategy():
 
 
 def test_port_imports_no_jax():
-    """The port and its Transformer load without JAX or the JAX package (a
-    subprocess: this test process has both loaded)."""
+    """The port, its Transformer and its training modules load without JAX
+    or the JAX package (a subprocess: this test process has both
+    loaded)."""
     code = ("import sys, paddle_tpu_torch.fluid, "
-            "paddle_tpu_torch.models.transformer\n"
+            "paddle_tpu_torch.models.transformer, "
+            "paddle_tpu_torch.fluid.backward, "
+            "paddle_tpu_torch.fluid.optimizer, "
+            "paddle_tpu_torch.fluid.regularizer, "
+            "paddle_tpu_torch.fluid.clip, "
+            "paddle_tpu_torch.fluid.ops.grad_ops, "
+            "paddle_tpu_torch.fluid.ops.optimizer_ops, "
+            "paddle_tpu_torch.ops.attention, "
+            "paddle_tpu_torch.ops.adam_kernel, "
+            "paddle_tpu_torch.ops._build\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'paddle_tpu.')) or "
             "m == 'paddle_tpu')\n"
@@ -162,3 +172,21 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py",
+                                    "tools/torch_profile_serve.py"])
+def test_card_scripts_import_no_jax(script):
+    """The scripts that run on the card (which has no JAX) import neither
+    JAX nor the JAX package, at top level or inside a function."""
+    tree = ast.parse(open(os.path.join(REPO, script)).read())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            mods.add(node.module)
+    assert "paddle_tpu_torch.fluid" in mods
+    bad = [m for m in mods if m.split(".")[0] in ("jax", "jaxlib") or
+           m == "paddle_tpu" or m.startswith("paddle_tpu.")]
+    assert not bad, bad
