@@ -9,16 +9,21 @@ Phases, each printing one JSON line (any failure ends the script with a
 non-zero exit):
 
 1. build    - nvcc builds the CUDA kernels from paddle_tpu_torch/ops/csrc.
-2. kernels  - each kernel (attention forward and backward, fused Adam)
-              against its plain PyTorch version on the card, at the serving
-              and training paths' shapes plus ragged and float32 cases, held
-              to the elementwise bounds below; at the paths' shapes the
-              bound must also reject a control (a plain version with the
-              last key tile or delta dropped, or a wrong beta2). It reports
+2. kernels  - each kernel (attention forward and backward, fused Adam,
+              cross-entropy forward and backward, LayerNorm backward, the
+              two embedding-grad kernels) against its plain PyTorch version
+              on the card, at the serving and training paths' shapes plus
+              ragged and float32 cases, held to the elementwise bounds
+              below; at the paths' shapes the bound must also reject a
+              control (a plain version with the last key tile, delta, the
+              label column, the ignore mask, the sum(g * xhat) term or the
+              last id chunk dropped or moved, or a wrong beta2). It reports
               the kernel's, the plain version's and one PyTorch library
               call's time (scaled_dot_product_attention forward or backward,
-              torch._fused_adam_: yardsticks only), and the least time the
-              card could take. Shapes the kernels refuse must raise.
+              torch._fused_adam_, F.cross_entropy,
+              native_layer_norm_backward, embedding_dense_backward:
+              yardsticks only), and the least time the card could take.
+              Shapes the kernels refuse must raise.
 3. serve256 - the flagship Transformer (bench.py's config: vocab 8192, 4+4
               layers, 8 heads, d_model 512, d_ff 2048, bf16, random weights
               from a seed) built with is_test=True, pruned to its logits as
@@ -38,12 +43,19 @@ non-zero exit):
               step, then Executor.run_steps over 4 stacked steps. Every loss
               must be finite and each step must launch 12 one-pass forward,
               12 one-pass backward, 0 flash and 67 Adam kernels.
-7. train_parity - the same program with dropout 0, batch 2, one step on the
-              card and one on the CPU from the same weights: the loss and
-              the gradients of a q/k weight of each attention kind and of
-              src_emb must agree within limits that reject the program with
-              its decoder self-attention made non-causal.
-8. train4096 - the training program at seq 4096, batch 8, one warm step then
+7. train256_kernels - train256 with FLAGS_ce_kernel=1, FLAGS_ln_kernel=1
+              and FLAGS_emb_grad_kernel=scatter, then =segsum (the flags
+              restored after): each step must launch, besides the attention
+              and Adam kernels of train256, 1 CE forward, 1 CE backward, 20
+              LayerNorm backward and 2 scatter (then 2 segsum) kernels.
+8. train_parity - the same program with dropout 0, batch 2, one step on the
+              card and one on the CPU from the same weights, with the flags
+              off and then on (scatter, segsum): the loss and the gradients
+              of a q/k weight of each attention kind, of both embeddings,
+              of proj.w and of one LayerNorm scale must agree within limits
+              that reject the program with its decoder self-attention made
+              non-causal.
+9. train4096 - the training program at seq 4096, batch 8, one warm step then
               2 steps through run_steps; each step must launch 12 flash
               forward, 12 dq, 12 dkv, 0 one-pass and 67 Adam kernels.
 
@@ -51,7 +63,9 @@ Then it prints the card's name and power limit (nvidia-smi), one JSON line
 with every kernel's numbers, and last {"ok": true, "device": {...}}. It
 imports nothing of JAX or of the JAX package paddle_tpu.
 """
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -216,6 +230,45 @@ REJECT_CASES = [("onepass", 513, 64), ("onepass", 256, 136),
                 ("flash", 1024, 12), ("onepass_bwd", 513, 64),
                 ("flash_bwd", 1024, 12)]
 ADAM_REJECT_SHAPES = [(512,), (7, 128), (8, 100)]
+# The flag-gated kernels, elementwise like OUT_TOL (|got - want| <= rtol *
+# |want| + atol * scale). CE loss and lse (f32, O(10)): the two sum V exps
+# in other orders, about 1e-7 of the sum; the bound allows 1e-5 relative and
+# 1e-5 absolute (scale 1), which the label logit read from the neighbouring
+# column (a change of O(1)) breaks by far. CE dlogits, LayerNorm dx: both
+# round the same f32 value to bf16 after f32 sums in other orders, so an
+# element may be one bf16 ulp off (2^-7 of it); atol 2^-12 of the row's rms
+# covers f32 noise near zero. float32: 1e-5 and 1e-5. LayerNorm dgamma and
+# dbeta (f32 sums over all rows in other orders): 1e-5 relative and 1e-5 of
+# the vector's rms.
+CE_LOSS_TOL = (1e-5, 1e-5)
+ROW_TOL = {"bfloat16": (2.0 ** -7, 2.0 ** -12), "float32": (1e-5, 1e-5)}
+LN_PARAM_TOL = (1e-5, 1e-5)
+IGNORE = -100
+# (kernel, rows, cols, dtype, path weight): CE (tokens, V); LN (rows, d);
+# the path cases are timed and must reject a control
+CE_CASES = [(65536, 8192, "bfloat16", 1), (24, 384, "bfloat16", 0),
+            (64, 1024, "float32", 0)]
+LN_CASES = [(65536, 512, "bfloat16", 20), (24, 384, "bfloat16", 0),
+            (64, 1024, "float32", 0), (16, 8192, "bfloat16", 0)]
+# embedding grad: (vocab, dim, ids, dtype, douts, path weight). "int" douts
+# are integers in [-4, 4]: with about 8 ids a row every partial sum stays
+# under 256 in magnitude, so bf16 accumulation is exact in any order and
+# the scatter must equal its plain version exactly; "randn" douts hold the
+# scatter to a bound that grows with a row's count of adds (each add rounds
+# once: |got - want| <= 2^-7 * n_row * sum |dout|). The segsum kernel sums
+# in the plain version's order and must equal it bit for bit in every case.
+EMB_CASES = [(8192, 512, 65536, "bfloat16", "int", 2),
+             (8192, 512, 65536, "bfloat16", "randn", 0),
+             (1024, 512, 65536, "float32", "int", 0),
+             (64, 128, 256, "float32", "int", 0)]
+# the last id chunk dropped: the embedding kernels' control
+EMB_CONTROL_DROP = 512
+# shapes the flag-gated kernels must refuse: CE and LN (rows, cols);
+# embedding (impl, (vocab, dim), ids, dtype)
+ROW_REJECT_SHAPES = [(12, 128), (16, 100)]
+EMB_REJECT_CASES = [("scatter", (64, 100), 256, "float32"),
+                    ("segsum", (64, 128), 100, "float32"),
+                    ("scatter", (8192, 512), 65536, "float32")]
 # TPU kernel each port kernel replaces
 REPLACES = {
     "onepass": "paddle_tpu/ops/attention.py:123",
@@ -224,19 +277,30 @@ REPLACES = {
     "flash_bwd_dq": "paddle_tpu/ops/attention.py:400",
     "flash_bwd_dkv": "paddle_tpu/ops/attention.py:447",
     "adam": "paddle_tpu/ops/adam_kernel.py:53",
+    "ce_fwd": "paddle_tpu/ops/ce_kernel.py:60",
+    "ce_bwd": "paddle_tpu/ops/ce_kernel.py:72",
+    "ln_bwd": "paddle_tpu/ops/layernorm_kernel.py:43",
+    "emb_scatter": "paddle_tpu/ops/emb_grad_kernel.py:96",
+    "emb_segsum": "paddle_tpu/ops/emb_grad_kernel.py:147",
 }
 
 
-def err_ratio(got, want, rtol, atol, row_scale=True):
+def err_ratio(got, want, rtol, atol, row_scale=True, bound=None):
     """max over elements of |got - want| / (rtol*|want| + atol*scale), where
-    scale is the rms of want's last dim (row_scale) or 1; <= 1 passes. An
-    element equal to its want counts 0, also where its bound is 0 (a causal
-    row whose gradient is exactly zero)."""
+    scale is the rms of want's last dim (row_scale) or 1, or over
+    |got - want| / bound where an elementwise bound is given; <= 1 passes.
+    An element equal to its want counts 0, also where its bound is 0 (a
+    causal row whose gradient is exactly zero); one that differs where its
+    bound is 0 counts 1e30, so a bound of 0 (rtol = atol = 0) asks for
+    equality; a NaN in got or want counts 1e30 too."""
     import torch
     got, want = got.float(), want.float()
-    scale = want.pow(2).mean(-1, keepdim=True).sqrt() if row_scale else 1.0
     diff = (got - want).abs()
-    ratio = diff / (rtol * want.abs() + atol * scale)
+    if bound is None:
+        scale = want.pow(2).mean(-1, keepdim=True).sqrt() if row_scale \
+            else 1.0
+        bound = rtol * want.abs() + atol * scale
+    ratio = torch.nan_to_num(diff / bound, nan=1e30, posinf=1e30)
     return torch.where(diff == 0, torch.zeros_like(ratio), ratio).max().item()
 
 
@@ -329,7 +393,8 @@ def _fwd_cases(A, gen, summary, max_err, failed):
         rec["max_abs_err"] = (got.float() - want.float()).abs().max().item()
         rec["ok"] = rec["err_ratio"] <= 1 and \
             rec.get("lse_err_ratio", 0.0) <= 1 and \
-            bool(torch.isfinite(got.float()).all())
+            bool(torch.isfinite(got.float()).all()) and \
+            (kernel != "flash" or bool(torch.isfinite(got_lse).all()))
         del want
         if weight:
             drop = slice(0, t_k - CONTROL_DROP_KEYS)
@@ -540,6 +605,315 @@ def _adam_cases(K, gen, summary, max_err, failed):
             failed.append(rec)
 
 
+def _ce_inputs(gen, t, v, dtype):
+    """Logits, int64 labels (the ignore index, V and -1 on three rows of
+    every 64, uniform elsewhere), f32 dloss, and the mask of those rows."""
+    import torch
+    logits = (torch.randn(t, v, generator=gen, device="cuda") * 2).to(dtype)
+    label = torch.randint(0, v, (t,), generator=gen, device="cuda")
+    label[0::64], label[1::64], label[2::64] = IGNORE, v, -1
+    dloss = torch.rand(t, generator=gen, device="cuda")
+    masked = (label == IGNORE) | (label < 0) | (label >= v)
+    return logits, label, dloss, masked
+
+
+def _ce_bwd_unmasked(logits, label, lse, dloss):
+    """Control: the CE backward's plain version with the ignore mask
+    dropped."""
+    import torch
+    v = logits.shape[1]
+    onehot = torch.arange(v, device=logits.device) == label[:, None]
+    return ((torch.exp(logits.float() - lse[:, None]) - onehot.float()) *
+            dloss[:, None]).to(logits.dtype)
+
+
+def _ce_cases(CE, gen, summary, max_err, failed):
+    import torch
+    import torch.nn.functional as F
+    for t, v, dtype, weight in CE_CASES:
+        logits, label, dloss, masked = _ce_inputs(gen, t, v,
+                                                  getattr(torch, dtype))
+        before = (CE.ce_forward.launches, CE.ce_backward.launches)
+        loss, lse = CE.ce_forward(logits, label, IGNORE)
+        dl = CE.ce_backward(logits, label, lse, dloss, IGNORE)
+        want_loss, want_lse = CE.ce_forward_plain(logits, label, IGNORE)
+        want_dl = CE.ce_backward_plain(logits, label, lse, dloss, IGNORE)
+        torch.cuda.synchronize()
+        rtol, atol = ROW_TOL[dtype]
+        path = "train256" if weight else None
+        fwd = {"phase": "kernels", "kernel": "ce_fwd", "shape": [t, v],
+               "dtype": dtype, "path": path, "tol": CE_LOSS_TOL,
+               "masked_rows": int(masked.sum()),
+               "launches": CE.ce_forward.launches - before[0],
+               "err_ratio": max(
+                   err_ratio(loss, want_loss, *CE_LOSS_TOL, row_scale=False),
+                   err_ratio(lse, want_lse, *CE_LOSS_TOL, row_scale=False)),
+               "max_abs_err": max((loss - want_loss).abs().max().item(),
+                                  (lse - want_lse).abs().max().item())}
+        fwd["ok"] = fwd["err_ratio"] <= 1 and \
+            bool(torch.isfinite(lse).all()) and \
+            bool(torch.isfinite(loss).all()) and \
+            bool((loss[masked] == 0).all())
+        bwd = {"phase": "kernels", "kernel": "ce_bwd", "shape": [t, v],
+               "dtype": dtype, "path": path, "tol": [rtol, atol],
+               "launches": CE.ce_backward.launches - before[1],
+               "err_ratio": err_ratio(dl, want_dl, rtol, atol),
+               "max_abs_err": (dl.float() - want_dl.float()).abs().max()
+               .item()}
+        bwd["ok"] = bwd["err_ratio"] <= 1 and \
+            bool(torch.isfinite(dl.float()).all()) and \
+            bool((dl[masked] == 0).all())
+        del want_dl, want_loss, want_lse
+        if weight:
+            # controls: the label logit read from the neighbouring column;
+            # the ignore mask dropped
+            shifted = torch.where(masked, label, (label + 1) % v)
+            wrong = CE.ce_forward_plain(logits, shifted, IGNORE)[0]
+            fwd["control_err_ratio"] = err_ratio(loss, wrong, *CE_LOSS_TOL,
+                                                 row_scale=False)
+            wrong = _ce_bwd_unmasked(logits, label, lse, dloss)
+            bwd["control_err_ratio"] = err_ratio(dl, wrong, rtol, atol)
+            del wrong, shifted
+            for rec in (fwd, bwd):
+                rec["ok"] = rec["ok"] and rec["control_err_ratio"] > 1
+            # bytes: logits (and dlogits) once, label int64, lse/loss/dloss
+            # f32; operations: a handful of f32 ones per logit
+            n, isz = t * v, logits.element_size()
+            lib_label = torch.where(masked, torch.full_like(label, IGNORE),
+                                    label)
+            leaf = logits.detach().requires_grad_(True)
+            g = dloss.to(logits.dtype)
+            bound, by = _bound(4.0 * n, n * isz + t * 16, 4)
+            fwd.update(
+                kernel_ms=time_ms(lambda: CE.ce_forward(logits, label,
+                                                        IGNORE)),
+                plain_ms=time_ms(lambda: CE.ce_forward_plain(
+                    logits, label, IGNORE), iters=3, warmup=1),
+                library="F.cross_entropy(reduction='none')",
+                library_ms=time_ms(lambda: F.cross_entropy(
+                    logits, lib_label, ignore_index=IGNORE,
+                    reduction="none")),
+                bound_ms=bound, bound_by=by)
+            bound, by = _bound(5.0 * n, 2 * n * isz + t * 16, 4)
+            bwd.update(
+                kernel_ms=time_ms(lambda: CE.ce_backward(
+                    logits, label, lse, dloss, IGNORE)),
+                plain_ms=time_ms(lambda: CE.ce_backward_plain(
+                    logits, label, lse, dloss, IGNORE), iters=3, warmup=1),
+                # no PyTorch call computes the backward alone
+                library_ms=None,
+                library_fwd_bwd_ms=time_ms(lambda: torch.autograd.grad(
+                    F.cross_entropy(leaf, lib_label, ignore_index=IGNORE,
+                                    reduction="none"), leaf, g)),
+                bound_ms=bound, bound_by=by)
+            _summary_add(summary, "ce_fwd", path, weight, fwd,
+                         fwd["bound_by"])
+            _summary_add(summary, "ce_bwd", path, weight, bwd,
+                         bwd["bound_by"])
+            del leaf, lib_label, g
+        for rec in (fwd, bwd):
+            if dtype == "bfloat16":
+                max_err[rec["kernel"]] = max(max_err.get(rec["kernel"], 0.0),
+                                             rec["max_abs_err"])
+            emit(rec)
+            if not rec["ok"]:
+                failed.append(rec)
+        del logits, label, dloss, masked, loss, lse, dl
+        torch.cuda.empty_cache()
+
+
+LN_EPS = 1e-5
+
+
+def _ln_dx_no_s2(x, dy, gamma, eps):
+    """Control: the LayerNorm backward's dx with the sum(g * xhat) term
+    dropped."""
+    import torch
+    xf, dyf = x.float(), dy.float()
+    mean = xf.mean(dim=1, keepdim=True)
+    cx = xf - mean
+    rstd = torch.rsqrt((cx * cx).mean(dim=1, keepdim=True) + eps)
+    g = dyf * gamma
+    return (rstd * (g - g.sum(dim=1, keepdim=True) / x.shape[1])).to(x.dtype)
+
+
+def _ln_cases(LN, gen, summary, max_err, failed):
+    import torch
+    for r, d, dtype, weight in LN_CASES:
+        tdtype = getattr(torch, dtype)
+        rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+        x, dy = (rnd(r, d) * 2 + 0.3).to(tdtype), rnd(r, d).to(tdtype)
+        gamma = 1.0 + 0.1 * rnd(d)
+        before = LN.ln_backward.launches
+        got = LN.ln_backward(x, dy, gamma, LN_EPS)
+        want = LN.ln_backward_plain(x, dy, gamma, LN_EPS)
+        torch.cuda.synchronize()
+        rtol, atol = ROW_TOL[dtype]
+        names = ("dx", "dgamma", "dbeta")
+        tols = ((rtol, atol), LN_PARAM_TOL, LN_PARAM_TOL)
+        rec = {"phase": "kernels", "kernel": "ln_bwd", "shape": [r, d],
+               "dtype": dtype, "path": "train256" if weight else None,
+               "tol": {"dx": [rtol, atol], "dgamma_dbeta": LN_PARAM_TOL},
+               "launches": LN.ln_backward.launches - before,
+               "err_ratio": {n: err_ratio(g.reshape(-1, w.shape[-1]),
+                                          w.reshape(-1, w.shape[-1]), *tol)
+                             for n, g, w, tol in zip(names, got, want,
+                                                     tols)},
+               "max_abs_err": {n: (g.float() - w.float()).abs().max().item()
+                               for n, g, w in zip(names, got, want)}}
+        rec["ok"] = max(rec["err_ratio"].values()) <= 1 and \
+            all(bool(torch.isfinite(g.float()).all()) for g in got)
+        del want
+        if weight:
+            wrong = _ln_dx_no_s2(x, dy, gamma, LN_EPS)
+            rec["control_err_ratio"] = err_ratio(got[0], wrong, rtol, atol)
+            rec["ok"] = rec["ok"] and rec["control_err_ratio"] > 1
+            del wrong
+            # bytes: x and dy read, dx written, gamma read, dgamma and dbeta
+            # written; about 20 f32 operations an element
+            isz = x.element_size()
+            bound, by = _bound(20.0 * r * d, 3 * r * d * isz + 3 * d * 4, 4)
+            gw, gb = gamma.to(tdtype), torch.zeros(d, device="cuda",
+                                                   dtype=tdtype)
+            _, mean, rstd = torch.ops.aten.native_layer_norm(x, [d], gw, gb,
+                                                             LN_EPS)
+            rec.update(
+                kernel_ms=time_ms(lambda: LN.ln_backward(x, dy, gamma,
+                                                         LN_EPS)),
+                plain_ms=time_ms(lambda: LN.ln_backward_plain(
+                    x, dy, gamma, LN_EPS), iters=5),
+                library="torch.ops.aten.native_layer_norm_backward",
+                library_ms=time_ms(
+                    lambda: torch.ops.aten.native_layer_norm_backward(
+                        dy, x, [d], mean, rstd, gw, gb, [True, True, True])),
+                bound_ms=bound, bound_by=by)
+            _summary_add(summary, "ln_bwd", "train256", weight, rec, by)
+            del gw, gb, mean, rstd
+        if dtype == "bfloat16":
+            max_err["ln_bwd"] = max(max_err.get("ln_bwd", 0.0),
+                                    max(rec["max_abs_err"].values()))
+        emit(rec)
+        if not rec["ok"]:
+            failed.append(rec)
+        del x, dy, gamma, got
+
+
+def _emb_bound(ids, dout, vocab):
+    """The scatter's bound for random douts: each add in the table dtype
+    rounds once, by at most 2^-8 of the row's sum of |dout|, so two orders
+    differ by at most 2^-7 * (adds to the row) * sum |dout|."""
+    import torch
+    keep = (ids >= 0) & (ids < vocab)
+    ids, dout = ids[keep], dout[keep].float()
+    adds = torch.bincount(ids, minlength=vocab).float()[:, None]
+    mag = torch.zeros(vocab, dout.shape[1], device=dout.device).index_add_(
+        0, ids, dout.abs())
+    return 2.0 ** -7 * adds * mag
+
+
+def _emb_cases(EG, gen, summary, max_err, failed):
+    import torch
+    for vocab, dim, n, dtype, douts, weight in EMB_CASES:
+        tdtype = getattr(torch, dtype)
+        ids = torch.randint(0, vocab, (n,), generator=gen, device="cuda")
+        if not weight:         # ids the kernels must skip
+            ids[:2] = torch.tensor([vocab, -1], device="cuda")
+        if douts == "int":
+            dout = torch.randint(-4, 5, (n, dim), generator=gen,
+                                 device="cuda").to(tdtype)
+        else:
+            dout = torch.randn(n, dim, generator=gen,
+                               device="cuda").to(tdtype)
+        w = torch.empty(vocab, dim, dtype=tdtype, device="cuda")
+        for impl, fn, plain in (
+                ("scatter", EG.emb_grad_scatter, EG.emb_grad_scatter_plain),
+                ("segsum", EG.emb_grad_segsum, EG.emb_grad_segsum_plain)):
+            if not EG.emb_grad_ok(w.shape, n, impl, dtype=tdtype):
+                continue
+            exact = impl == "segsum" or douts == "int"
+            before = fn.launches
+            got = fn(w, ids, dout)
+            want = plain(w, ids, dout)
+            torch.cuda.synchronize()
+
+            def ratio(ref, ids_=ids, dout_=dout):
+                if exact:
+                    return err_ratio(got, ref, 0.0, 0.0, row_scale=False)
+                return err_ratio(got, ref, 0, 0,
+                                 bound=_emb_bound(ids_, dout_, vocab))
+            key = "emb_" + impl
+            rec = {"phase": "kernels", "kernel": key,
+                   "shape": [vocab, dim, n], "dtype": dtype, "douts": douts,
+                   "path": "train256" if weight else None,
+                   "bound": "exact" if exact else
+                   "2^-7 * adds(row) * sum|dout|",
+                   "launches": fn.launches - before,
+                   "err_ratio": ratio(want),
+                   "elements_differing": int((got != want).sum()),
+                   "max_abs_err": (got.float() - want.float()).abs().max()
+                   .item()}
+            rec["ok"] = rec["err_ratio"] <= 1 and \
+                bool(torch.isfinite(got.float()).all())
+            del want
+            if weight:
+                keep = slice(0, n - EMB_CONTROL_DROP)
+                wrong = plain(w, ids[keep], dout[keep])
+                rec["control_err_ratio"] = ratio(wrong, ids[keep], dout[keep])
+                rec["ok"] = rec["ok"] and rec["control_err_ratio"] > 1
+                del wrong
+                # bytes: ids and dout read once, dW written once
+                isz = dout.element_size()
+                bound, by = _bound(float(n * dim),
+                                   n * 8 + (n + vocab) * dim * isz, isz)
+                rec.update(
+                    kernel_ms=time_ms(lambda: fn(w, ids, dout)),
+                    plain_ms=time_ms(lambda: plain(w, ids, dout), iters=3,
+                                     warmup=1),
+                    library="torch.ops.aten.embedding_dense_backward",
+                    library_ms=time_ms(
+                        lambda: torch.ops.aten.embedding_dense_backward(
+                            dout, ids, vocab, -1, False)),
+                    bound_ms=bound, bound_by=by)
+                _summary_add(summary, key, "train256", weight, rec, by)
+            if dtype == "bfloat16":
+                max_err[key] = max(max_err.get(key, 0.0), rec["max_abs_err"])
+            emit(rec)
+            if not rec["ok"]:
+                failed.append(rec)
+            del got
+        del ids, dout, w
+    torch.cuda.empty_cache()
+
+
+def _flag_gated_rejects(CE, LN, EG):
+    """Shapes the CE, LayerNorm and embedding-grad kernels refuse must
+    raise."""
+    import torch
+
+    def expect(kernel, shape, call):
+        try:
+            call()
+        except ValueError as e:
+            emit({"phase": "kernels", "kernel": kernel, "rejects": shape,
+                  "error": str(e), "ok": True})
+        else:
+            raise AssertionError("%s accepted %s" % (kernel, shape))
+    for r, c in ROW_REJECT_SHAPES:
+        x = torch.zeros(r, c, dtype=torch.bfloat16, device="cuda")
+        lab = torch.zeros(r, dtype=torch.int64, device="cuda")
+        rows = torch.zeros(r, device="cuda")
+        expect("ce_fwd", [r, c], lambda: CE.ce_forward(x, lab))
+        expect("ce_bwd", [r, c], lambda: CE.ce_backward(x, lab, rows, rows))
+        expect("ln_bwd", [r, c], lambda: LN.ln_backward(
+            x, x, torch.ones(c, device="cuda"), LN_EPS))
+    for impl, shape, n, dtype in EMB_REJECT_CASES:
+        w = torch.zeros(shape, dtype=getattr(torch, dtype), device="cuda")
+        ids = torch.zeros(n, dtype=torch.int64, device="cuda")
+        dout = torch.zeros(n, shape[1], device="cuda")
+        expect("emb_" + impl, list(shape) + [n, dtype],
+               lambda: EG.emb_grad(w, ids, dout, impl))
+
+
 def phase_kernels():
     """Every kernel against its plain version. Returns (summary {(kernel,
     path): weighted sums over the path's mix}, {kernel: max |err| over the
@@ -547,6 +921,9 @@ def phase_kernels():
     import torch
     from paddle_tpu_torch.ops import attention as A
     from paddle_tpu_torch.ops import adam_kernel as K
+    from paddle_tpu_torch.ops import ce_kernel as CE
+    from paddle_tpu_torch.ops import emb_grad_kernel as EG
+    from paddle_tpu_torch.ops import layernorm_kernel as LN
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     summary, max_err, failed = {}, {}, []
@@ -554,6 +931,10 @@ def phase_kernels():
     torch.cuda.empty_cache()
     _bwd_cases(A, gen, summary, max_err, failed)
     _adam_cases(K, gen, summary, max_err, failed)
+    _ce_cases(CE, gen, summary, max_err, failed)
+    _ln_cases(LN, gen, summary, max_err, failed)
+    _emb_cases(EG, gen, summary, max_err, failed)
+    _flag_gated_rejects(CE, LN, EG)
     rejecting = {"onepass": lambda q, k, v: A.onepass_attention_fwd_bthd(
                      q, k, v),
                  "flash": lambda q, k, v: A.flash_attention_fwd_bthd(q, k, v),
@@ -703,14 +1084,43 @@ def phase_logits_control(exe, scope, serve, feed, logits, cpu):
         raise AssertionError("the logits limits pass a faulty program")
 
 
-def _counters(A, K):
+def _counters():
     """name -> the wrapper whose `launches` counts its kernel."""
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops import adam_kernel as K
+    from paddle_tpu_torch.ops import ce_kernel as CE
+    from paddle_tpu_torch.ops import emb_grad_kernel as EG
+    from paddle_tpu_torch.ops import layernorm_kernel as LN
     return {"onepass": A.onepass_attention_fwd_bthd,
             "flash": A.flash_attention_fwd_bthd,
             "onepass_bwd": A.onepass_attention_bwd_bthd,
             "flash_bwd_dq": A.flash_attention_bwd_dq,
             "flash_bwd_dkv": A.flash_attention_bwd_dkv,
-            "adam": K.adam_update}
+            "adam": K.adam_update,
+            "ce_fwd": CE.ce_forward,
+            "ce_bwd": CE.ce_backward,
+            "ln_bwd": LN.ln_backward,
+            "emb_scatter": EG.emb_grad_scatter,
+            "emb_segsum": EG.emb_grad_segsum}
+
+
+# the training flags that put the flag-gated kernels on the path
+KERNEL_FLAGS = {"FLAGS_ce_kernel": "1", "FLAGS_ln_kernel": "1"}
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Set environment variables for a block and restore them after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def _zero(counters):
@@ -770,6 +1180,8 @@ def _train_phase(name, fluid, transformer, counters, cfg, batch, steps,
         bool(np.isfinite(np.asarray(warm[0])).all()) and launched == want
     emit({"phase": name, "ok": ok, "batch": batch,
           "seq_len": cfg["seq_len"], "dropout_rate": cfg["dropout_rate"],
+          "flags": {k: v for k, v in os.environ.items()
+                    if k.startswith("FLAGS_")},
           "steps": steps, "losses": losses.tolist(),
           "warm_loss": float(np.asarray(warm[0]).reshape(-1)[0]),
           "window_seconds": seconds, "step_ms": seconds / steps * 1e3,
@@ -792,11 +1204,19 @@ def _train_phase(name, fluid, transformer, counters, cfg, batch, steps,
 # reading (loss 2.6e-6, gradients 0.031-0.038) and that of the program with
 # its decoder self-attention made non-causal (loss 2.0e-4, gradients
 # 0.159-0.969), which phase train_parity must reject. Both readings: NVIDIA
-# H100 80GB HBM3, 700 W (PERF.md).
+# H100 80GB HBM3, 700 W (PERF.md). They hold with the flag-gated kernels on
+# the card's path too; the CPU takes the plain lowerings either way.
 TRAIN_LOSS_REL_MAX = 3e-5
 TRAIN_GRAD_REL_MAX = 0.08
 PARITY_GRADS = ["enc.0.attn.q.w", "dec.0.self.q.w", "dec.0.self.k.w",
-                "dec.0.cross.q.w", "dec.3.cross.k.w", "src_emb"]
+                "dec.0.cross.q.w", "dec.3.cross.k.w", "src_emb", "tgt_emb",
+                "proj.w", "dec.3.ffn_post.ln_scale"]
+# the flags of each train_parity run on the card
+PARITY_FLAGS = [("off", {}),
+                ("scatter", dict(KERNEL_FLAGS,
+                                 FLAGS_emb_grad_kernel="scatter")),
+                ("segsum", dict(KERNEL_FLAGS,
+                                FLAGS_emb_grad_kernel="segsum"))]
 
 
 def _make_noncausal(program):
@@ -816,7 +1236,7 @@ def _make_noncausal(program):
     return changed
 
 
-def phase_train_parity(fluid, transformer):
+def phase_train_parity(fluid, transformer, counters):
     import numpy as np
     import torch
     cfg = dict(transformer.FLAGSHIP_CFG, dropout_rate=0.0)
@@ -847,22 +1267,29 @@ def phase_train_parity(fluid, transformer):
         return rel, ok
 
     cpu = run(main, "cpu")
-    card = run(main, "card")
-    rel, ok = agreement(card, cpu)
     faulty = main.clone()
     changed = _make_noncausal(faulty)
-    wrong, control_ok = agreement(run(faulty, "card"), cpu)
-    emit({"phase": "train_parity", "ok": ok and not control_ok,
-          "batch": 2, "seq_len": cfg["seq_len"], "dropout_rate": 0.0,
-          "loss_card": float(card[0]), "loss_cpu": float(cpu[0]),
-          "rel_err": rel, "loss_rel_max": TRAIN_LOSS_REL_MAX,
-          "grad_rel_max": TRAIN_GRAD_REL_MAX,
-          "control": "decoder self-attention not causal",
-          "control_ops_changed": changed, "control_rel_err": wrong,
-          "control_rejected": not control_ok})
-    if not ok or control_ok:
-        raise AssertionError("train_parity: card vs CPU %s (control %s)"
-                             % (rel, wrong))
+    failures = []
+    for name, flags in PARITY_FLAGS:
+        with _env(**flags):
+            _zero(counters)
+            card = run(main, "card")
+            launched = {k: v for k, v in _read(counters).items() if v}
+            rel, ok = agreement(card, cpu)
+            wrong, control_ok = agreement(run(faulty, "card"), cpu)
+        emit({"phase": "train_parity", "flags": name,
+              "ok": ok and not control_ok, "batch": 2,
+              "seq_len": cfg["seq_len"], "dropout_rate": 0.0,
+              "loss_card": float(card[0]), "loss_cpu": float(cpu[0]),
+              "rel_err": rel, "loss_rel_max": TRAIN_LOSS_REL_MAX,
+              "grad_rel_max": TRAIN_GRAD_REL_MAX, "card_launches": launched,
+              "control": "decoder self-attention not causal",
+              "control_ops_changed": changed, "control_rel_err": wrong,
+              "control_rejected": not control_ok})
+        if not ok or control_ok:
+            failures.append((name, rel, wrong))
+    if failures:
+        raise AssertionError("train_parity: card vs CPU %s" % (failures,))
     torch.cuda.empty_cache()
 
 
@@ -876,7 +1303,6 @@ def main():
         import paddle_tpu_torch.fluid as fluid
         from paddle_tpu_torch.models import transformer
         from paddle_tpu_torch.ops import attention as A
-        from paddle_tpu_torch.ops import adam_kernel as K
     except ImportError as e:
         print("chip_smoke: run from the root of a checkout (%s)" % e,
               file=sys.stderr)
@@ -884,7 +1310,7 @@ def main():
 
     phase_build()
     summary, max_err = phase_kernels()
-    counters = _counters(A, K)
+    counters = _counters()
     launches = dict.fromkeys(counters, 0)
 
     def add(launched):
@@ -905,10 +1331,18 @@ def main():
     cfg = dict(transformer.FLAGSHIP_CFG)
     attn = 3 * cfg["n_layer"]
     none = dict.fromkeys(counters, 0)
+    train = dict(none, onepass=attn, onepass_bwd=attn, adam=67)
     add(_train_phase("train256", fluid, transformer, counters, cfg,
-                     TRAIN_BATCH, TRAIN_STEPS,
-                     dict(none, onepass=attn, onepass_bwd=attn, adam=67)))
-    phase_train_parity(fluid, transformer)
+                     TRAIN_BATCH, TRAIN_STEPS, train))
+    # 1 CE forward and backward, a LayerNorm backward for each of the
+    # 2 * 4 encoder and 3 * 4 decoder layer norms, one grad per embedding
+    flagged = dict(train, ce_fwd=1, ce_bwd=1, ln_bwd=5 * cfg["n_layer"])
+    for impl in ("scatter", "segsum"):
+        with _env(FLAGS_emb_grad_kernel=impl, **KERNEL_FLAGS):
+            add(_train_phase("train256_kernels", fluid, transformer,
+                             counters, cfg, TRAIN_BATCH, TRAIN_STEPS,
+                             dict(flagged, **{"emb_" + impl: 2})))
+    phase_train_parity(fluid, transformer, counters)
     add(_train_phase("train4096", fluid, transformer, counters,
                      dict(cfg, seq_len=LONG_SEQ), LONG_TRAIN_BATCH,
                      LONG_TRAIN_STEPS,
@@ -923,12 +1357,16 @@ def main():
     sources = {"onepass": "attention.cu", "flash": "attention.cu",
                "onepass_bwd": "attention_bwd.cu",
                "flash_bwd_dq": "attention_bwd.cu",
-               "flash_bwd_dkv": "attention_bwd.cu", "adam": "adam.cu"}
+               "flash_bwd_dkv": "attention_bwd.cu", "adam": "adam.cu",
+               "ce_fwd": "ce.cu", "ce_bwd": "ce.cu", "ln_bwd": "layernorm.cu",
+               "emb_scatter": "emb_grad.cu", "emb_segsum": "emb_grad.cu"}
     # the forward kernels are summarised over the serving mix (as in the
     # first slice), the others over the training paths'
     paths = {"onepass": "serve256", "flash": "serve4096",
              "onepass_bwd": "train256", "flash_bwd_dq": "train4096",
-             "flash_bwd_dkv": "train4096", "adam": "train"}
+             "flash_bwd_dkv": "train4096", "adam": "train",
+             "ce_fwd": "train256", "ce_bwd": "train256", "ln_bwd": "train256",
+             "emb_scatter": "train256", "emb_segsum": "train256"}
     kernels = []
     for name, path in paths.items():
         s = summary[(name, path)]

@@ -158,9 +158,11 @@ def _pair_grad_ops(ops):
 
 
 class _Plan(object):
-    """The ops a run must execute, and after each op the names no later op
-    or fetch reads. Each ``grad_of`` op is paired with its forward op, which
-    the run tapes (ops/grad_ops.py): a kept grad op keeps its forward op."""
+    """The ops a run must execute, for each op the output slots that a later
+    op or a fetch reads or that are persistable (a lowering may skip the
+    others), and after each op the names no later op or fetch reads. Each
+    ``grad_of`` op is paired with its forward op, which the run tapes
+    (ops/grad_ops.py): a kept grad op keeps its forward op."""
 
     def __init__(self, program, fetch_names):
         block = program.global_block()
@@ -190,12 +192,16 @@ class _Plan(object):
             for n in op.input_arg_names:
                 last_read[n] = i
         keep = set(fetch_names)
-        self.steps = []
+        self.steps, self.live = [], []
         for k, op in enumerate(kept):
             touched = set(op.input_arg_names) | set(op.output_arg_names)
             drop = [n for n in touched
                     if n not in keep and last_read.get(n, -1) <= k]
             self.steps.append((op, drop))
+            self.live.append(frozenset(
+                slot for slot, names in op.outputs.items()
+                if any(n in keep or persistable(n) or
+                       last_read.get(n, -1) > k for n in names)))
         # step of a grad_of -> step of its forward op; step of a taped
         # forward op -> the need_grad flags of its grad_of
         self.grad_fwd = {pos[i]: pos[pairs[i]] for i in kept_idx
@@ -300,6 +306,7 @@ class Executor(object):
                 for n in op.input_arg_names:
                     if n not in env and n != "@EMPTY@":
                         env[n] = self._read_state(scope, n, block)
+                ctx.live_outputs = plan.live[k]
                 if k in plan.taped:
                     tape[k] = record_forward(op, env, ctx, plan.taped[k])
                 elif op.type == "grad_of":

@@ -14,6 +14,22 @@ WHITELIST = {
     "adam_kernel": (bool, True,
                     "use the fused dense-Adam CUDA kernel on the card "
                     "(ops/adam_kernel.py; 0 forces the plain path for A/B)"),
+    "ce_kernel": (bool, False,
+                  "use the cross-entropy CUDA kernels, forward and backward "
+                  "(ops/ce_kernel.py, csrc/ce.cu); default off"),
+    "ln_kernel": (bool, False,
+                  "use the one-pass LayerNorm backward CUDA kernel "
+                  "(ops/layernorm_kernel.py, csrc/layernorm.cu); default "
+                  "off"),
+    "emb_grad_sorted": (bool, False,
+                        "presort the dense embedding-grad scatter updates "
+                        "(fluid/ops/tensor_ops.py; A/B experiment)"),
+    "emb_grad_kernel": (str, "",
+                        "dense embedding-grad CUDA kernel: 'scatter' "
+                        "(atomic adds in the table dtype) or 'segsum' "
+                        "(argsort outside, one f32 sum per row rounded "
+                        "once); '' keeps the plain scatter-add "
+                        "(ops/emb_grad_kernel.py, csrc/emb_grad.cu)"),
     "dropout_save_mask": (bool, False,
                           "materialize dropout masks for the backward pass "
                           "instead of redrawing them from the saved "

@@ -10,6 +10,12 @@ def one(inputs, slot, idx=0):
     return lst[idx]
 
 
+def on_card(x):
+    """The port's ``_use_pallas()`` for the flag-gated kernels (CE,
+    LayerNorm backward, embedding grad): the tensor lies on a CUDA card."""
+    return x.is_cuda
+
+
 def round_scalar(value, dtype):
     """A Python scalar rounded to ``dtype``: the JAX lowerings build
     ``jnp.asarray(attr, x.dtype)`` before multiplying, so a bf16 tensor is

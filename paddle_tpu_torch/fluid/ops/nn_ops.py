@@ -8,25 +8,84 @@ probability, and a backward that does not keep the mask: the forward op
 ``dropout_grad`` redraws the same bytes. The bytes come from torch's
 Philox, not threefry, so masks differ from the JAX package's.
 """
+import math
+
 import torch
 
+from . import common
 from .registry import register_lowering, register_grad_maker
 from .common import one
+
+
+def _ln_stats(xf, axes):
+    """Two-pass centered mean and variance in f32, as the JAX lowering."""
+    mean = xf.mean(dim=axes, keepdim=True)
+    var = (xf - mean).square().mean(dim=axes, keepdim=True)
+    return mean, var
+
+
+class _LnAffine(torch.autograd.Function):
+    """Affine LayerNorm over the last axis of 2-D x whose backward is the
+    LayerNorm-backward CUDA kernel (ops/layernorm_kernel.py): the
+    counterpart of the JAX package's ``custom_vjp`` ``_ln_affine``
+    (paddle_tpu/fluid/ops/nn_ops.py:259). The forward is plain f32 and
+    saves only (x, scale); the statistics come out as non-differentiable
+    outputs, so the op's Mean and Variance are computed once."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        xf = x.float()
+        mean, var = _ln_stats(xf, (1,))
+        y = ((xf - mean) * torch.rsqrt(var + eps) * scale + bias).to(x.dtype)
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        from ...ops.layernorm_kernel import ln_backward
+        x, scale = ctx.saved_tensors
+        dx, dg, db = ln_backward(x, dy.contiguous(), scale, ctx.eps)
+        return dx, dg.to(scale.dtype), db.to(scale.dtype), None
+
+
+def _ln_kernel_ok(x, scale, bias, ax):
+    """The JAX package's gate: the flag, scale and bias present, the
+    tensors on the card, and ``ln_bwd_ok`` on the flat [rows, d] shape."""
+    from .. import flags
+    from ...ops.layernorm_kernel import ln_bwd_ok
+    if not flags.get("ln_kernel"):
+        return False
+    if scale is None or bias is None:
+        return False
+    d = math.prod(x.shape[ax:])
+    rows = x.numel() // max(1, d)
+    return common.on_card(x) and ln_bwd_ok(rows, d)
 
 
 @register_lowering("layer_norm")
 def _layer_norm(ctx, inputs, attrs):
     """Statistics in f32 (two-pass centered variance, as the JAX lowering),
-    affine in f32, result cast back to x's dtype."""
+    affine in f32, result cast back to x's dtype. With FLAGS_ln_kernel the
+    affine form runs through ``_LnAffine``, whose backward is the CUDA
+    kernel: the op's gradient is the generic ``grad_of`` on the taped
+    forward, so it runs inside that op's ``torch.autograd.grad``."""
     x = one(inputs, "X")
     scale, bias = one(inputs, "Scale"), one(inputs, "Bias")
     eps = attrs.get("epsilon", 1e-5)
     ax = attrs.get("begin_norm_axis", 1)
     axes = tuple(range(ax, x.ndim))
     lead = tuple(x.shape[:ax])
+    if _ln_kernel_ok(x, scale, bias, ax):
+        d = math.prod(x.shape[ax:])
+        y, mean, var = _LnAffine.apply(
+            x.reshape(-1, d).contiguous(), scale.float().reshape(d),
+            bias.float().reshape(d), float(eps))
+        return {"Y": [y.reshape(x.shape)], "Mean": [mean.reshape(lead)],
+                "Variance": [var.reshape(lead)]}
     xf = x.float()
-    mean = xf.mean(dim=axes, keepdim=True)
-    var = (xf - mean).square().mean(dim=axes, keepdim=True)
+    mean, var = _ln_stats(xf, axes)
     y = (xf - mean) * torch.rsqrt(var + eps)
     bshape = (1,) * ax + tuple(x.shape[ax:])
     if scale is not None:

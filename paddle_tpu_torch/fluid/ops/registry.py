@@ -38,8 +38,10 @@ class LoweringContext(object):
     """Per-step context handed to lowerings: the device to create tensors
     on, the run's random generator, the test-mode flag, the dropout
     generator snapshots of this step (rng_tag -> generator state, read back
-    by dropout_grad), and the forward record a ``grad_of`` op consumes
-    (set by the executor just before it runs that op)."""
+    by dropout_grad), the forward record a ``grad_of`` op consumes, and the
+    output slots of the running op that a later op or a fetch reads or that
+    are persistable (``live_outputs``; None = all). The executor sets the
+    last two just before each op."""
 
     def __init__(self, device, generator=None, is_test=False):
         self.device = torch.device(device)
@@ -47,6 +49,13 @@ class LoweringContext(object):
         self.is_test = is_test
         self.dropout_states = {}
         self.record = None
+        self.live_outputs = None
+
+    def output_live(self, slot):
+        """Is output ``slot`` of the running op read by a later op or a
+        fetch, or persistable? A lowering may skip an output that is not,
+        as XLA's dead-code elimination drops it in the JAX package."""
+        return self.live_outputs is None or slot in self.live_outputs
 
     def next_rng(self, seed=0):
         """Generator for the next random op. seed!=0 -> a fresh generator

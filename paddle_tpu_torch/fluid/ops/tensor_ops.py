@@ -4,6 +4,7 @@
 import torch
 
 from ..core_types import to_torch_dtype
+from . import common
 from .registry import register_lowering, register_grad_maker
 from .common import one
 
@@ -80,16 +81,24 @@ def _transpose2(ctx, inputs, attrs):
     return {"Out": [x.permute(*attrs["axis"])], "XShape": [_xshape(x)]}
 
 
+def _wrap_ids(flat, vocab):
+    """Ids as ``jnp.take`` and ``.at[].add`` index: a negative id wraps once
+    by +vocab. An id still outside [0, vocab) stays out of range."""
+    return torch.where(flat < 0, flat + vocab, flat)
+
+
 @register_lowering("lookup_table")
 def _lookup_table(ctx, inputs, attrs):
     w, ids = one(inputs, "W"), one(inputs, "Ids")
     padding_idx = attrs.get("padding_idx", -1)
     flat = ids.reshape(-1).long()
     vocab = w.shape[0]
-    # jnp.take's default fill mode: an id outside [0, vocab) reads NaN. The
-    # clamp also keeps a bad feed from tripping a device-side assert.
-    valid = (flat >= 0) & (flat < vocab)
-    out = torch.index_select(w, 0, flat.clamp(0, vocab - 1))
+    # jnp.take's default fill mode: a negative id wraps once by +vocab, and
+    # an id still outside [0, vocab) reads NaN. The clamp also keeps a bad
+    # feed from tripping a device-side assert.
+    wrapped = _wrap_ids(flat, vocab)
+    valid = (wrapped >= 0) & (wrapped < vocab)
+    out = torch.index_select(w, 0, wrapped.clamp(0, vocab - 1))
     out = out.masked_fill(~valid[:, None], float("nan"))
     if padding_idx is not None and padding_idx != -1:
         pad = (padding_idx + vocab) if padding_idx < 0 else padding_idx
@@ -124,20 +133,35 @@ def _lookup_table_grad_maker(op, block, no_grad_set):
 
 @register_lowering("lookup_table_grad")
 def _lookup_table_grad(ctx, inputs, attrs):
-    """dW = zeros.index_add_(ids, dout) in the table dtype. An id outside
-    [0, vocab) contributes nothing (its forward row read NaN)."""
+    """dW = zeros.index_add_(ids, dout) in the table dtype, as
+    ``zeros.at[ids].add`` in the JAX lowering: a negative id wraps once by
+    +vocab, and an id still outside [0, vocab) contributes nothing (its
+    forward row read NaN). FLAGS_emb_grad_kernel routes the sum to a CUDA
+    kernel (ops/emb_grad_kernel.py) where the gate admits the table; the
+    kernels skip out-of-range ids, so both routes give the same dW."""
+    from ...ops import emb_grad_kernel as eg
+    from .. import flags
     w, ids = one(inputs, "W"), one(inputs, "Ids")
     dout = one(inputs, "Out@GRAD")
-    flat = ids.reshape(-1).long()
+    vocab = w.shape[0]
+    flat = _wrap_ids(ids.reshape(-1).long(), vocab)
     if dout.ndim < 2:
         lead = tuple(ids.shape[:-1] if ids.shape and ids.shape[-1] == 1
                      else ids.shape)
         dout = torch.broadcast_to(dout, lead + (w.shape[1],))
     dflat = dout.reshape(flat.shape[0], w.shape[1]).to(w.dtype)
-    valid = (flat >= 0) & (flat < w.shape[0])
+    impl = flags.get("emb_grad_kernel")
+    if impl and common.on_card(w) and \
+            eg.emb_grad_ok(w.shape, flat.shape[0], impl, dtype=w.dtype):
+        return {"W@GRAD": [eg.emb_grad(w, flat, dflat, impl)]}
+    valid = (flat >= 0) & (flat < vocab)
     dflat = torch.where(valid[:, None], dflat, torch.zeros_like(dflat))
-    dw = torch.zeros_like(w).index_add_(0, flat.clamp(0, w.shape[0] - 1),
-                                        dflat)
+    flat = flat.clamp(0, vocab - 1)
+    if flags.get("emb_grad_sorted"):
+        # the JAX lowering's presorted scatter (indices_are_sorted=True)
+        order = torch.argsort(flat, stable=True)
+        flat, dflat = flat[order], dflat[order]
+    dw = torch.zeros_like(w).index_add_(0, flat, dflat)
     return {"W@GRAD": [dw]}
 
 

@@ -43,6 +43,17 @@ SIGNATURES = {
     "adam": [
         ("adam_update", [_P] * 5 + [_I] + [_F] * 5 + [_I, _I, _P]),
     ],
+    "ce": [
+        ("ce_forward", [_P] * 4 + [_I] * 4 + [_P]),
+        ("ce_backward", [_P] * 5 + [_I] * 4 + [_P]),
+    ],
+    "layernorm": [
+        ("ln_backward", [_P] * 6 + [_I, _I, _F, _I, _I, _I, _P]),
+    ],
+    "emb_grad": [
+        ("emb_grad_scatter", [_P] * 3 + [_I] * 4 + [_P]),
+        ("emb_grad_segsum", [_P] * 4 + [_I] * 4 + [_P]),
+    ],
 }
 
 _libs = {}

@@ -271,4 +271,5 @@ def test_bwd_kernel_source_names_its_pallas_kernels():
                 "flash_attention_bwd_dkv", "_onepass_bwd_kernel",
                 "_bwd_dq_kernel", "_bwd_dkv_kernel", "Hopper"):
         assert sym in src
-    assert set(_build.SIGNATURES) == {"attention", "attention_bwd", "adam"}
+    assert set(_build.SIGNATURES) == {"attention", "attention_bwd", "adam",
+                                      "ce", "layernorm", "emb_grad"}

@@ -117,7 +117,7 @@ def _f32(x):
 def _one_step(cfg):
     j, t, _ = _pair(cfg)
     batch = jtransformer.synthetic_batch(2, SMALL["seq_len"],
-                                         SMALL["tgt_vocab"], 0)
+                                         dict(SMALL, **cfg)["tgt_vocab"], 0)
     grads = [p.name + "@GRAD" for p in j[0].all_parameters()]
     want = j[1].run(j[0], feed=batch, fetch_list=[j[3].name] + grads,
                     scope=j[2])
@@ -127,11 +127,71 @@ def _one_step(cfg):
 
 
 def test_one_step_loss_and_gradients_match_jax_executor():
-    grads, want, got = _one_step({})
+    _assert_f32_step_agrees(*_one_step({}))
+
+
+def _assert_f32_step_agrees(grads, want, got):
+    """The f32 tolerances of the module docstring."""
     assert got[0].shape == () and abs(got[0] - want[0]) <= 1e-5 * want[0]
     for name, w, g in zip(grads, want[1:], got[1:]):
         assert g.shape == w.shape, name
         assert np.abs(g - w).max() <= 1e-4 * np.abs(w).max() + 1e-7, name
+
+
+# the CE gate needs V % 128 == 0
+KERNEL_VOCAB = dict(src_vocab=128, tgt_vocab=128)
+
+
+@pytest.mark.parametrize("emb_impl", ["scatter", "segsum"])
+def test_flags_on_step_matches_jax_executor(monkeypatch, emb_impl):
+    """One f32 training step with FLAGS_ce_kernel, FLAGS_ln_kernel and
+    FLAGS_emb_grad_kernel on, in both packages: the port's gates forced on
+    for CPU tensors (its wrappers then run the kernels' plain versions), the
+    JAX package's Pallas kernels in interpret mode with its attention kept
+    on the dense mode (its kernel switch is shared with the attention
+    dispatch). Loss and every gradient match the JAX step and the port's
+    flags-off step at the flags-off test's tolerances, and each kernel
+    wrapper runs as often as on the card (1 CE forward, 1 CE backward, one
+    LN backward per layer_norm op, one embedding grad per table)."""
+    from paddle_tpu.ops import attention as jattention
+    from paddle_tpu.ops import ce_kernel as jce
+    from paddle_tpu.ops import emb_grad_kernel as jeg
+    from paddle_tpu.ops import layernorm_kernel as jln
+    from paddle_tpu_torch.fluid.ops import common
+    from paddle_tpu_torch.ops import ce_kernel as tce
+    from paddle_tpu_torch.ops import emb_grad_kernel as teg
+    from paddle_tpu_torch.ops import layernorm_kernel as tln
+    grads, off_want, off = _one_step(KERNEL_VOCAB)
+    _assert_f32_step_agrees(grads, off_want, off)
+
+    calls = {}
+    for mod, name in ((tce, "ce_forward"), (tce, "ce_backward"),
+                      (tln, "ln_backward"), (teg, "emb_grad")):
+        real = getattr(mod, name)
+
+        def spy(*a, _real=real, _name=name, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _real(*a, **k)
+        monkeypatch.setattr(mod, name, spy)
+    monkeypatch.setattr(common, "on_card", lambda x: x.device.type == "cpu")
+    for mod, name in ((jce, "ce_forward"), (jce, "ce_backward"),
+                      (jln, "ln_backward"), (jeg, "emb_grad")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _r=real, **k:
+                            _r(*a, **dict(k, interpret=True)))
+    monkeypatch.setattr(jattention, "_use_pallas", lambda: True)
+    monkeypatch.setattr(jattention, "_bthd_mode",
+                        lambda q, k: jattention._MODE_DENSE)
+    for flag, value in (("ce_kernel", "1"), ("ln_kernel", "1"),
+                        ("emb_grad_kernel", emb_impl),
+                        ("adam_kernel", "0")):      # JAX Adam off the TPU
+        monkeypatch.setenv("FLAGS_" + flag, value)
+    grads, want, got = _one_step(KERNEL_VOCAB)
+    n_ln = 5 * SMALL["n_layer"]          # 2 per encoder, 3 per decoder layer
+    assert calls == {"ce_forward": 1, "ce_backward": 1, "ln_backward": n_ln,
+                     "emb_grad": 2}
+    _assert_f32_step_agrees(grads, want, got)
+    _assert_f32_step_agrees(grads, off, got)
 
 
 def test_bf16_step_matches_within_stated_tolerance():
