@@ -14,10 +14,13 @@ non-zero exit):
               two embedding-grad kernels) against its plain PyTorch version
               on the card, at the serving and training paths' shapes plus
               ragged and float32 cases, held to the elementwise bounds
-              below; at the paths' shapes the bound must also reject a
-              control (a plain version with the last key tile, delta, the
-              label column, the ignore mask, the sum(g * xhat) term or the
-              last id chunk dropped or moved, or a wrong beta2). It reports
+              below; each attention forward case names the CUDA kernel it
+              launched (bfloat16: the tensor-core *_wgmma kernels, float32:
+              the CUDA-core ones), and one line lists them by dtype; at
+              the paths' shapes the bound must also reject a control (a
+              plain version with the last key tile, delta, the label
+              column, the ignore mask, the sum(g * xhat) term or the last
+              id chunk dropped or moved, or a wrong beta2). It reports
               the kernel's, the plain version's and one PyTorch library
               call's time (scaled_dot_product_attention forward or backward,
               torch._fused_adam_, F.cross_entropy,
@@ -177,7 +180,10 @@ def _sdpa(q, k, v, causal):
 
 # (kernel, B, T_q, T_k, H, D, causal, dtype, path, weight on that path):
 # a case with a path is timed and enters that kernel's summary over the
-# path's mix, and its bound must reject a control
+# path's mix, and its bound must reject a control. The edges (D = 40 and
+# 128, T not a multiple of the tiles, causal rows with no key at T_q > T_k)
+# run in both dtypes: bfloat16 takes the tensor-core kernels, float32 the
+# CUDA-core ones.
 KERNEL_CASES = [
     ("onepass", 8, 256, 256, 8, 64, False, "bfloat16", "serve256", 8),
     ("onepass", 8, 256, 256, 8, 64, True, "bfloat16", "serve256", 4),
@@ -186,6 +192,8 @@ KERNEL_CASES = [
     ("onepass", 8, 200, 256, 8, 64, True, "bfloat16", None, 0),
     ("onepass", 2, 77, 77, 2, 40, True, "float32", None, 0),
     ("onepass", 1, 130, 100, 2, 128, True, "float32", None, 0),
+    ("onepass", 2, 77, 77, 2, 40, True, "bfloat16", None, 0),
+    ("onepass", 1, 130, 100, 2, 128, True, "bfloat16", None, 0),
     ("onepass", 1, 512, 512, 4, 128, True, "bfloat16", None, 0),  # largest
     ("flash", 1, 4096, 4096, 8, 64, False, "bfloat16", "serve4096", 8),
     ("flash", 1, 4096, 4096, 8, 64, True, "bfloat16", "serve4096", 4),
@@ -195,7 +203,13 @@ KERNEL_CASES = [
     ("flash", 1, 1030, 1100, 2, 128, False, "float32", None, 0),
     ("flash", 1, 130, 100, 2, 40, True, "float32", None, 0),
     ("flash", 2, 1000, 1100, 2, 64, True, "bfloat16", None, 0),
+    ("flash", 1, 130, 100, 2, 40, True, "bfloat16", None, 0),
+    ("flash", 1, 1030, 1100, 2, 128, False, "bfloat16", None, 0),
+    ("flash", 2, 1100, 1000, 2, 64, True, "bfloat16", None, 0),
 ]
+# the CUDA kernel each dtype's forward must launch (the instantiation's name
+# as attention.last_kernel_name() reports it)
+FWD_CODE_PATH = {"bfloat16": "_wgmma<", "float32": "<float>"}
 BWD_CASES = [
     ("onepass_bwd", 256, 256, 256, 8, 64, False, "bfloat16", "train256", 8),
     ("onepass_bwd", 256, 256, 256, 8, 64, True, "bfloat16", "train256", 4),
@@ -367,22 +381,29 @@ def _summary_add(summary, key, path, weight, rec, bound_by):
 
 
 def _fwd_cases(A, gen, summary, max_err, failed):
+    """Returns {kernel: {dtype: sorted names of the CUDA kernels run}}."""
     import torch
     wrappers = {"onepass": (A.onepass_attention_fwd_bthd,
                             A.onepass_attention_fwd_plain),
                 "flash": (A.flash_attention_fwd_bthd,
                           A.flash_attention_fwd_plain)}
+    paths = {}
     for kernel, b, t_q, t_k, h, d, causal, dtype, path, weight in \
             KERNEL_CASES:
         tdtype = getattr(torch, dtype)
         q, k, v = _qkv(gen, b, t_q, t_k, h, d, tdtype)
         fn, plain = wrappers[kernel]
         launches0 = fn.launches
-        got, want = fn(q, k, v, causal), plain(q, k, v, causal)
+        got = fn(q, k, v, causal)
+        cuda_kernel = A.last_kernel_name()
+        want = plain(q, k, v, causal)
         torch.cuda.synchronize()
         rec = {"phase": "kernels", "kernel": kernel,
                "shape": [b, t_q, t_k, h, d], "causal": causal,
-               "dtype": dtype, "path": path, "tol": OUT_TOL[dtype]}
+               "dtype": dtype, "path": path, "tol": OUT_TOL[dtype],
+               "cuda_kernel": cuda_kernel}
+        paths.setdefault(kernel, {}).setdefault(dtype, set()).add(
+            cuda_kernel)
         if kernel == "flash":
             (got, got_lse), (want, want_lse) = got, want
             rec["lse_err_ratio"] = err_ratio(got_lse, want_lse, *LSE_TOL,
@@ -394,7 +415,8 @@ def _fwd_cases(A, gen, summary, max_err, failed):
         rec["ok"] = rec["err_ratio"] <= 1 and \
             rec.get("lse_err_ratio", 0.0) <= 1 and \
             bool(torch.isfinite(got.float()).all()) and \
-            (kernel != "flash" or bool(torch.isfinite(got_lse).all()))
+            (kernel != "flash" or bool(torch.isfinite(got_lse).all())) and \
+            FWD_CODE_PATH[dtype] in cuda_kernel
         del want
         if weight:
             drop = slice(0, t_k - CONTROL_DROP_KEYS)
@@ -422,6 +444,8 @@ def _fwd_cases(A, gen, summary, max_err, failed):
         if not rec["ok"]:
             failed.append(rec)
         del q, k, v, got
+    return {kernel: {dtype: sorted(names) for dtype, names in by.items()}
+            for kernel, by in paths.items()}
 
 
 def _onepass_bwd_no_delta(A, q, k, v, do, causal):
@@ -927,7 +951,8 @@ def phase_kernels():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     summary, max_err, failed = {}, {}, []
-    _fwd_cases(A, gen, summary, max_err, failed)
+    emit({"phase": "kernels", "code_paths":
+          _fwd_cases(A, gen, summary, max_err, failed)})
     torch.cuda.empty_cache()
     _bwd_cases(A, gen, summary, max_err, failed)
     _adam_cases(K, gen, summary, max_err, failed)

@@ -30,6 +30,7 @@ SIGNATURES = {
          [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P]),
         ("flash_attention_fwd",
          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P]),
+        ("attention_last_kernel", []),
         ("attention_error_string", [_I]),
     ],
     "attention_bwd": [
@@ -114,7 +115,7 @@ def _load(name, lib_path):
     for fn, argtypes in SIGNATURES[name]:
         f = getattr(lib, fn)
         f.argtypes = argtypes
-        f.restype = ctypes.c_char_p if fn.endswith("error_string") else _I
+        f.restype = ctypes.c_char_p if fn.startswith("attention_") else _I
     return lib
 
 

@@ -10,8 +10,10 @@ T_k >= FLAGS_flash_min_seq takes the flash kernel; everything else, and
 every tensor off the card, takes the dense path, which stays plain
 PyTorch as it stays XLA in the JAX package.
 
-The forward kernels live in ``csrc/attention.cu`` and keep their Pallas
-kernels' rounding points:
+The forward kernels live in ``csrc/attention.cu``: for bfloat16 on the
+tensor cores (wgmma, bf16 tiles in shared memory by cp.async), for float32
+on the CUDA cores (the tensor cores would take f32 only as TF32). Both keep
+their Pallas kernels' rounding points:
 
 - one-pass (replaces ``_onepass_fwd_kernel``, paddle_tpu/ops/attention.py:123):
   S = QK^T*scale in f32, causal mask to NEG_INF, exact row max and sum,
@@ -51,9 +53,10 @@ from . import _build
 
 NEG_INF = -1e30        # avoids inf-inf=nan in the online-softmax rescale
 
-# the card's ceiling on the one-pass kernel's shared-memory score tile: 64
-# query rows x T_k f32 scores, plus the Q and K/V staging tiles, must fit
-# the 227 KB a block may use
+# the card's ceiling on the float32 one-pass kernel's shared-memory score
+# tile: 64 query rows x T_k f32 scores, plus the Q and K/V staging tiles,
+# must fit the 227 KB a block may use (the bf16 kernel keeps no score tile;
+# both take the same T_k)
 _ONEPASS_KERNEL_MAX_TK = 512
 _KERNEL_MAX_D = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -188,6 +191,13 @@ def flash_attention_fwd_bthd(q, k, v, causal=False, scale=None):
 
 
 flash_attention_fwd_bthd.launches = 0
+
+
+def last_kernel_name():
+    """Name of the CUDA kernel instantiation that the last forward launch
+    ran: ``*_wgmma<64|128>`` (tensor cores) for bfloat16, ``*<float>`` (CUDA
+    cores) for float32."""
+    return _build.library("attention").attention_last_kernel().decode()
 
 
 # --------------------------------------------------------------------------

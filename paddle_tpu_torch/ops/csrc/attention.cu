@@ -1,42 +1,472 @@
 // Attention forward kernels for Hopper (sm_90a) on the [B, T, H, D] layout.
 //
-// onepass_fwd_kernel replaces the Pallas kernel `_onepass_fwd_kernel`
+// onepass_fwd_kernel_* replaces the Pallas kernel `_onepass_fwd_kernel`
 // (paddle_tpu/ops/attention.py:123, called by onepass_attention_fwd_bthd).
-// flash_fwd_kernel replaces the Pallas kernel `_fwd_kernel`
+// flash_fwd_kernel_* replaces the Pallas kernel `_fwd_kernel`
 // (paddle_tpu/ops/attention.py:272, called by flash_attention_fwd_bthd).
+// The entry points pick the code by dtype: bfloat16 runs the tensor-core
+// kernels (*_wgmma<DP>), float32 the CUDA-core kernels (*<float>), since the
+// tensor cores take f32 only as TF32 (about three decimal digits).
 //
 // What bounds them on the H100. Per (batch, head) both kernels read Q, K and
 // V once and write O once, and do 4*D operations per unmasked (row, col)
 // pair: T/2 operations per bf16 byte at T_q = T_k = T (half that when
-// causal), so 128 at the one-pass serving shape T = 256 and 2048 at the
-// flash shape T = 4096. Against the card's ~295 bf16 operations per byte,
-// the short kernel is bound by its bytes and the long one by its
-// operations. Neither is near either bound in this version: the
-// products run on the CUDA cores in f32 from shared memory (no wgmma, no TMA
-// yet), so their time is set by shared-memory reads and FMAs.
+// causal), so 128 at the one-pass path shape T = 256 and 2048 at the flash
+// shape T = 4096. Against the card's ~295 bf16 operations per byte, the
+// one-pass kernel is bound by its bytes and the flash kernel by its
+// operations; the flash kernel's exp of every score is a second ceiling
+// (16 a cycle per SM on the special-function units), about as low as the
+// tensor cores' at D = 64.
 //
-// What the design does about it. The [T, T] score matrix never reaches
-// device memory: the one-pass kernel keeps a 64 x T_k f32 score tile in
-// shared memory (up to 128 KB at T_k = 512, opted in above the 48 KB
-// default), the flash kernel keeps only a 64 x 64 tile and runs the online
-// softmax over k-tiles. Each block owns one (batch, head, 64-row q-tile) and
-// loops over k-tiles itself, since blocks carry nothing across the grid.
-// Each thread holds a 4 x 4 score micro-tile and a 4 x (D/16) output
-// micro-tile in registers; shared tiles are padded to D + 1 floats a row so
-// that the strided reads do not collide on banks. Ragged edges (T not a
-// multiple of 64) are masked here, not by choosing a divisor tile.
+// What the bf16 design does about it. Both products run on the tensor cores
+// (wgmma, f32 accumulate): the flash kernel's bound is operations, and wgmma
+// is the only way to the card's full rate. Q, K and V stay bf16 all the way:
+// 16-byte cp.async copies fill shared tiles laid out as wgmma reads them
+// (hopper.cuh), through a ring of four K/V buffers, so that the copies of
+// the next two tiles overlap this tile's products and one barrier a tile
+// suffices. A block holds two warpgroups, each owning 64 rows of a 128-row
+// q-tile and sharing the K/V tiles; S and O live in registers, the softmax
+// runs on the accumulator fragments (row max and sum by quad shuffles,
+// exponentials in base 2 on the special-function unit), and P becomes the
+// bf16 register A operand of P.V, with V as the MN-major B operand. Each
+// warpgroup issues the next tile's S before this tile's P.V and runs the
+// softmax while P.V is on the tensor cores. The one-pass kernel normalises
+// P before its cast, which needs each row's final max and sum before any
+// P.V: pass 1 runs S over the k-tiles for m and l, pass 2 recomputes S,
+// forms P = exp(S - m) / l in f32, rounds it and multiplies by V (1.5x the
+// operations, still under the byte bound at T = 256, and no 64 x T_k f32
+// score buffer). D is padded in shared memory with zero columns to DP = 64
+// or 128, so the contraction of QK^T and the N of P.V are whole wgmma
+// shapes. Ragged edges are masked here (columns past T_k to -inf, p = 0;
+// rows past T read as zero, never the next batch's rows). Causal: k-tiles
+// strictly above the diagonal of the q-tile are skipped, and the q-tiles
+// with the most k-tiles launch first.
 //
-// Rounding points follow the Pallas kernels: scores in f32, causal mask to
-// -1e30 (bottom-right aligned: col <= row + T_k - T_q), P cast to V's dtype
+// The float32 kernels keep the first version's design: a 16 x 16 thread
+// block with 4 x 4 register micro-tiles on the CUDA cores, f32 tiles in
+// shared memory padded to D + 1, and (one-pass) a 64 x T_k f32 score tile.
+//
+// Rounding points follow the Pallas kernels: scores in f32 with the scale
+// applied after the product (the bf16 kernels fold log2(e) into that one
+// multiply and run the softmax in base 2), causal mask to -1e30
+// (bottom-right aligned: col <= row + T_k - T_q), P cast to V's dtype
 // before P.V, P.V accumulated in f32, output rounded once to q's dtype.
-// The one-pass kernel normalises P in f32 before the cast; the flash kernel
-// casts the unnormalised P and divides the accumulator by l at the end.
+// The one-pass kernel normalises P in f32 before the cast; the flash
+// kernel casts the unnormalised P per k-tile, divides the accumulator by l
+// at the end, and writes lse = m + log l. A causal row with no key at all
+// (T_q > T_k) gets the uniform softmax over all keys: its q-tile visits
+// every k-tile.
+
+#include <stdint.h>
+
+#include <type_traits>
 
 #include "attention_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace attn;
+
+// --------------------------------------------------------------------------
+// bfloat16: tensor cores
+// --------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWG = 2;                 // warpgroups per block, 64 q rows each
+constexpr int kTQ = 64 * kWG;          // query rows per block
+constexpr int kTK = 64;                // keys per k-tile
+constexpr int kTcThreads = 128 * kWG;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+// the softmax runs in base 2: scores times log2(e), so the causal mask
+// value is -1e30 * log2(e)
+constexpr float kNegInf2 = kNegInf * kLog2e;
+
+// wgmma descriptors' core-matrix strides (bytes; hopper.cuh's layout). A
+// K-major operand tile of R rows (Q, K) steps R * 16 along the contraction
+// (leading) and 128 along its rows (stride); the MN-major V tile steps 128
+// along the keys (leading, its contraction) and kTK * 16 along D (stride).
+constexpr uint32_t kQLbo = kTQ * 16, kKLbo = kTK * 16, kKmajorSbo = 128;
+constexpr uint32_t kVLbo = 128, kVSbo = kTK * 16;
+
+// K/V buffers in the ring: a step's copy is issued kStages - 1 steps ahead
+constexpr int kStages = 4;
+
+// shared memory of one block: the Q tile, then kStages (K, V) tile pairs
+template <int DP>
+struct WgSmem {
+  static constexpr int kQ = kTQ * DP * 2;
+  static constexpr int kKV = kTK * DP * 2;
+  static constexpr int kBytes = kQ + kStages * 2 * kKV;
+};
+
+template <int DP>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint64_t b) {
+  sm90::wgmma_rs_n64(o, a0, a1, a2, a3, b);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], uint32_t a0,
+                                              uint32_t a1, uint32_t a2,
+                                              uint32_t a3, uint64_t b) {
+  sm90::wgmma_rs_n128(o, a0, a1, a2, a3, b);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Softmax pieces on one k-tile of base-2 scores s in accumulator layout:
+// s[4t + 2r + {0, 1}] is row r's (a: 0, b: 1) pair of columns in 8-column
+// block t of this thread. Maxes and sums are taken as trees, to keep the
+// chains of dependent instructions short.
+
+// max over this thread's columns of rows a and b, folded into mx_*
+__device__ __forceinline__ void tile_max(const float (&s)[32], float& mx_a,
+                                         float& mx_b) {
+  float x[8], y[8];
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    x[t] = fmaxf(s[4 * t], s[4 * t + 1]);
+    y[t] = fmaxf(s[4 * t + 2], s[4 * t + 3]);
+  }
+#pragma unroll
+  for (int w = 4; w > 0; w >>= 1)
+#pragma unroll
+    for (int t = 0; t < w; ++t) {
+      x[t] = fmaxf(x[t], x[t + w]);
+      y[t] = fmaxf(y[t], y[t + w]);
+    }
+  mx_a = fmaxf(mx_a, x[0]);
+  mx_b = fmaxf(mx_b, y[0]);
+}
+
+// s becomes 2^(s - m) for its row's m; the sums over this thread's columns
+// are added to sum_*. s - m first: at s = m = -1e30 log2(e) (a row with no
+// key) it is 0.
+__device__ __forceinline__ void exp_sum(float (&s)[32], float m_a, float m_b,
+                                        float& sum_a, float& sum_b) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = sm90::ex2(s[i] - ((i & 2) ? m_b : m_a));
+  float x[8], y[8];
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    x[t] = s[4 * t] + s[4 * t + 1];
+    y[t] = s[4 * t + 2] + s[4 * t + 3];
+  }
+#pragma unroll
+  for (int w = 4; w > 0; w >>= 1)
+#pragma unroll
+    for (int t = 0; t < w; ++t) {
+      x[t] += x[t + w];
+      y[t] += y[t + w];
+    }
+  sum_a += x[0];
+  sum_b += y[0];
+}
+
+// One block per (128-row q-tile, head, batch); warpgroup wg owns q rows
+// [64 wg, 64 wg + 64) of the tile and walks 64-key k-tiles in steps. The
+// flash kernel takes one step a k-tile with the online softmax. The
+// one-pass kernel takes two passes, a step a k-tile: pass 1 (S only: the
+// rows' m and l), then pass 2 (S again, P = exp(S - m) / l, P.V).
+//
+// Pipeline. Step j's K and V tiles (pass 1: K only) sit in ring buffer
+// j % kStages, copied kStages - 1 steps ahead, one cp.async group a step;
+// one barrier a step makes step j + 1's tiles visible and frees step
+// j - 1's buffer for the next copy. In step j a warpgroup issues
+// S(j + 1) = Q K(j + 1)^T, then P(j).V(j); it runs the softmax of S(j + 1)
+// while P.V is still on the tensor cores, and rescales O and packs
+// P(j + 1) once P.V is done. Every
+// branch around a wgmma is uniform over the block (the loops are split by
+// what their steps hold, and both warpgroups take every step of the block),
+// so the compiler keeps the wgmma asynchronous.
+template <int DP, bool kOnepass>
+__device__ __forceinline__ void wgmma_fwd(const bf16* __restrict__ q,
+                                          const bf16* __restrict__ k,
+                                          const bf16* __restrict__ v,
+                                          bf16* __restrict__ out,
+                                          float* __restrict__ lse, int Tq,
+                                          int Tk, int H, int D, float scale,
+                                          int causal) {
+  using Sm = WgSmem<DP>;
+  constexpr int C = DP / 8;
+  extern __shared__ __align__(128) unsigned char wg_smem[];
+  const uint32_t s_q = sm90::smem_addr(wg_smem);
+  const uint32_t s_kv = s_q + Sm::kQ;
+  // causal: the q-tiles with the most k-tiles launch first
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * kTQ, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid >> 7, w = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int offset = Tk - Tq;
+
+  // causal: skip k-tiles strictly above the diagonal; a q-tile holding a
+  // row with no key visits them all
+  int last = (Tk + kTK - 1) / kTK - 1;
+  if (causal && q0 + offset >= 0)
+    last = min(last, (min(q0 + kTQ, Tq) - 1 + offset) / kTK);
+  const int n_tiles = last + 1;
+  // steps: the one-pass kernel's pass 1 (one a k-tile), then a k-tile a
+  // step with P.V
+  const int n_p1 = kOnepass ? n_tiles : 0;
+  const int n_steps = n_p1 + n_tiles;
+  auto pass1 = [&](int step) { return step < n_p1; };
+  auto tile_of = [&](int step) { return pass1(step) ? step : step - n_p1; };
+
+  // this warpgroup's first row, this thread's accumulator rows ra and
+  // ra + 8, and the first of its two columns in each 8-column block
+  const int r0 = q0 + 64 * wg;
+  const int ra = r0 + 16 * w + (lane >> 2);
+  const int c0 = 2 * (lane & 3);
+
+  const sm90::TileCopy<kTK, C, kTcThreads> k_copy(k, b, Tk, H, h, D);
+  const sm90::TileCopy<kTK, C, kTcThreads> v_copy(v, b, Tk, H, h, D);
+  // byte offset of a step's K buffer from the first; V follows at + kKV
+  auto buf = [&](int step) {
+    return (uint32_t)(step % kStages) * 2 * Sm::kKV;
+  };
+  auto issue = [&](int step) {
+    if (step < n_steps) {
+      const int k0 = tile_of(step) * kTK;
+      k_copy.load(s_kv + buf(step), k0, Tk);
+      if (!pass1(step)) v_copy.load(s_kv + buf(step) + Sm::kKV, k0, Tk);
+    }
+    sm90::cp_async_commit();
+  };
+
+  float o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  // running max (base 2) and sum of this thread's rows
+  float m_a = kNegInf2, m_b = kNegInf2, l_a = 0.f, l_b = 0.f;
+  float inv_a = 0.f, inv_b = 0.f, al_a = 1.f, al_b = 1.f;
+  const float scale2 = scale * kLog2e;
+  float s[32];
+  uint32_t p[16];
+
+  // wgmma descriptors of this warpgroup's Q rows and of the first K and V
+  // buffers; a step and a k16 slice add their byte offset / 16
+  const uint64_t d_q = sm90::desc(s_q + wg * 64 * 16, kQLbo, kKmajorSbo);
+  const uint64_t d_k = sm90::desc(s_kv, kKLbo, kKmajorSbo);
+  const uint64_t d_v = sm90::desc(s_kv + Sm::kKV, kVLbo, kVSbo);
+  // S(step) = Q K^T into s (issued, not waited for)
+  auto scores = [&](int step) {
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      sm90::wgmma_ss_n64(s, d_q + (kk * 2 * kQLbo >> 4),
+                         d_k + ((buf(step) + kk * 2 * kKLbo) >> 4), kk > 0);
+    sm90::wgmma_commit();
+  };
+  // O += P(step) V(step) (issued, not waited for)
+  auto pv = [&](int step) {
+#pragma unroll
+    for (int kk = 0; kk < kTK / 16; ++kk)
+      wgmma_pv<DP>(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                   d_v + ((buf(step) + kk * 16 * 16) >> 4));
+    sm90::wgmma_commit();
+  };
+  // scores of the k-tile at k0 scaled (base 2) and masked: columns past T_k
+  // to -inf, above the diagonal to -1e30 log2(e)
+  auto scale_mask = [&](float (&x)[32], int k0) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[i] *= scale2;
+    if (k0 + kTK > Tk || (causal && k0 + kTK - 1 > r0 + offset)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = k0 + 8 * (i >> 2) + c0 + (i & 1);
+        const int row = ra + ((i & 2) ? 8 : 0);
+        const bool above = causal && col > row + offset;
+        x[i] = col >= Tk ? -INFINITY : (above ? kNegInf2 : x[i]);
+      }
+    }
+  };
+  // the online softmax (flash; one-pass pass 1) or P = 2^(S - m) / l with
+  // the final m and l (one-pass pass 2)
+  auto softmax = [&](int step) {
+    const int k0 = tile_of(step) * kTK;
+    scale_mask(s, k0);
+    if (kOnepass && !pass1(step)) {
+      if (k0 == 0) {
+        inv_a = 1.f / l_a;
+        inv_b = 1.f / l_b;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        s[i] = sm90::ex2(s[i] - ((i & 2) ? m_b : m_a)) *
+               ((i & 2) ? inv_b : inv_a);
+      return;
+    }
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+    tile_max(s, mx_a, mx_b);
+    const float mn_a = fmaxf(m_a, quad_max(mx_a));
+    const float mn_b = fmaxf(m_b, quad_max(mx_b));
+    al_a = sm90::ex2(m_a - mn_a);
+    al_b = sm90::ex2(m_b - mn_b);
+    float sum_a = 0.f, sum_b = 0.f;
+    exp_sum(s, mn_a, mn_b, sum_a, sum_b);
+    l_a = al_a * l_a + quad_sum(sum_a);
+    l_b = al_b * l_b + quad_sum(sum_b);
+    m_a = mn_a;
+    m_b = mn_b;
+  };
+  // once P.V(step - 1) is done: O rescaled (flash), P(step) packed to bf16
+  // (l summed the unrounded P)
+  auto to_p = [&]() {
+    if (!kOnepass) {
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) o[i] *= (i & 2) ? al_b : al_a;
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) p[j] = sm90::pack_bf16(s[2 * j], s[2 * j + 1]);
+  };
+  // step j: wait for step j + 1's tiles, refill step j - 1's buffer, then
+  // S(j + 1) and P(j).V(j) as the step holds them
+  auto step = [&](int j, auto has_next, auto has_pv) {
+    constexpr bool kNext = decltype(has_next)::value;
+    constexpr bool kPv = decltype(has_pv)::value;
+    if (kNext) {
+      sm90::cp_async_wait<kStages - 3>();
+      sm90::fence_async_shared();
+    }
+    __syncthreads();
+    issue(j + kStages - 1);
+    sm90::wgmma_fence();
+    if constexpr (kNext) scores(j + 1);
+    if constexpr (kPv) pv(j);
+    if constexpr (kNext) {
+      if constexpr (kPv)
+        sm90::wgmma_wait<1>();                   // S(j + 1); P.V runs on
+      else
+        sm90::wgmma_wait<0>();
+      sm90::fence_regs(s);
+      softmax(j + 1);
+    }
+    if constexpr (kPv) {
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(o);
+      sm90::fence_regs(p);                       // P stays put until here
+    }
+    if (kNext && !pass1(j + 1)) to_p();
+  };
+  using yes = std::true_type;
+  using no = std::false_type;
+
+  const sm90::TileCopy<kTQ, C, kTcThreads> q_copy(q, b, Tq, H, h, D);
+  q_copy.load(s_q, q0, Tq);                      // joins step 0's group
+  for (int j = 0; j < kStages - 1; ++j) issue(j);
+  sm90::cp_async_wait<kStages - 2>();            // Q and step 0
+  sm90::fence_async_shared();
+  __syncthreads();
+  sm90::wgmma_fence();
+  scores(0);
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(s);
+  softmax(0);
+  if (!pass1(0)) to_p();
+  for (int j = 0; j < n_p1; ++j) step(j, yes(), no());
+  for (int j = n_p1; j < n_steps - 1; ++j) step(j, yes(), yes());
+  step(n_steps - 1, no(), yes());
+
+  // O (divided by l for flash) as bf16 into this warpgroup's rows of the Q
+  // tile (read only by its own, finished products), then out by 16-byte
+  // stores; rows past T_q are dropped
+  const float d_a = kOnepass ? 1.f : l_a, d_b = kOnepass ? 1.f : l_b;
+  const int rl = 64 * wg + 16 * w + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    unsigned char* at = wg_smem + j * kTQ * 16 + rl * 16 + (lane & 3) * 4;
+    *reinterpret_cast<uint32_t*>(at) =
+        sm90::pack_bf16(o[4 * j] / d_a, o[4 * j + 1] / d_a);
+    *reinterpret_cast<uint32_t*>(at + 8 * 16) =
+        sm90::pack_bf16(o[4 * j + 2] / d_b, o[4 * j + 3] / d_b);
+  }
+  if (!kOnepass && (lane & 3) == 0) {
+    if (ra < Tq)
+      lse[((size_t)b * Tq + ra) * H + h] = m_a * kLn2 + logf(l_a);
+    if (ra + 8 < Tq)
+      lse[((size_t)b * Tq + ra + 8) * H + h] = m_b * kLn2 + logf(l_b);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kTQ * C / kTcThreads; ++i) {
+    const int idx = tid + i * kTcThreads;
+    const int r = (idx & 7) | ((idx / (8 * C)) << 3);
+    const int c = (idx >> 3) % C;
+    const int t = q0 + r;
+    if (t < Tq && c * 8 < D)
+      *reinterpret_cast<uint4*>(out + (((size_t)b * Tq + t) * H + h) * D +
+                                c * 8) =
+          *reinterpret_cast<const uint4*>(wg_smem + c * kTQ * 16 + r * 16);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kTcThreads)
+    onepass_fwd_kernel_wgmma(const bf16* __restrict__ q,
+                             const bf16* __restrict__ k,
+                             const bf16* __restrict__ v,
+                             bf16* __restrict__ out, float* __restrict__ lse,
+                             int Tq, int Tk, int H, int D, float scale,
+                             int causal) {
+  wgmma_fwd<DP, true>(q, k, v, out, lse, Tq, Tk, H, D, scale, causal);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kTcThreads)
+    flash_fwd_kernel_wgmma(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, bf16* __restrict__ out,
+                           float* __restrict__ lse, int Tq, int Tk, int H,
+                           int D, float scale, int causal) {
+  wgmma_fwd<DP, false>(q, k, v, out, lse, Tq, Tk, H, D, scale, causal);
+}
+
+// the bf16 kernel for D <= DP, launched; records its name in *name
+template <int DP>
+int launch_wgmma(bool onepass, const void* q, const void* k, const void* v,
+                 void* out, float* lse, int B, int Tq, int Tk, int H, int D,
+                 float scale, int causal, cudaStream_t stream,
+                 const char** name) {
+  auto kernel = onepass ? onepass_fwd_kernel_wgmma<DP>
+                        : flash_fwd_kernel_wgmma<DP>;
+  *name = onepass ? (DP == 64 ? "onepass_fwd_kernel_wgmma<64>"
+                              : "onepass_fwd_kernel_wgmma<128>")
+                  : (DP == 64 ? "flash_fwd_kernel_wgmma<64>"
+                              : "flash_fwd_kernel_wgmma<128>");
+  // 16-byte copies need 16-byte aligned rows (D % 8 == 0 gives the rest)
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
+      16)
+    return (int)cudaErrorMisalignedAddress;
+  const int smem = WgSmem<DP>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Tq + kTQ - 1) / kTQ, H, B);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, Tq, Tk, H, D,
+      scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// --------------------------------------------------------------------------
+// float32: CUDA cores
+// --------------------------------------------------------------------------
 
 // One block per (64-row q-tile, head, batch). Shared: Q tile, one K/V tile,
 // and the full 64 x T_k f32 score/probability tile.
@@ -255,7 +685,11 @@ int launch_flash(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t value (0 = ok).
+// name of the kernel instantiation the last entry-point call launched
+static const char* g_last_kernel = "";
+
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores). Returns a
+// cudaError_t value (0 = ok).
 extern "C" int onepass_attention_fwd(const void* q, const void* k,
                                      const void* v, void* out, int B, int Tq,
                                      int Tk, int H, int D, float scale,
@@ -263,12 +697,17 @@ extern "C" int onepass_attention_fwd(const void* q, const void* k,
   if (bad_shape(B, Tq, Tk, H, D) || Tk > kOnepassMaxTk)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
+  if (dtype == 0) {
+    g_last_kernel = "onepass_fwd_kernel<float>";
     return launch_onepass<float>(q, k, v, out, B, Tq, Tk, H, D, scale, causal,
                                  s);
+  }
   if (dtype == 1)
-    return launch_onepass<__nv_bfloat16>(q, k, v, out, B, Tq, Tk, H, D, scale,
-                                         causal, s);
+    return D <= 64 ? launch_wgmma<64>(true, q, k, v, out, nullptr, B, Tq, Tk,
+                                      H, D, scale, causal, s, &g_last_kernel)
+                   : launch_wgmma<128>(true, q, k, v, out, nullptr, B, Tq,
+                                       Tk, H, D, scale, causal, s,
+                                       &g_last_kernel);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -279,14 +718,20 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (bad_shape(B, Tq, Tk, H, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (dtype == 0)
+  if (dtype == 0) {
+    g_last_kernel = "flash_fwd_kernel<float>";
     return launch_flash<float>(q, k, v, out, l, B, Tq, Tk, H, D, scale, causal,
                                s);
+  }
   if (dtype == 1)
-    return launch_flash<__nv_bfloat16>(q, k, v, out, l, B, Tq, Tk, H, D, scale,
-                                       causal, s);
+    return D <= 64 ? launch_wgmma<64>(false, q, k, v, out, l, B, Tq, Tk, H, D,
+                                      scale, causal, s, &g_last_kernel)
+                   : launch_wgmma<128>(false, q, k, v, out, l, B, Tq, Tk, H,
+                                       D, scale, causal, s, &g_last_kernel);
   return (int)cudaErrorInvalidValue;
 }
+
+extern "C" const char* attention_last_kernel() { return g_last_kernel; }
 
 extern "C" const char* attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
