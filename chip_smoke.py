@@ -14,9 +14,10 @@ non-zero exit):
               two embedding-grad kernels) against its plain PyTorch version
               on the card, at the serving and training paths' shapes plus
               ragged and float32 cases, held to the elementwise bounds
-              below; each attention forward case names the CUDA kernel it
-              launched (bfloat16: the tensor-core *_wgmma kernels, float32:
-              the CUDA-core ones), and one line lists them by dtype; at
+              below; each attention forward and flash backward case names
+              the CUDA kernels it launched (bfloat16: the tensor-core
+              *_wgmma kernels, float32: the CUDA-core ones), and one line
+              each lists them by dtype; at
               the paths' shapes the bound must also reject a control (a
               plain version with the last key tile, delta, the label
               column, the ignore mask, the sum(g * xhat) term or the last
@@ -99,9 +100,12 @@ OUT_TOL = {"bfloat16": (2.0 ** -7, 2.0 ** -5), "float32": (1e-5, 1e-5)}
 # The backward kernels' gradients, by the same elementwise bound. One-pass:
 # the kernel sums delta = rowsum(dP o P) in another order than the plain
 # version, so dS can round to the other side in bf16; the forward's bound
-# holds it. Flash: delta comes from outside and the two compute S, dP and
-# each sum in the same order on the card (sound readings 0 in bf16), so
-# atol drops to 2^-8, which rejects the flash controls by a wide margin.
+# holds it. Flash: delta comes from outside and P and dS round elementwise
+# in both, so rtol covers the output's rounding and atol 2^-8 the orders of
+# its f32 sums, which rejects the flash controls by a wide margin; in bf16
+# the tensor cores sum S and dP in another order than the plain version,
+# which can flip the bf16 rounding of single P and dS terms, and
+# flash_bwd_rounding_bound adds what those flips can move to the bound.
 BWD_TOL = {"onepass_bwd": OUT_TOL,
            "flash_bwd": {"bfloat16": (2.0 ** -7, 2.0 ** -8),
                          "float32": (1e-5, 1e-5)}}
@@ -210,6 +214,15 @@ KERNEL_CASES = [
 # the CUDA kernel each dtype's forward must launch (the instantiation's name
 # as attention.last_kernel_name() reports it)
 FWD_CODE_PATH = {"bfloat16": "_wgmma<", "float32": "<float>"}
+# the CUDA kernels each dtype's flash backward must launch, dq then dkv (as
+# attention.last_bwd_kernel_name() reports them)
+BWD_CODE_PATH = {"bfloat16": ("flash_bwd_dq_kernel_wgmma<",
+                              "flash_bwd_dkv_kernel_wgmma<"),
+                 "float32": ("flash_bwd_dq_kernel<float>",
+                             "bwd_dkv_kernel<float, false>")}
+# the flash backward's edges (D = 40 and 128, T not a multiple of the
+# tiles, causal rows with no key at T_q > T_k) run in both dtypes, as the
+# forward's
 BWD_CASES = [
     ("onepass_bwd", 256, 256, 256, 8, 64, False, "bfloat16", "train256", 8),
     ("onepass_bwd", 256, 256, 256, 8, 64, True, "bfloat16", "train256", 4),
@@ -227,6 +240,11 @@ BWD_CASES = [
     ("flash_bwd", 2, 1000, 1100, 2, 64, True, "bfloat16", None, 0),
     ("flash_bwd", 1, 1030, 1100, 2, 128, False, "float32", None, 0),
     ("flash_bwd", 1, 130, 100, 2, 40, True, "float32", None, 0),
+    ("flash_bwd", 1, 130, 100, 2, 40, True, "bfloat16", None, 0),
+    ("flash_bwd", 2, 77, 77, 2, 40, False, "bfloat16", None, 0),
+    ("flash_bwd", 1, 1030, 1100, 2, 128, False, "bfloat16", None, 0),
+    ("flash_bwd", 1, 1100, 1100, 2, 128, True, "bfloat16", None, 0),
+    ("flash_bwd", 2, 1100, 1000, 2, 64, True, "bfloat16", None, 0),
 ]
 # the 2-D parameters of the flagship model that the fused Adam kernel takes,
 # with their count per step (48 + 8 + 8 + 2 + 1 = 67), and one f32 case
@@ -346,6 +364,92 @@ def bwd_bound_ms(part, b, t_q, t_k, h, d, causal, itemsize):
     return _bound(flops, nbytes, itemsize)
 
 
+def _bf16_flip(x, eps):
+    """Elementwise: how far the bf16 rounding of an f32 value within eps of
+    x can lie from that of x. Rounding is monotone, so the two differ only
+    where a rounding midpoint lies within eps of x, and then by at most
+    eps plus one bf16 ulp of |x| + eps; elsewhere they are equal."""
+    import torch
+    a = x.abs()
+    ulp = lambda y: torch.ldexp(torch.ones_like(y), torch.frexp(y)[1] - 8)
+    # the place of a within its bf16 ulp (the low 16 bits of its f32 bits)
+    frac = (a.view(torch.int32) & 0xFFFF).float() / 65536.0
+    dist = torch.where(a == 0, torch.zeros_like(a), (frac - 0.5).abs() * ulp(a))
+    return torch.where(dist <= eps, eps + ulp(a + eps), torch.zeros_like(a))
+
+
+def flash_bwd_rounding_bound(A, q, k, v, do, out, lse, causal):
+    """Elementwise bound on what the orders of the f32 sums in S, dP and
+    delta can move the bf16 flash backward's dq, dk and dv, as (e_dq, e_dk,
+    e_dv): its bound is BWD_TOL's plus these (float32 rounds neither P nor
+    dS, and keeps BWD_TOL's alone).
+
+    Two implementations with the Pallas kernels' rounding points (the CUDA
+    kernel on the tensor cores, the plain version through cuBLAS, the Pallas
+    kernel through XLA) sum S = Q K^T, dP = dO V^T and delta = rowsum(dO o O),
+    D exact products of bf16 values each, in other orders. A sum of D terms
+    in f32 in any order lies within D 2^-24 sum_d |a_d b_d| of the exact sum
+    (the tensor cores' D / 16 steps, each truncating to 2^-23, inside it), so
+    the two sums differ by at most err = D 2^-23 sum_d |a_d b_d|: err_S for
+    S, err_dP for dP - delta (both sums' err). Then:
+    - P = exp(S scale - lse) differs by a relative err_P = scale err_S +
+      2^-22 (|S scale| + |lse|) + 2^-20: the roundings of the argument on
+      both sides (the kernel's in base 2: scale log2 e, lse log2 e, one
+      multiply-add) and the exponentials' errors (exp's few ulps,
+      ex2.approx's 2^-22);
+    - the unrounded dS = P (dP - delta) scale differs by err_dS =
+      scale (P err_dP + err_P P |dP - delta|) + 2^-22 |dS| (its roundings).
+    Both are rounded to bf16 before their products, and a rounded term
+    differs only where a bf16 rounding midpoint lies within its err
+    (_bf16_flip): rarely for a normal term, which then moves by one bf16
+    ulp, but always in a row that sees one key, whose P is 1 and whose dS is
+    f32 noise (dP equals delta but for rounding). dq_d = sum_j dS_j K_jd,
+    dk_d = sum_q dS_qj Q_qd and dv_d = sum_q P_qj dO_qd then move by at most
+    the same sums over those moves times |K|, |Q| and |dO|, times 1 + 2^-6
+    for the output's own bf16 rounding. Masked pairs and keyless rows are
+    exact in both (dS = 0, P = 1/T_k). Taken one batch element at a time,
+    to keep the [H, T_q, T_k] f32 temporaries small."""
+    import torch
+    scale = A._scale_of(q, None)
+    gamma = q.shape[-1] * 2.0 ** -23
+    ein = torch.einsum
+    e_dq, e_dk, e_dv = (torch.zeros(x.shape, dtype=torch.float32,
+                                    device=x.device) for x in (q, k, v))
+    exact = A._masked(q, k, causal) | A._keyless(q, k, causal)
+    for b in range(q.shape[0]):
+        qb, kb, vb, dob, ob = (x[b:b + 1].float() for x in (q, k, v, do, out))
+        lb = lse[b:b + 1].permute(0, 2, 1)[..., None]
+        s = A._scores(qb, kb, causal, scale)
+        p = A._flash_p(qb, kb, lse[b:b + 1], causal, scale)
+        rel_p = gamma * scale * ein("bqhd,bkhd->bhqk", qb.abs(), kb.abs())
+        rel_p += 2.0 ** -22 * (s.abs() + lb.abs()) + 2.0 ** -20
+        del s
+        dp = ein("bqhd,bkhd->bhqk", dob, vb)
+        dp -= A.flash_delta(ob, dob).permute(0, 2, 1)[..., None]
+        e_dp = gamma * ein("bqhd,bkhd->bhqk", dob.abs(), vb.abs())
+        e_dp += gamma * (dob * ob).abs().sum(-1).permute(0, 2, 1)[..., None]
+        ds = p * dp * scale
+        e_ds = scale * (p * e_dp + rel_p * p * dp.abs()) + \
+            2.0 ** -22 * ds.abs()
+        del dp, e_dp
+        f_ds = _bf16_flip(ds, e_ds).masked_fill_(exact, 0.0)
+        del ds, e_ds
+        f_p = _bf16_flip(p, rel_p * p).masked_fill_(exact, 0.0)
+        del p, rel_p
+        e_dq[b:b + 1] = ein("bhqk,bkhd->bqhd", f_ds, kb.abs())
+        e_dk[b:b + 1] = ein("bhqk,bqhd->bkhd", f_ds, qb.abs())
+        e_dv[b:b + 1] = ein("bhqk,bqhd->bkhd", f_p, dob.abs())
+        del f_p, f_ds
+    return tuple(e * (1 + 2.0 ** -6) for e in (e_dq, e_dk, e_dv))
+
+
+def bwd_bound(want, rtol, atol, extra=None):
+    """The elementwise bound rtol |want| + atol rms(want's row) (+ extra)."""
+    bound = rtol * want.float().abs() + \
+        atol * want.float().pow(2).mean(-1, keepdim=True).sqrt()
+    return bound if extra is None else bound + extra
+
+
 def _sdpa_bwd(q, k, v, do, causal):
     """PyTorch's fused attention backward on the same tensors (the
     yardstick; the port never calls it): one autograd.grad of an SDPA
@@ -462,7 +566,10 @@ def _onepass_bwd_no_delta(A, q, k, v, do, causal):
 
 
 def _bwd_cases(A, gen, summary, max_err, failed):
+    """Returns {dtype: sorted names of the flash backward's CUDA kernels
+    run}."""
     import torch
+    paths = {}
     for kernel, b, t_q, t_k, h, d, causal, dtype, path, weight in BWD_CASES:
         tdtype = getattr(torch, dtype)
         q, k, v = _qkv(gen, b, t_q, t_k, h, d, tdtype)
@@ -486,9 +593,13 @@ def _bwd_cases(A, gen, summary, max_err, failed):
             delta = A.flash_delta(out, do)
             before = (A.flash_attention_bwd_dq.launches,
                       A.flash_attention_bwd_dkv.launches)
-            got = (A.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal),
-                   ) + A.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
-                                                 causal)
+            got = (A.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal),)
+            cuda_kernels = [A.last_bwd_kernel_name()]
+            got += A.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+            cuda_kernels.append(A.last_bwd_kernel_name())
+            rec["cuda_kernel"] = cuda_kernels
+            for name in cuda_kernels:
+                paths.setdefault(dtype, set()).add(name)
             rec["launches"] = [A.flash_attention_bwd_dq.launches - before[0],
                                A.flash_attention_bwd_dkv.launches - before[1]]
             want = (A.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta,
@@ -506,13 +617,26 @@ def _bwd_cases(A, gen, summary, max_err, failed):
                                                       causal),
                     lambda: A.flash_attention_bwd_dkv_plain(
                         q, k, v, do, lse, delta, causal))}
+        # the bf16 flash backward's bound: BWD_TOL's plus what the orders of
+        # S's, dP's and delta's sums can flip (flash_bwd_rounding_bound)
+        flips = kernel == "flash_bwd" and dtype == "bfloat16"
+        extra = flash_bwd_rounding_bound(A, q, k, v, do, out, lse, causal) \
+            if flips else (None,) * 3
         torch.cuda.synchronize()
-        rec["err_ratio"] = {n: err_ratio(g, w, rtol, atol)
-                            for n, g, w in zip(names, got, want)}
+        rec["err_ratio"] = {
+            n: err_ratio(g, w, 0, 0, bound=bwd_bound(w, rtol, atol, e))
+            for n, g, w, e in zip(names, got, want, extra)}
+        if flips:
+            rec["err_ratio_without_flips"] = {
+                n: err_ratio(g, w, rtol, atol)
+                for n, g, w in zip(names, got, want)}
         rec["max_abs_err"] = {n: (g.float() - w.float()).abs().max().item()
                               for n, g, w in zip(names, got, want)}
         rec["ok"] = max(rec["err_ratio"].values()) <= 1 and \
-            all(bool(torch.isfinite(g.float()).all()) for g in got)
+            all(bool(torch.isfinite(g.float()).all()) for g in got) and \
+            (kernel != "flash_bwd" or all(
+                n.startswith(p) for n, p in zip(rec["cuda_kernel"],
+                                                BWD_CODE_PATH[dtype])))
         del want
         if weight:
             # controls: delta dropped (dq, dk), the last key tile dropped (dv)
@@ -533,10 +657,12 @@ def _bwd_cases(A, gen, summary, max_err, failed):
                     q, kd, vd, do, lse_d, A.flash_delta(out_d, do),
                     causal)[1]
                 del out_d, lse_d, zero
+            e_dv = extra[2] if extra[2] is None else extra[2][:, drop]
             rec["control_err_ratio"] = {
-                "dq": err_ratio(got[0], wrong[0], rtol, atol),
-                "dk": err_ratio(got[1], wrong[1], rtol, atol),
-                "dv": err_ratio(got[2][:, drop], wrong_dv, rtol, atol)}
+                n: err_ratio(g, w, 0, 0, bound=bwd_bound(w, rtol, atol, e))
+                for n, g, w, e in (("dq", got[0], wrong[0], extra[0]),
+                                   ("dk", got[1], wrong[1], extra[1]),
+                                   ("dv", got[2][:, drop], wrong_dv, e_dv))}
             rec["ok"] = rec["ok"] and \
                 min(rec["control_err_ratio"].values()) > 1
             del wrong, wrong_dv, kd, vd
@@ -564,10 +690,11 @@ def _bwd_cases(A, gen, summary, max_err, failed):
         emit(rec)
         if not rec["ok"]:
             failed.append(rec)
-        del q, k, v, do, got, parts
+        del q, k, v, do, got, parts, extra
         if kernel == "flash_bwd":
             del out, lse, delta
         torch.cuda.empty_cache()
+    return {dtype: sorted(names) for dtype, names in paths.items()}
 
 
 def _adam_cases(K, gen, summary, max_err, failed):
@@ -954,7 +1081,8 @@ def phase_kernels():
     emit({"phase": "kernels", "code_paths":
           _fwd_cases(A, gen, summary, max_err, failed)})
     torch.cuda.empty_cache()
-    _bwd_cases(A, gen, summary, max_err, failed)
+    emit({"phase": "kernels", "code_paths": {
+        "flash_bwd": _bwd_cases(A, gen, summary, max_err, failed)}})
     _adam_cases(K, gen, summary, max_err, failed)
     _ce_cases(CE, gen, summary, max_err, failed)
     _ln_cases(LN, gen, summary, max_err, failed)

@@ -40,6 +40,7 @@ SIGNATURES = {
          [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P]),
         ("flash_attention_bwd_dkv",
          [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P]),
+        ("attention_bwd_last_kernel", []),
     ],
     "adam": [
         ("adam_update", [_P] * 5 + [_I] + [_F] * 5 + [_I, _I, _P]),

@@ -38,7 +38,9 @@ The backward kernels live in ``csrc/attention_bwd.cu``:
   rounded first; two launches per call (dq, then dk and dv).
 - flash backward (replaces ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``,
   attention.py:400 and :447): P = exp(S - lse) per tile, delta =
-  rowsum(dO o O) computed outside; one wrapper per kernel.
+  rowsum(dO o O) computed outside; one wrapper per kernel. bfloat16 runs
+  on the tensor cores, float32 on the CUDA cores, as in the forward; the
+  one-pass backward runs on the CUDA cores in both.
 
 In the backward a keyless row keeps the dense path's answer: P = 1/T_k over
 all keys, dS = 0. ``fused_attention_bthd`` is differentiable: an
@@ -370,6 +372,15 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
 
 
 flash_attention_bwd_dkv.launches = 0
+
+
+def last_bwd_kernel_name():
+    """Name of the CUDA kernel instantiation that the last backward launch
+    ran: the flash backward's ``flash_bwd_{dq,dkv}_kernel_wgmma<64|128>``
+    (tensor cores) for bfloat16, ``flash_bwd_dq_kernel<float>`` or
+    ``bwd_dkv_kernel<float, false>`` (CUDA cores) for float32; the one-pass
+    backward's second launch, ``bwd_dkv_kernel<..., true>``."""
+    return _build.library("attention_bwd").attention_bwd_last_kernel().decode()
 
 
 def flash_delta(out, do):

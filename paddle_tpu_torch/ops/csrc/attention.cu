@@ -84,13 +84,6 @@ constexpr float kLn2 = 0.6931471805599453f;
 // value is -1e30 * log2(e)
 constexpr float kNegInf2 = kNegInf * kLog2e;
 
-// wgmma descriptors' core-matrix strides (bytes; hopper.cuh's layout). A
-// K-major operand tile of R rows (Q, K) steps R * 16 along the contraction
-// (leading) and 128 along its rows (stride); the MN-major V tile steps 128
-// along the keys (leading, its contraction) and kTK * 16 along D (stride).
-constexpr uint32_t kQLbo = kTQ * 16, kKLbo = kTK * 16, kKmajorSbo = 128;
-constexpr uint32_t kVLbo = 128, kVSbo = kTK * 16;
-
 // K/V buffers in the ring: a step's copy is issued kStages - 1 steps ahead
 constexpr int kStages = 4;
 
@@ -101,23 +94,6 @@ struct WgSmem {
   static constexpr int kKV = kTK * DP * 2;
   static constexpr int kBytes = kQ + kStages * 2 * kKV;
 };
-
-template <int DP>
-__device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint64_t b);
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], uint32_t a0,
-                                             uint32_t a1, uint32_t a2,
-                                             uint32_t a3, uint64_t b) {
-  sm90::wgmma_rs_n64(o, a0, a1, a2, a3, b);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], uint32_t a0,
-                                              uint32_t a1, uint32_t a2,
-                                              uint32_t a3, uint64_t b) {
-  sm90::wgmma_rs_n128(o, a0, a1, a2, a3, b);
-}
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -260,23 +236,25 @@ __device__ __forceinline__ void wgmma_fwd(const bf16* __restrict__ q,
 
   // wgmma descriptors of this warpgroup's Q rows and of the first K and V
   // buffers; a step and a k16 slice add their byte offset / 16
-  const uint64_t d_q = sm90::desc(s_q + wg * 64 * 16, kQLbo, kKmajorSbo);
-  const uint64_t d_k = sm90::desc(s_kv, kKLbo, kKmajorSbo);
-  const uint64_t d_v = sm90::desc(s_kv + Sm::kKV, kVLbo, kVSbo);
+  const uint64_t d_q = sm90::kmajor(s_q + wg * 64 * 16, kTQ);
+  const uint64_t d_k = sm90::kmajor(s_kv, kTK);
+  const uint64_t d_v = sm90::mnmajor(s_kv + Sm::kKV, kTK);
   // S(step) = Q K^T into s (issued, not waited for)
   auto scores = [&](int step) {
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      sm90::wgmma_ss_n64(s, d_q + (kk * 2 * kQLbo >> 4),
-                         d_k + ((buf(step) + kk * 2 * kKLbo) >> 4), kk > 0);
+      sm90::wgmma_ss_n64(s, d_q + (kk * 2 * kTQ * 16 >> 4),
+                         d_k + ((buf(step) + kk * 2 * kTK * 16) >> 4),
+                         kk > 0);
     sm90::wgmma_commit();
   };
   // O += P(step) V(step) (issued, not waited for)
   auto pv = [&](int step) {
 #pragma unroll
     for (int kk = 0; kk < kTK / 16; ++kk)
-      wgmma_pv<DP>(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
-                   d_v + ((buf(step) + kk * 16 * 16) >> 4));
+      sm90::wgmma_rs<DP>(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                         p[4 * kk + 3],
+                         d_v + ((buf(step) + kk * 16 * 16) >> 4));
     sm90::wgmma_commit();
   };
   // scores of the k-tile at k0 scaled (base 2) and masked: columns past T_k
@@ -330,8 +308,7 @@ __device__ __forceinline__ void wgmma_fwd(const bf16* __restrict__ q,
 #pragma unroll
       for (int i = 0; i < DP / 2; ++i) o[i] *= (i & 2) ? al_b : al_a;
     }
-#pragma unroll
-    for (int j = 0; j < 16; ++j) p[j] = sm90::pack_bf16(s[2 * j], s[2 * j + 1]);
+    sm90::pack_tile<32>(p, s);
   };
   // step j: wait for step j + 1's tiles, refill step j - 1's buffer, then
   // S(j + 1) and P(j).V(j) as the step holds them
@@ -384,16 +361,8 @@ __device__ __forceinline__ void wgmma_fwd(const bf16* __restrict__ q,
   // O (divided by l for flash) as bf16 into this warpgroup's rows of the Q
   // tile (read only by its own, finished products), then out by 16-byte
   // stores; rows past T_q are dropped
-  const float d_a = kOnepass ? 1.f : l_a, d_b = kOnepass ? 1.f : l_b;
-  const int rl = 64 * wg + 16 * w + (lane >> 2);
-#pragma unroll
-  for (int j = 0; j < DP / 8; ++j) {
-    unsigned char* at = wg_smem + j * kTQ * 16 + rl * 16 + (lane & 3) * 4;
-    *reinterpret_cast<uint32_t*>(at) =
-        sm90::pack_bf16(o[4 * j] / d_a, o[4 * j + 1] / d_a);
-    *reinterpret_cast<uint32_t*>(at + 8 * 16) =
-        sm90::pack_bf16(o[4 * j + 2] / d_b, o[4 * j + 3] / d_b);
-  }
+  sm90::stage_out<DP>(wg_smem, kTQ, o, 64 * wg + 16 * w + (lane >> 2), lane,
+                      kOnepass ? 1.f : l_a, kOnepass ? 1.f : l_b);
   if (!kOnepass && (lane & 3) == 0) {
     if (ra < Tq)
       lse[((size_t)b * Tq + ra) * H + h] = m_a * kLn2 + logf(l_a);
@@ -401,17 +370,7 @@ __device__ __forceinline__ void wgmma_fwd(const bf16* __restrict__ q,
       lse[((size_t)b * Tq + ra + 8) * H + h] = m_b * kLn2 + logf(l_b);
   }
   __syncthreads();
-#pragma unroll
-  for (int i = 0; i < kTQ * C / kTcThreads; ++i) {
-    const int idx = tid + i * kTcThreads;
-    const int r = (idx & 7) | ((idx / (8 * C)) << 3);
-    const int c = (idx >> 3) % C;
-    const int t = q0 + r;
-    if (t < Tq && c * 8 < D)
-      *reinterpret_cast<uint4*>(out + (((size_t)b * Tq + t) * H + h) * D +
-                                c * 8) =
-          *reinterpret_cast<const uint4*>(wg_smem + c * kTQ * 16 + r * 16);
-  }
+  sm90::store_tile<kTQ, C, kTcThreads>(out, wg_smem, b, q0, Tq, H, h, D);
 }
 
 template <int DP>

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for bf16 tiles on the tensor cores:
 // 16-byte asynchronous copies (cp.async) into the layout wgmma reads,
-// wgmma matrix descriptors, and the m64nNk16 bf16 wgmma instructions with
-// f32 accumulate (A from shared memory or from registers).
+// wgmma matrix descriptors, the m64nNk16 bf16 wgmma instructions with f32
+// accumulate (A from shared memory or from registers), and the packing and
+// stores of their accumulator tiles.
 //
 // Tile layout ("core matrices", no swizzle). A tile of R rows by C chunks,
 // a chunk being 8 bf16 (16 bytes) of one row, keeps chunk c of row r at
@@ -31,6 +32,15 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                : "memory");
 }
 
+// 4 bytes (one f32 of a strided row vector) from global to shared memory,
+// or 4 zero bytes when !valid
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -53,6 +63,18 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
                                          uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32);
+}
+
+// descriptors of an R-row tile in the layout above: read K-major (rows along
+// M or N, chunks along the contraction), core matrices step R * 16 bytes
+// along the contraction (leading) and 128 along the rows (stride); read
+// MN-major (rows along the contraction), 128 along the rows (leading) and
+// R * 16 along the columns (stride)
+__device__ __forceinline__ uint64_t kmajor(uint32_t addr, int rows) {
+  return desc(addr, rows * 16, 128);
+}
+__device__ __forceinline__ uint64_t mnmajor(uint32_t addr, int rows) {
+  return desc(addr, 128, rows * 16);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -91,6 +113,55 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// the bf16 register A operand of products over 16-column slices, from an
+// f32 accumulator tile of N columns (s[4t + 2r + {0, 1}] is row r's pair of
+// columns in 8-column block t: the A fragment's order)
+template <int N>
+__device__ __forceinline__ void pack_tile(uint32_t (&a)[N / 2],
+                                          const float (&s)[N]) {
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j) a[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
+}
+
+// a warpgroup's f32 accumulator tile of 64 rows by N columns, its rows
+// divided by div_a (this thread's first row) and div_b (8 below), as bf16
+// into rows rl and rl + 8 of a shared tile of R rows in the layout above
+template <int N>
+__device__ __forceinline__ void stage_out(unsigned char* tile, int rows,
+                                          const float (&o)[N / 2], int rl,
+                                          int lane, float div_a = 1.f,
+                                          float div_b = 1.f) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    unsigned char* at = tile + j * rows * 16 + rl * 16 + (lane & 3) * 4;
+    *reinterpret_cast<uint32_t*>(at) =
+        pack_bf16(o[4 * j] / div_a, o[4 * j + 1] / div_a);
+    *reinterpret_cast<uint32_t*>(at + 8 * 16) =
+        pack_bf16(o[4 * j + 2] / div_b, o[4 * j + 3] / div_b);
+  }
+}
+
+// rows [row0, row0 + R) of a shared tile of R rows by C chunks to head h of
+// a [B, T, H, D] bf16 tensor by 16-byte stores from all NT threads; rows at
+// or past T and columns at or past D are dropped
+template <int R, int C, int NT>
+__device__ __forceinline__ void store_tile(__nv_bfloat16* out,
+                                           const unsigned char* tile, int b,
+                                           int row0, int t_len, int H, int h,
+                                           int D) {
+#pragma unroll
+  for (int i = 0; i < R * C / NT; ++i) {
+    const int idx = threadIdx.x + i * NT;
+    const int r = (idx & 7) | ((idx / (8 * C)) << 3);
+    const int c = (idx >> 3) % C;
+    const int t = row0 + r;
+    if (t < t_len && c * 8 < D)
+      *reinterpret_cast<uint4*>(out + (((size_t)b * t_len + t) * H + h) * D +
+                                c * 8) =
+          *reinterpret_cast<const uint4*>(tile + c * R * 16 + r * 16);
+  }
 }
 
 // Copies of R-row tiles of one head of a [B, T, H, D] bf16 tensor into
@@ -167,6 +238,24 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (64 x 32) = A (64 x 16, shared, K-major) * B (16 x 32, shared,
+// K-major) + (accumulate ? d : 0)
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d (64 x 64) += A (64 x 16, registers) * B (16 x 64, shared, MN-major)
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                              uint32_t a0, uint32_t a1,
@@ -227,6 +316,29 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+// S or dP of N columns: d (64 x N) = A (64 x 16) * B (16 x N), both shared
+// and K-major, + (accumulate ? d : 0); N = 32 or 64
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  if constexpr (N == 32)
+    wgmma_ss_n32(d, a, b, accumulate);
+  else
+    wgmma_ss_n64(d, a, b, accumulate);
+}
+
+// an output tile of N = 64 or 128 columns: d (64 x N) += A (64 x 16,
+// registers) * B (16 x N, shared, MN-major)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t b) {
+  if constexpr (N == 64)
+    wgmma_rs_n64(d, a0, a1, a2, a3, b);
+  else
+    wgmma_rs_n128(d, a0, a1, a2, a3, b);
 }
 
 }  // namespace sm90

@@ -152,10 +152,24 @@ def test_profile_tool_classifies_every_port_kernel(src, name, args):
     assert kind not in ("matmul", "other"), (src, name, kind)
 
 
+@pytest.mark.parametrize("name,kind", [
+    ("flash_bwd_dq_kernel_wgmma<64>", "flash_bwd_dq"),
+    ("flash_bwd_dkv_kernel_wgmma<128>", "flash_bwd_dkv"),
+    ("flash_bwd_dq_kernel<float>", "flash_bwd_dq"),
+    ("bwd_dkv_kernel<float, (bool)0>", "attention_bwd_dkv")])
+def test_profile_tool_names_the_flash_backward_kernels(name, kind):
+    """The tensor-core dkv kernel's name holds "bwd_dkv_kernel", the
+    CUDA-core kernel's that the one-pass and the float32 flash backward
+    share: it must count as the flash dkv kernel."""
+    assert _profile_tool()._kind(
+        "void (anonymous namespace)::%s(int, float)" % name) == kind
+
+
 def test_every_kernel_source_has_a_global_function():
     names = {name for _, name, _ in _global_kernels()}
     assert {"onepass_fwd_kernel_wgmma", "flash_fwd_kernel_wgmma",
-            "onepass_fwd_kernel", "flash_fwd_kernel"} <= names
+            "onepass_fwd_kernel", "flash_fwd_kernel",
+            "flash_bwd_dq_kernel_wgmma", "flash_bwd_dkv_kernel_wgmma"} <= names
     assert len({src for src, _, _ in _global_kernels()}) == 6
 
 

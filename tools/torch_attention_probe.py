@@ -1,17 +1,24 @@
-"""Check and time the port's attention forward kernels alone on one card.
+"""Check and time the port's attention kernels alone on one card.
 
 Run from the root of a checkout, on a machine with a CUDA card and the CUDA
 toolkit:
 
-    python3 tools/torch_attention_probe.py
+    python3 tools/torch_attention_probe.py            # forward and backward
+    python3 tools/torch_attention_probe.py --fwd      # forward only
+    python3 tools/torch_attention_probe.py --bwd      # flash backward only
 
-It builds the CUDA kernels (paddle_tpu_torch/ops/csrc), holds every forward
-case of chip_smoke.py's KERNEL_CASES against its plain version with
-chip_smoke.py's bounds, and times the one-pass and flash forward kernels
-(CUDA events) beside PyTorch's scaled_dot_product_attention at the shapes
-of the serving and training paths. One JSON line per case, then the card's
-name and power limit. It is the quick loop for kernel work: a few seconds
-of card time after the build, against chip_smoke.py's minute and a half.
+It builds the CUDA kernels (paddle_tpu_torch/ops/csrc) and prints the
+registers and any serialization warning ptxas gave the attention kernels.
+It holds every forward case of chip_smoke.py's KERNEL_CASES and every flash
+backward case of its BWD_CASES against the plain version with chip_smoke.py's
+bounds and kernel names (a backward case also names the (batch, row, head)
+where each gradient's error is largest against its bound), and times the
+one-pass and flash forward kernels beside PyTorch's
+scaled_dot_product_attention, and the flash backward pair (dq, dkv) beside
+SDPA's backward, at the serving and training paths' shapes. One JSON line
+per case, then the card's name and power limit. It is the quick loop for
+kernel work: a few seconds of card time after the build, against
+chip_smoke.py's minutes.
 """
 import json
 import os
@@ -27,23 +34,24 @@ TIMED = [("onepass", 8, 256, 8, 64, False),
          ("flash", 1, 4096, 8, 64, False),
          ("flash", 8, 4096, 8, 64, False),
          ("flash", 8, 4096, 8, 64, True)]
+# (B, T, H, D, causal): the flash backward at train4096's shapes, bf16
+TIMED_BWD = [(8, 4096, 8, 64, False), (8, 4096, 8, 64, True)]
 
 
-def main():
+def _ptxas_lines(logs):
+    for name in ("attention", "attention_bwd"):
+        with open(logs[name]) as f:
+            for line in f:
+                if any(w in line for w in ("registers", "spill", "warning",
+                                           "error", "Compiling entry")):
+                    print("%s: %s" % (name, line.rstrip()), flush=True)
+
+
+def _forward(cs, A, gen):
     import torch
-    if not torch.cuda.is_available():
-        print("no CUDA card", file=sys.stderr)
-        return 2
-    import chip_smoke as cs
-    from paddle_tpu_torch.ops import _build
-    from paddle_tpu_torch.ops import attention as A
-
-    _build.build_all()
     fns = {"onepass": (A.onepass_attention_fwd_bthd,
                        A.onepass_attention_fwd_plain),
            "flash": (A.flash_attention_fwd_bthd, A.flash_attention_fwd_plain)}
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(cs.SEED)
     ok = True
     for kernel, b, t_q, t_k, h, d, causal, dtype, _, _ in cs.KERNEL_CASES:
         q, k, v = cs._qkv(gen, b, t_q, t_k, h, d, getattr(torch, dtype))
@@ -70,6 +78,102 @@ def main():
             "kernel": kernel, "shape": [b, t, t, h, d], "causal": causal,
             "kernel_ms": cs.time_ms(lambda: fn(q, k, v, causal)),
             "sdpa_ms": cs.time_ms(cs._sdpa(q, k, v, causal))}), flush=True)
+    return ok
+
+
+def _worst(got, want, bound):
+    """(batch, row, head) of the element with the largest error against
+    its bound, and the number of elements over it."""
+    import torch
+    diff = (got.float() - want.float()).abs()
+    ratio = torch.nan_to_num(diff / bound, nan=1e30, posinf=1e30)
+    ratio = torch.where(diff == 0, torch.zeros_like(ratio), ratio)
+    at = torch.unravel_index(ratio.argmax(), ratio.shape)[:3]
+    return {"at": [int(i) for i in at], "over": int((ratio > 1).sum())}
+
+
+def _backward(cs, A, gen):
+    import torch
+    ok = True
+    for kernel, b, t_q, t_k, h, d, causal, dtype, _, _ in cs.BWD_CASES:
+        if kernel != "flash_bwd":
+            continue
+        tdtype = getattr(torch, dtype)
+        q, k, v = cs._qkv(gen, b, t_q, t_k, h, d, tdtype)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(tdtype)
+        out, lse = A.flash_attention_fwd_bthd(q, k, v, causal)
+        delta = A.flash_delta(out, do)
+        dq = A.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+        names = [A.last_bwd_kernel_name()]
+        got = (dq,) + A.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                causal)
+        names.append(A.last_bwd_kernel_name())
+        want = (A.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta,
+                                               causal),) + \
+            A.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal)
+        torch.cuda.synchronize()
+        rtol, atol = cs.BWD_TOL[kernel][dtype]
+        rec = {"kernel": kernel, "shape": [b, t_q, t_k, h, d],
+               "causal": causal, "dtype": dtype, "cuda_kernels": names,
+               "err_ratio": {}, "err_ratio_without_flips": {}, "worst": {}}
+        extra = cs.flash_bwd_rounding_bound(A, q, k, v, do, out, lse,
+                                            causal) \
+            if dtype == "bfloat16" else (None,) * 3
+        for n, g, w, e in zip(("dq", "dk", "dv"), got, want, extra):
+            bound = cs.bwd_bound(w, rtol, atol, e)
+            rec["err_ratio"][n] = cs.err_ratio(g, w, 0, 0, bound=bound)
+            rec["err_ratio_without_flips"][n] = cs.err_ratio(g, w, rtol,
+                                                             atol)
+            rec["worst"][n] = _worst(g, w, bound)
+        del extra
+        rec["ok"] = max(rec["err_ratio"].values()) <= 1 and \
+            all(bool(torch.isfinite(g.float()).all()) for g in got) and \
+            all(n.startswith(p) for n, p in
+                zip(names, cs.BWD_CODE_PATH[dtype]))
+        ok = ok and rec["ok"]
+        print(json.dumps(rec), flush=True)
+        del q, k, v, do, out, lse, delta, got, want
+        torch.cuda.empty_cache()
+    for b, t, h, d, causal in TIMED_BWD:
+        q, k, v = cs._qkv(gen, b, t, t, h, d, torch.bfloat16)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        out, lse = A.flash_attention_fwd_bthd(q, k, v, causal)
+        delta = A.flash_delta(out, do)
+        rec = {"kernel": "flash_bwd", "shape": [b, t, t, h, d],
+               "causal": causal}
+        for part, fn in (("dq", A.flash_attention_bwd_dq),
+                         ("dkv", A.flash_attention_bwd_dkv)):
+            rec[part + "_ms"] = cs.time_ms(
+                lambda: fn(q, k, v, do, lse, delta, causal), iters=10)
+            rec[part + "_bound_ms"] = cs.bwd_bound_ms(
+                "flash_bwd_" + part, b, t, t, h, d, causal, 2)[0]
+        rec["sdpa_bwd_ms"] = cs.time_ms(cs._sdpa_bwd(q, k, v, do, causal),
+                                        iters=10)
+        rec["pair_vs_sdpa"] = (rec["dq_ms"] + rec["dkv_ms"]) / \
+            rec["sdpa_bwd_ms"]
+        print(json.dumps(rec), flush=True)
+        del q, k, v, do, out, lse, delta
+    return ok
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("no CUDA card", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import attention as A
+
+    _ptxas_lines(_build.build_all())
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(cs.SEED)
+    ok = True
+    if "--bwd" not in sys.argv[1:]:
+        ok = _forward(cs, A, gen) and ok
+    if "--fwd" not in sys.argv[1:]:
+        ok = _backward(cs, A, gen) and ok
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

@@ -111,6 +111,9 @@ def main():
 
 # the port's kernels by their CUDA function names (csrc/*.cu)
 _PORT_KERNELS = [("onepass_bwd_dq_kernel", "onepass_bwd"),
+                 # ahead of "bwd_dkv_kernel", a substring of the second
+                 ("flash_bwd_dq_kernel_wgmma", "flash_bwd_dq"),
+                 ("flash_bwd_dkv_kernel_wgmma", "flash_bwd_dkv"),
                  ("bwd_dkv_kernel", "attention_bwd_dkv"),
                  ("flash_bwd_dq_kernel", "flash_bwd_dq"),
                  ("onepass_fwd_kernel", "onepass_fwd"),
