@@ -14,10 +14,10 @@ non-zero exit):
               two embedding-grad kernels) against its plain PyTorch version
               on the card, at the serving and training paths' shapes plus
               ragged and float32 cases, held to the elementwise bounds
-              below; each attention forward and flash backward case names
-              the CUDA kernels it launched (bfloat16: the tensor-core
-              *_wgmma kernels, float32: the CUDA-core ones), and one line
-              each lists them by dtype; at
+              below; each attention forward and backward case names the
+              CUDA kernels it launched (bfloat16: the tensor-core *_wgmma
+              kernels at DP = 64, 128 or 256, float32: the CUDA-core ones),
+              and one line each lists them by dtype; at
               the paths' shapes the bound must also reject a control (a
               plain version with the last key tile, delta, the label
               column, the ignore mask, the sum(g * xhat) term or the last
@@ -62,6 +62,13 @@ non-zero exit):
 9. train4096 - the training program at seq 4096, batch 8, one warm step then
               2 steps through run_steps; each step must launch 12 flash
               forward, 12 dq, 12 dkv, 0 one-pass and 67 Adam kernels.
+10. train256_wide - bench.py's wide Transformer leg (d_model 2048, d_ff
+              8192, 8 heads: D = 256; 4+4 layers, dropout 0.1) at batch 64,
+              seq 256, one warm step then 4 steps through run_steps; each
+              step must launch 12 one-pass forward, 12 one-pass backward
+              and 67 Adam kernels.
+11. train_parity_wide - train_parity's check (flags off) at the wide width,
+              1+1 layers, batch 2, dropout 0.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
 with every kernel's numbers, and last {"ok": true, "device": {...}}. It
@@ -79,6 +86,10 @@ LONG_SEQ = 4096
 REQUESTS, BATCH = 4, 8
 # bench.py's BATCH and LONGSEQ_BATCH: the training legs' batches
 TRAIN_BATCH, TRAIN_STEPS = 256, 4
+# bench.py's WIDE_CFG_OVERRIDES and WIDE_BATCH: d_model 2048 over the
+# flagship's 8 heads, so D = 256
+WIDE_CFG_OVERRIDES = dict(d_model=2048, d_ff=8192)
+WIDE_BATCH = 64
 LONG_TRAIN_BATCH, LONG_TRAIN_STEPS = 8, 2
 
 # H100 SXM published dense peaks (NVIDIA data sheet)
@@ -97,18 +108,17 @@ PEAK_BYTES = 3.35e12
 # the row's rms; atol allows 2^-5, eight times 2^-8, for the largest of
 # millions of such errors. float32 differs by summation order only.
 OUT_TOL = {"bfloat16": (2.0 ** -7, 2.0 ** -5), "float32": (1e-5, 1e-5)}
-# The backward kernels' gradients, by the same elementwise bound. One-pass:
-# the kernel sums delta = rowsum(dP o P) in another order than the plain
-# version, so dS can round to the other side in bf16; the forward's bound
-# holds it. Flash: delta comes from outside and P and dS round elementwise
-# in both, so rtol covers the output's rounding and atol 2^-8 the orders of
-# its f32 sums, which rejects the flash controls by a wide margin; in bf16
-# the tensor cores sum S and dP in another order than the plain version,
-# which can flip the bf16 rounding of single P and dS terms, and
-# flash_bwd_rounding_bound adds what those flips can move to the bound.
-BWD_TOL = {"onepass_bwd": OUT_TOL,
-           "flash_bwd": {"bfloat16": (2.0 ** -7, 2.0 ** -8),
-                         "float32": (1e-5, 1e-5)}}
+# The backward kernels' gradients, by the same elementwise bound. P and dS
+# round elementwise in both the kernel and its plain version, so rtol covers
+# the output's rounding and atol 2^-8 the orders of its f32 sums, which
+# rejects the controls by a wide margin. In bf16 the tensor cores sum S and
+# dP (and the one-pass kernel its row sum l and delta = rowsum(dP o P)) in
+# another order than the plain version, which can flip the bf16 rounding of
+# single P and dS terms: flash_bwd_rounding_bound and
+# onepass_bwd_rounding_bound add what those flips can move to the bound.
+BWD_TOL = {kernel: {"bfloat16": (2.0 ** -7, 2.0 ** -8),
+                    "float32": (1e-5, 1e-5)}
+           for kernel in ("onepass_bwd", "flash_bwd")}
 # lse (f32, O(log T_k)): rtol and an absolute atol
 LSE_TOL = (1e-5, 1e-5)
 # A control the bound must reject: the kernel's output against the plain
@@ -187,7 +197,8 @@ def _sdpa(q, k, v, causal):
 # path's mix, and its bound must reject a control. The edges (D = 40 and
 # 128, T not a multiple of the tiles, causal rows with no key at T_q > T_k)
 # run in both dtypes: bfloat16 takes the tensor-core kernels, float32 the
-# CUDA-core ones.
+# CUDA-core ones. D = 256 (bench.py's wide Transformer: d_model 2048, 8
+# heads) runs in bfloat16 only: the float32 kernels stop at 128.
 KERNEL_CASES = [
     ("onepass", 8, 256, 256, 8, 64, False, "bfloat16", "serve256", 8),
     ("onepass", 8, 256, 256, 8, 64, True, "bfloat16", "serve256", 4),
@@ -199,6 +210,11 @@ KERNEL_CASES = [
     ("onepass", 2, 77, 77, 2, 40, True, "bfloat16", None, 0),
     ("onepass", 1, 130, 100, 2, 128, True, "bfloat16", None, 0),
     ("onepass", 1, 512, 512, 4, 128, True, "bfloat16", None, 0),  # largest
+    ("onepass", 64, 256, 256, 8, 256, False, "bfloat16", "train256_wide", 8),
+    ("onepass", 64, 256, 256, 8, 256, True, "bfloat16", "train256_wide", 4),
+    ("onepass", 2, 200, 232, 2, 256, True, "bfloat16", None, 0),
+    ("onepass", 1, 130, 100, 2, 256, True, "bfloat16", None, 0),
+    ("onepass", 1, 512, 512, 4, 256, True, "bfloat16", None, 0),
     ("flash", 1, 4096, 4096, 8, 64, False, "bfloat16", "serve4096", 8),
     ("flash", 1, 4096, 4096, 8, 64, True, "bfloat16", "serve4096", 4),
     ("flash", 8, 4096, 4096, 8, 64, False, "bfloat16", "train4096", 8),
@@ -210,19 +226,28 @@ KERNEL_CASES = [
     ("flash", 1, 130, 100, 2, 40, True, "bfloat16", None, 0),
     ("flash", 1, 1030, 1100, 2, 128, False, "bfloat16", None, 0),
     ("flash", 2, 1100, 1000, 2, 64, True, "bfloat16", None, 0),
+    ("flash", 1, 1100, 1100, 2, 256, True, "bfloat16", None, 0),
+    ("flash", 1, 1030, 1100, 2, 256, False, "bfloat16", None, 0),
+    ("flash", 2, 1100, 1000, 2, 256, True, "bfloat16", None, 0),
 ]
 # the CUDA kernel each dtype's forward must launch (the instantiation's name
 # as attention.last_kernel_name() reports it)
 FWD_CODE_PATH = {"bfloat16": "_wgmma<", "float32": "<float>"}
-# the CUDA kernels each dtype's flash backward must launch, dq then dkv (as
-# attention.last_bwd_kernel_name() reports them)
-BWD_CODE_PATH = {"bfloat16": ("flash_bwd_dq_kernel_wgmma<",
-                              "flash_bwd_dkv_kernel_wgmma<"),
-                 "float32": ("flash_bwd_dq_kernel<float>",
-                             "bwd_dkv_kernel<float, false>")}
-# the flash backward's edges (D = 40 and 128, T not a multiple of the
-# tiles, causal rows with no key at T_q > T_k) run in both dtypes, as the
-# forward's
+# the CUDA kernels each backward must launch in each dtype, dq then dkv (as
+# attention.last_bwd_kernel_name() reports them: after each flash wrapper,
+# and after the one-pass wrapper as "dq + dkv")
+BWD_CODE_PATH = {
+    "onepass_bwd": {"bfloat16": ("onepass_bwd_dq_kernel_wgmma<",
+                                 "onepass_bwd_dkv_kernel_wgmma<"),
+                    "float32": ("onepass_bwd_dq_kernel<float>",
+                                "bwd_dkv_kernel<float, true>")},
+    "flash_bwd": {"bfloat16": ("flash_bwd_dq_kernel_wgmma<",
+                               "flash_bwd_dkv_kernel_wgmma<"),
+                  "float32": ("flash_bwd_dq_kernel<float>",
+                              "bwd_dkv_kernel<float, false>")}}
+# the backward's edges (D = 40 and 128, T not a multiple of the tiles,
+# causal rows with no key at T_q > T_k) run in both dtypes, as the
+# forward's; D = 256 in bfloat16
 BWD_CASES = [
     ("onepass_bwd", 256, 256, 256, 8, 64, False, "bfloat16", "train256", 8),
     ("onepass_bwd", 256, 256, 256, 8, 64, True, "bfloat16", "train256", 4),
@@ -232,6 +257,15 @@ BWD_CASES = [
     ("onepass_bwd", 2, 77, 77, 2, 40, True, "float32", None, 0),
     ("onepass_bwd", 1, 130, 100, 2, 128, True, "float32", None, 0),
     ("onepass_bwd", 1, 512, 512, 4, 128, True, "bfloat16", None, 0),
+    ("onepass_bwd", 2, 77, 77, 2, 40, True, "bfloat16", None, 0),
+    ("onepass_bwd", 1, 130, 100, 2, 128, True, "bfloat16", None, 0),
+    ("onepass_bwd", 64, 256, 256, 8, 256, False, "bfloat16", "train256_wide",
+     8),
+    ("onepass_bwd", 64, 256, 256, 8, 256, True, "bfloat16", "train256_wide",
+     4),
+    ("onepass_bwd", 2, 200, 232, 2, 256, True, "bfloat16", None, 0),
+    ("onepass_bwd", 1, 130, 100, 2, 256, True, "bfloat16", None, 0),
+    ("onepass_bwd", 1, 512, 512, 4, 256, True, "bfloat16", None, 0),
     ("flash_bwd", 8, 4096, 4096, 8, 64, False, "bfloat16", "train4096", 8),
     ("flash_bwd", 8, 4096, 4096, 8, 64, True, "bfloat16", "train4096", 4),
     ("flash_bwd", 1, 4096, 4096, 8, 64, False, "bfloat16", None, 0),
@@ -245,6 +279,9 @@ BWD_CASES = [
     ("flash_bwd", 1, 1030, 1100, 2, 128, False, "bfloat16", None, 0),
     ("flash_bwd", 1, 1100, 1100, 2, 128, True, "bfloat16", None, 0),
     ("flash_bwd", 2, 1100, 1000, 2, 64, True, "bfloat16", None, 0),
+    ("flash_bwd", 1, 1100, 1100, 2, 256, True, "bfloat16", None, 0),
+    ("flash_bwd", 1, 1030, 1100, 2, 256, False, "bfloat16", None, 0),
+    ("flash_bwd", 2, 1100, 1000, 2, 256, True, "bfloat16", None, 0),
 ]
 # the 2-D parameters of the flagship model that the fused Adam kernel takes,
 # with their count per step (48 + 8 + 8 + 2 + 1 = 67), and one f32 case
@@ -257,10 +294,17 @@ ADAM_CASES = [((512, 512), "bfloat16", 48), ((512, 2048), "bfloat16", 8),
 ADAM_MOMENT_TOL = (1e-5, 1e-7)
 ADAM_P_RTOL = {"bfloat16": 2.0 ** -7, "float32": 2.0 ** -23}
 ADAM_HPARAMS = (0.9, 0.999, 1e-8)
-# shapes each kernel must refuse with an exception: (kernel, T_k, D)
-REJECT_CASES = [("onepass", 513, 64), ("onepass", 256, 136),
-                ("flash", 1024, 12), ("onepass_bwd", 513, 64),
-                ("flash_bwd", 1024, 12)]
+# shapes each kernel must refuse with an exception: (kernel, T_k, D,
+# dtype); the head dim's limit is 256 in bfloat16 and 128 in float32
+REJECT_CASES = [("onepass", 513, 64, "bfloat16"),
+                ("onepass", 256, 264, "bfloat16"),
+                ("onepass", 256, 136, "float32"),
+                ("flash", 1024, 12, "bfloat16"),
+                ("flash", 1024, 136, "float32"),
+                ("onepass_bwd", 513, 64, "bfloat16"),
+                ("onepass_bwd", 256, 264, "bfloat16"),
+                ("flash_bwd", 1024, 12, "bfloat16"),
+                ("flash_bwd", 1024, 264, "bfloat16")]
 ADAM_REJECT_SHAPES = [(512,), (7, 128), (8, 100)]
 # The flag-gated kernels, elementwise like OUT_TOL (|got - want| <= rtol *
 # |want| + atol * scale). CE loss and lse (f32, O(10)): the two sum V exps
@@ -409,25 +453,76 @@ def flash_bwd_rounding_bound(A, q, k, v, do, out, lse, causal):
     for the output's own bf16 rounding. Masked pairs and keyless rows are
     exact in both (dS = 0, P = 1/T_k). Taken one batch element at a time,
     to keep the [H, T_q, T_k] f32 temporaries small."""
+    return _bwd_rounding_bound(A, q, k, v, do, causal, out, lse)
+
+
+def onepass_bwd_rounding_bound(A, q, k, v, do, causal):
+    """flash_bwd_rounding_bound's elementwise bound for the bf16 one-pass
+    backward, (e_dq, e_dk, e_dv), whose P and delta come from statistics
+    that each implementation computes itself: P = exp(S scale - m) / l with
+    m the row max and l = sum_j exp(S_j scale - m), and delta = rowsum(dP o
+    P) from that P (the kernel: m and l online, delta online as sum dP
+    2^(S' - m) rescaled with m and divided by l at the end).
+
+    The extension, with e_j = scale err_S_j (flash_bwd_rounding_bound's
+    err_S of each score):
+    - P_j = exp(s_j) / sum_i exp(s_i) does not move with m but for the
+      roundings of s - m, so moving every s_i by at most e_i moves log P_j
+      by at most e_j + sum_i P_i e_i (the log of the sum moves by the
+      P-weighted mean of the moves); l's own sum of T_k positive terms in
+      another order adds T_k 2^-23, the divide (or multiply by 1 / l) one
+      more rounding. So err_P = e_j + sum_i P_i e_i + T_k 2^-23 +
+      2^-22 (|S scale| + |m|) + 2^-20, the last two terms as for flash.
+    - delta = sum_j dP_j P_j moves by err_delta = sum_j P_j (err_dP_j +
+      |dP_j| err_P_j) + T_k 2^-23 sum_j |dP_j| P_j (the orders of its own
+      sum of T_k terms, the online rescales included), where err_dP_j is
+      dP's own err; dP - delta then moves by err_dP_j + err_delta in place
+      of flash's err_dP + delta's D-term err.
+    The rest is flash_bwd_rounding_bound's: the flips of bf16 P and dS,
+    carried through dq, dk and dv."""
+    return _bwd_rounding_bound(A, q, k, v, do, causal)
+
+
+def _bwd_rounding_bound(A, q, k, v, do, causal, out=None, lse=None):
+    """The two bounds above: flash where out and lse are given, else
+    one-pass."""
     import torch
     scale = A._scale_of(q, None)
     gamma = q.shape[-1] * 2.0 ** -23
+    t_k = k.shape[1]
     ein = torch.einsum
     e_dq, e_dk, e_dv = (torch.zeros(x.shape, dtype=torch.float32,
                                     device=x.device) for x in (q, k, v))
     exact = A._masked(q, k, causal) | A._keyless(q, k, causal)
     for b in range(q.shape[0]):
-        qb, kb, vb, dob, ob = (x[b:b + 1].float() for x in (q, k, v, do, out))
-        lb = lse[b:b + 1].permute(0, 2, 1)[..., None]
+        qb, kb, vb, dob = (x[b:b + 1].float() for x in (q, k, v, do))
         s = A._scores(qb, kb, causal, scale)
-        p = A._flash_p(qb, kb, lse[b:b + 1], causal, scale)
-        rel_p = gamma * scale * ein("bqhd,bkhd->bhqk", qb.abs(), kb.abs())
-        rel_p += 2.0 ** -22 * (s.abs() + lb.abs()) + 2.0 ** -20
-        del s
+        e_s = gamma * scale * ein("bqhd,bkhd->bhqk", qb.abs(), kb.abs())
         dp = ein("bqhd,bkhd->bhqk", dob, vb)
-        dp -= A.flash_delta(ob, dob).permute(0, 2, 1)[..., None]
         e_dp = gamma * ein("bqhd,bkhd->bhqk", dob.abs(), vb.abs())
-        e_dp += gamma * (dob * ob).abs().sum(-1).permute(0, 2, 1)[..., None]
+        if lse is not None:
+            ob = out[b:b + 1].float()
+            lb = lse[b:b + 1].permute(0, 2, 1)[..., None]
+            p = A._flash_p(qb, kb, lse[b:b + 1], causal, scale)
+            rel_p = e_s + 2.0 ** -22 * (s.abs() + lb.abs()) + 2.0 ** -20
+            dp -= A.flash_delta(ob, dob).permute(0, 2, 1)[..., None]
+            e_dp += gamma * (dob * ob).abs().sum(-1).permute(0, 2, 1)[
+                ..., None]
+        else:
+            m = s.amax(dim=-1, keepdim=True)
+            p = torch.exp(s - m)
+            p /= p.sum(dim=-1, keepdim=True)
+            rel_p = e_s + (p * e_s).sum(-1, keepdim=True) + \
+                t_k * 2.0 ** -23 + 2.0 ** -22 * (s.abs() + m.abs()) + \
+                2.0 ** -20
+            pdp = p * dp.abs()
+            e_delta = (p * e_dp + pdp * rel_p).sum(-1, keepdim=True) + \
+                t_k * 2.0 ** -23 * pdp.sum(-1, keepdim=True)
+            del pdp
+            dp -= (dp * p).sum(-1, keepdim=True)
+            e_dp += e_delta
+            del e_delta, m
+        del s, e_s
         ds = p * dp * scale
         e_ds = scale * (p * e_dp + rel_p * p * dp.abs()) + \
             2.0 ** -22 * ds.abs()
@@ -566,8 +661,7 @@ def _onepass_bwd_no_delta(A, q, k, v, do, causal):
 
 
 def _bwd_cases(A, gen, summary, max_err, failed):
-    """Returns {dtype: sorted names of the flash backward's CUDA kernels
-    run}."""
+    """Returns {kernel: {dtype: sorted names of the CUDA kernels run}}."""
     import torch
     paths = {}
     for kernel, b, t_q, t_k, h, d, causal, dtype, path, weight in BWD_CASES:
@@ -583,6 +677,7 @@ def _bwd_cases(A, gen, summary, max_err, failed):
             fn = A.onepass_attention_bwd_bthd
             before = fn.launches
             got = fn(q, k, v, do, causal)
+            rec["cuda_kernel"] = A.last_bwd_kernel_name().split(" + ")
             want = A.onepass_attention_bwd_plain(q, k, v, do, causal)
             rec["launches"] = fn.launches - before
             parts = {"onepass_bwd": (lambda: fn(q, k, v, do, causal),
@@ -598,8 +693,6 @@ def _bwd_cases(A, gen, summary, max_err, failed):
             got += A.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
             cuda_kernels.append(A.last_bwd_kernel_name())
             rec["cuda_kernel"] = cuda_kernels
-            for name in cuda_kernels:
-                paths.setdefault(dtype, set()).add(name)
             rec["launches"] = [A.flash_attention_bwd_dq.launches - before[0],
                                A.flash_attention_bwd_dkv.launches - before[1]]
             want = (A.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta,
@@ -617,11 +710,17 @@ def _bwd_cases(A, gen, summary, max_err, failed):
                                                       causal),
                     lambda: A.flash_attention_bwd_dkv_plain(
                         q, k, v, do, lse, delta, causal))}
-        # the bf16 flash backward's bound: BWD_TOL's plus what the orders of
-        # S's, dP's and delta's sums can flip (flash_bwd_rounding_bound)
-        flips = kernel == "flash_bwd" and dtype == "bfloat16"
-        extra = flash_bwd_rounding_bound(A, q, k, v, do, out, lse, causal) \
-            if flips else (None,) * 3
+        for name in rec["cuda_kernel"]:
+            paths.setdefault(kernel, {}).setdefault(dtype, set()).add(name)
+        # the bf16 bound: BWD_TOL's plus what the orders of the f32 sums in
+        # S, dP, delta (and the one-pass kernel's l) can flip
+        flips = dtype == "bfloat16"
+        if not flips:
+            extra = (None,) * 3
+        elif kernel == "onepass_bwd":
+            extra = onepass_bwd_rounding_bound(A, q, k, v, do, causal)
+        else:
+            extra = flash_bwd_rounding_bound(A, q, k, v, do, out, lse, causal)
         torch.cuda.synchronize()
         rec["err_ratio"] = {
             n: err_ratio(g, w, 0, 0, bound=bwd_bound(w, rtol, atol, e))
@@ -632,11 +731,12 @@ def _bwd_cases(A, gen, summary, max_err, failed):
                 for n, g, w in zip(names, got, want)}
         rec["max_abs_err"] = {n: (g.float() - w.float()).abs().max().item()
                               for n, g, w in zip(names, got, want)}
+        want_names = BWD_CODE_PATH[kernel][dtype]
         rec["ok"] = max(rec["err_ratio"].values()) <= 1 and \
             all(bool(torch.isfinite(g.float()).all()) for g in got) and \
-            (kernel != "flash_bwd" or all(
-                n.startswith(p) for n, p in zip(rec["cuda_kernel"],
-                                                BWD_CODE_PATH[dtype])))
+            len(rec["cuda_kernel"]) == len(want_names) and \
+            all(n.startswith(p) for n, p in zip(rec["cuda_kernel"],
+                                                want_names))
         del want
         if weight:
             # controls: delta dropped (dq, dk), the last key tile dropped (dv)
@@ -694,7 +794,8 @@ def _bwd_cases(A, gen, summary, max_err, failed):
         if kernel == "flash_bwd":
             del out, lse, delta
         torch.cuda.empty_cache()
-    return {dtype: sorted(names) for dtype, names in paths.items()}
+    return {kernel: {dtype: sorted(names) for dtype, names in by.items()}
+            for kernel, by in paths.items()}
 
 
 def _adam_cases(K, gen, summary, max_err, failed):
@@ -1081,8 +1182,8 @@ def phase_kernels():
     emit({"phase": "kernels", "code_paths":
           _fwd_cases(A, gen, summary, max_err, failed)})
     torch.cuda.empty_cache()
-    emit({"phase": "kernels", "code_paths": {
-        "flash_bwd": _bwd_cases(A, gen, summary, max_err, failed)}})
+    emit({"phase": "kernels", "code_paths":
+          _bwd_cases(A, gen, summary, max_err, failed)})
     _adam_cases(K, gen, summary, max_err, failed)
     _ce_cases(CE, gen, summary, max_err, failed)
     _ln_cases(LN, gen, summary, max_err, failed)
@@ -1096,15 +1197,17 @@ def phase_kernels():
                  "flash_bwd": lambda q, k, v: A.flash_attention_bwd_dq(
                      q, k, v, q, *[torch.zeros(q.shape[:3], device="cuda")] *
                      2)}
-    for kernel, t_k, d in REJECT_CASES:
-        q, k, v = _qkv(gen, 1, 16, t_k, 2, d, torch.bfloat16)
+    for kernel, t_k, d, dtype in REJECT_CASES:
+        q, k, v = _qkv(gen, 1, 16, t_k, 2, d, getattr(torch, dtype))
         try:
             rejecting[kernel](q, k, v)
         except ValueError as e:
             emit({"phase": "kernels", "kernel": kernel, "rejects":
-                  [1, 16, t_k, 2, d], "error": str(e), "ok": True})
+                  [1, 16, t_k, 2, d], "dtype": dtype, "error": str(e),
+                  "ok": True})
         else:
-            raise AssertionError("%s accepted T_k=%d D=%d" % (kernel, t_k, d))
+            raise AssertionError("%s accepted T_k=%d D=%d %s"
+                                 % (kernel, t_k, d, dtype))
     for shape in ADAM_REJECT_SHAPES:
         p = torch.zeros(shape, device="cuda")
         try:
@@ -1389,14 +1492,22 @@ def _make_noncausal(program):
     return changed
 
 
-def phase_train_parity(fluid, transformer, counters):
+# the wide parity check (bench.py's wide Transformer, D = 256, at 1 + 1
+# layers): the same gradients in its one layer
+WIDE_PARITY_GRADS = ["enc.0.attn.q.w", "dec.0.self.q.w", "dec.0.self.k.w",
+                     "dec.0.cross.q.w", "dec.0.cross.k.w", "src_emb",
+                     "tgt_emb", "proj.w", "dec.0.ffn_post.ln_scale"]
+
+
+def phase_train_parity(fluid, transformer, counters, name="train_parity",
+                       cfg=None, grads=PARITY_GRADS, flag_runs=PARITY_FLAGS):
     import numpy as np
     import torch
-    cfg = dict(transformer.FLAGSHIP_CFG, dropout_rate=0.0)
+    cfg = dict(cfg or transformer.FLAGSHIP_CFG, dropout_rate=0.0)
     main, startup, loss = transformer.training_programs(SEED, **cfg)
     feed = transformer.synthetic_batch(2, cfg["seq_len"], cfg["tgt_vocab"],
                                        SEED + 300)
-    fetch = [loss.name] + [n + "@GRAD" for n in PARITY_GRADS]
+    fetch = [loss.name] + [n + "@GRAD" for n in grads]
     exe, scope = fluid.Executor(), fluid.Scope()
     exe.run(startup, scope=scope)
     state = {v.name: scope.get(v.name).cpu().clone()
@@ -1412,7 +1523,7 @@ def phase_train_parity(fluid, transformer, counters):
 
     def agreement(card, cpu):
         rel = {"loss": float(abs(card[0] - cpu[0]) / abs(cpu[0]))}
-        for n, c, w in zip(PARITY_GRADS, card[1:], cpu[1:]):
+        for n, c, w in zip(grads, card[1:], cpu[1:]):
             rel[n] = float(np.abs(c - w).max() / np.abs(w).max())
         ok = rel["loss"] <= TRAIN_LOSS_REL_MAX and \
             max(v for k, v in rel.items() if k != "loss") <= \
@@ -1423,15 +1534,17 @@ def phase_train_parity(fluid, transformer, counters):
     faulty = main.clone()
     changed = _make_noncausal(faulty)
     failures = []
-    for name, flags in PARITY_FLAGS:
+    for flag_name, flags in flag_runs:
         with _env(**flags):
             _zero(counters)
             card = run(main, "card")
             launched = {k: v for k, v in _read(counters).items() if v}
             rel, ok = agreement(card, cpu)
             wrong, control_ok = agreement(run(faulty, "card"), cpu)
-        emit({"phase": "train_parity", "flags": name,
+        emit({"phase": name, "flags": flag_name,
               "ok": ok and not control_ok, "batch": 2,
+              "d_model": cfg["d_model"], "n_head": cfg["n_head"],
+              "n_layer": cfg["n_layer"],
               "seq_len": cfg["seq_len"], "dropout_rate": 0.0,
               "loss_card": float(card[0]), "loss_cpu": float(cpu[0]),
               "rel_err": rel, "loss_rel_max": TRAIN_LOSS_REL_MAX,
@@ -1440,10 +1553,20 @@ def phase_train_parity(fluid, transformer, counters):
               "control_ops_changed": changed, "control_rel_err": wrong,
               "control_rejected": not control_ok})
         if not ok or control_ok:
-            failures.append((name, rel, wrong))
+            failures.append((flag_name, rel, wrong))
     if failures:
-        raise AssertionError("train_parity: card vs CPU %s" % (failures,))
+        raise AssertionError("%s: card vs CPU %s" % (name, failures))
     torch.cuda.empty_cache()
+
+
+def _path_numbers(s, path):
+    """A kernel's numbers over a path's mix of cases (weighted means)."""
+    w = s["weight"]
+    return {"path": path, "ms": s["kernel_ms"] / w,
+            "plain_ms": s["plain_ms"] / w, "bound_ms": s["bound_ms"] / w,
+            "bound_by": "operations" if 2 * s["ops_bound_ms"] >= s["bound_ms"]
+            else "bytes",
+            "library_ms": s["library_ms"] / w if s["library"] else None}
 
 
 def main():
@@ -1501,6 +1624,14 @@ def main():
                      LONG_TRAIN_STEPS,
                      dict(none, flash=attn, flash_bwd_dq=attn,
                           flash_bwd_dkv=attn, adam=67)))
+    # bench.py's wide Transformer (WIDE_CFG_OVERRIDES, WIDE_BATCH): D = 256,
+    # the one-pass kernels at DP = 256
+    wide = dict(cfg, **WIDE_CFG_OVERRIDES)
+    add(_train_phase("train256_wide", fluid, transformer, counters, wide,
+                     WIDE_BATCH, TRAIN_STEPS, train))
+    phase_train_parity(fluid, transformer, counters, "train_parity_wide",
+                       dict(wide, n_layer=1), WIDE_PARITY_GRADS,
+                       PARITY_FLAGS[:1])
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1522,17 +1653,17 @@ def main():
              "emb_scatter": "train256", "emb_segsum": "train256"}
     kernels = []
     for name, path in paths.items():
-        s = summary[(name, path)]
-        w = s["weight"]
-        kernels.append({
-            "name": counters[name].__name__, "route": "cuda",
-            "source": "paddle_tpu_torch/ops/csrc/" + sources[name],
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": max_err[name], "ms": s["kernel_ms"] / w,
-            "plain_ms": s["plain_ms"] / w, "bound_ms": s["bound_ms"] / w,
-            "bound_by": "operations" if 2 * s["ops_bound_ms"] >= s["bound_ms"]
-            else "bytes",
-            "library_ms": s["library_ms"] / w if s["library"] else None})
+        row = {"name": counters[name].__name__, "route": "cuda",
+               "source": "paddle_tpu_torch/ops/csrc/" + sources[name],
+               "replaces": REPLACES[name], "launches": launches[name],
+               "max_abs_err": max_err[name]}
+        row.update(_path_numbers(summary[(name, path)], path))
+        kernels.append(row)
+        # the attention rows also summarised over the D = 256 path's mix
+        # (train256_wide), where the kernel runs on it
+        wide = summary.get((name, "train256_wide"))
+        if wide:
+            kernels[-1]["d256"] = _path_numbers(wide, "train256_wide")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

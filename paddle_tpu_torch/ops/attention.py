@@ -33,14 +33,18 @@ for a CPU tensor; ``launches`` on the wrapper counts kernel launches.
 The backward kernels live in ``csrc/attention_bwd.cu``:
 
 - one-pass backward (replaces ``_onepass_bwd_kernel``, attention.py:146):
-  P recomputed and normalised in f32, delta = rowsum(dP o P) from P, dS
-  rounded to the input dtype, dQ = dS K, dK = dS^T Q, dV = P^T dO with P
-  rounded first; two launches per call (dq, then dk and dv).
+  P recomputed and normalised in f32 by the exact row max and sum, delta =
+  rowsum(dP o P) from P, dS rounded to the input dtype, dQ = dS K, dK =
+  dS^T Q, dV = P^T dO with P rounded first; two launches per call (dq with
+  the row statistics, then dk and dv).
 - flash backward (replaces ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``,
   attention.py:400 and :447): P = exp(S - lse) per tile, delta =
   rowsum(dO o O) computed outside; one wrapper per kernel. bfloat16 runs
-  on the tensor cores, float32 on the CUDA cores, as in the forward; the
-  one-pass backward runs on the CUDA cores in both.
+  on the tensor cores, float32 on the CUDA cores, as in the forward.
+
+Head dims: D % 8 == 0, up to 256 in bfloat16 (padded to 64, 128 or 256 on
+the tensor cores) and up to 128 in float32 (the CUDA-core kernels' f32
+tiles do not fit the card past it); a kernel wrapper raises on others.
 
 In the backward a keyless row keeps the dense path's answer: P = 1/T_k over
 all keys, dS = 0. ``fused_attention_bthd`` is differentiable: an
@@ -60,7 +64,10 @@ NEG_INF = -1e30        # avoids inf-inf=nan in the online-softmax rescale
 # must fit the 227 KB a block may use (the bf16 kernel keeps no score tile;
 # both take the same T_k)
 _ONEPASS_KERNEL_MAX_TK = 512
-_KERNEL_MAX_D = 128
+# the kernels' head dims: bfloat16 pads D to 64, 128 or 256 on the tensor
+# cores; the float32 kernels' (D + 1)-wide f32 tiles and D / 16 register
+# columns a thread stop fitting the card past 128
+_KERNEL_MAX_D = {torch.float32: 128, torch.bfloat16: 256}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -114,8 +121,6 @@ def onepass_attention_fwd_plain(q, k, v, causal=False, scale=None):
 
 
 def _check_kernel_inputs(name, q, k, v, max_tk):
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("%s: q, k, v must be on one CUDA device" % name)
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("%s: q, k, v must all be float32 or bfloat16, got "
                         "%s/%s/%s" % (name, q.dtype, k.dtype, v.dtype))
@@ -126,10 +131,14 @@ def _check_kernel_inputs(name, q, k, v, max_tk):
                                          tuple(v.shape)))
     b, t_q, h, d = q.shape
     t_k = k.shape[1]
-    if d % 8 or d > _KERNEL_MAX_D or min(b, t_q, t_k, h) < 1:
-        raise ValueError("%s: needs D a multiple of 8 up to %d and non-empty "
-                         "B, T, H; got %s" % (name, _KERNEL_MAX_D,
-                                              tuple(q.shape)))
+    max_d = _KERNEL_MAX_D[q.dtype]
+    if d % 8 or d > max_d or min(b, t_q, t_k, h) < 1:
+        raise ValueError("%s: needs D a multiple of 8 up to %d in %s and "
+                         "non-empty B, T, H; got %s"
+                         % (name, max_d, str(q.dtype).split(".")[-1],
+                            tuple(q.shape)))
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError("%s: q, k, v must be on one CUDA device" % name)
     if t_k > max_tk:
         raise ValueError("%s: T_k=%d exceeds the kernel's %d"
                          % (name, t_k, max_tk))
@@ -197,8 +206,8 @@ flash_attention_fwd_bthd.launches = 0
 
 def last_kernel_name():
     """Name of the CUDA kernel instantiation that the last forward launch
-    ran: ``*_wgmma<64|128>`` (tensor cores) for bfloat16, ``*<float>`` (CUDA
-    cores) for float32."""
+    ran: ``*_wgmma<64|128|256>`` (tensor cores) for bfloat16, ``*<float>``
+    (CUDA cores) for float32."""
     return _build.library("attention").attention_last_kernel().decode()
 
 
@@ -253,7 +262,7 @@ def onepass_attention_bwd_plain(q, k, v, do, causal=False, scale=None):
 
 def onepass_attention_bwd_bthd(q, k, v, do, causal=False, scale=None):
     """Short-sequence fused attention backward on [B, T, H, D]: the one-pass
-    CUDA kernel (two launches: dq with the row statistics and delta, then dk
+    CUDA kernels (two launches: dq with the row max, sum and delta, then dk
     and dv) for CUDA tensors, the plain version for CPU tensors. Returns
     (dq, dk, dv)."""
     if q.device.type == "cpu":
@@ -263,7 +272,8 @@ def onepass_attention_bwd_bthd(q, k, v, do, causal=False, scale=None):
     _check_like(name, do, q, "do")
     b, t_q, h, d = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # kernel (a)'s row max, row sum and delta, read by kernel (b)
+    # the first launch's row max (bfloat16: in base 2, of S scale log2 e),
+    # row sum and delta, read by the second
     m, l, delta = torch.empty((3, b, t_q, h), dtype=torch.float32,
                               device=q.device)
     _build.launch(onepass_attention_bwd_bthd, "attention_bwd",
@@ -376,10 +386,13 @@ flash_attention_bwd_dkv.launches = 0
 
 def last_bwd_kernel_name():
     """Name of the CUDA kernel instantiation that the last backward launch
-    ran: the flash backward's ``flash_bwd_{dq,dkv}_kernel_wgmma<64|128>``
-    (tensor cores) for bfloat16, ``flash_bwd_dq_kernel<float>`` or
-    ``bwd_dkv_kernel<float, false>`` (CUDA cores) for float32; the one-pass
-    backward's second launch, ``bwd_dkv_kernel<..., true>``."""
+    ran: the flash backward's ``flash_bwd_{dq,dkv}_kernel_wgmma<DP>``
+    (tensor cores, DP = 64, 128 or 256) for bfloat16,
+    ``flash_bwd_dq_kernel<float>`` or ``bwd_dkv_kernel<float, false>`` (CUDA
+    cores) for float32; the one-pass backward's two launches as "dq + dkv":
+    ``onepass_bwd_dq_kernel_wgmma<DP> + onepass_bwd_dkv_kernel_wgmma<DP>``
+    for bfloat16, ``onepass_bwd_dq_kernel<float> + bwd_dkv_kernel<float,
+    true>`` for float32."""
     return _build.library("attention_bwd").attention_bwd_last_kernel().decode()
 
 

@@ -35,10 +35,12 @@
 // P.V: pass 1 runs S over the k-tiles for m and l, pass 2 recomputes S,
 // forms P = exp(S - m) / l in f32, rounds it and multiplies by V (1.5x the
 // operations, still under the byte bound at T = 256, and no 64 x T_k f32
-// score buffer). D is padded in shared memory with zero columns to DP = 64
-// or 128, so the contraction of QK^T and the N of P.V are whole wgmma
-// shapes. Ragged edges are masked here (columns past T_k to -inf, p = 0;
-// rows past T read as zero, never the next batch's rows). Causal: k-tiles
+// score buffer). D is padded in shared memory with zero columns to DP = 64,
+// 128 or 256, so the contraction of QK^T and the N of P.V are whole wgmma
+// shapes (N = 256 as two n128 halves). At DP = 256 a block holds one
+// warpgroup and a 3-deep ring, to fit the 227 KB of shared memory. Ragged
+// edges are masked here (columns past T_k to -inf, p = 0; rows past T read
+// as zero, never the next batch's rows). Causal: k-tiles
 // strictly above the diagonal of the q-tile are skipped, and the q-tiles
 // with the most k-tiles launch first.
 //
@@ -74,36 +76,33 @@ using namespace attn;
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kWG = 2;                 // warpgroups per block, 64 q rows each
-constexpr int kTQ = 64 * kWG;          // query rows per block
 constexpr int kTK = 64;                // keys per k-tile
-constexpr int kTcThreads = 128 * kWG;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 // the softmax runs in base 2: scores times log2(e), so the causal mask
 // value is -1e30 * log2(e)
 constexpr float kNegInf2 = kNegInf * kLog2e;
 
-// K/V buffers in the ring: a step's copy is issued kStages - 1 steps ahead
-constexpr int kStages = 4;
+// Per DP: warpgroups a block (64 q rows each) and K/V buffers in the ring
+// (a step's copy is issued kStages - 1 steps ahead). At DP = 256 a 128-row
+// Q tile and four 64-key K/V pairs would take 320 KB of the 227 KB a block
+// may use: one warpgroup (32 KB of Q) and a 3-deep ring (192 KB) fit.
+template <int DP>
+constexpr int kWG = DP == 256 ? 1 : 2;
+template <int DP>
+constexpr int kStages = DP == 256 ? 3 : 4;
+template <int DP>
+constexpr int kTQ = 64 * kWG<DP>;      // query rows per block
+template <int DP>
+constexpr int kTcThreads = 128 * kWG<DP>;
 
 // shared memory of one block: the Q tile, then kStages (K, V) tile pairs
 template <int DP>
 struct WgSmem {
-  static constexpr int kQ = kTQ * DP * 2;
+  static constexpr int kQ = kTQ<DP> * DP * 2;
   static constexpr int kKV = kTK * DP * 2;
-  static constexpr int kBytes = kQ + kStages * 2 * kKV;
+  static constexpr int kBytes = kQ + kStages<DP> * 2 * kKV;
 };
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 // Softmax pieces on one k-tile of base-2 scores s in accumulator layout:
 // s[4t + 2r + {0, 1}] is row r's (a: 0, b: 1) pair of columns in 8-column
@@ -154,8 +153,9 @@ __device__ __forceinline__ void exp_sum(float (&s)[32], float m_a, float m_b,
   sum_b += y[0];
 }
 
-// One block per (128-row q-tile, head, batch); warpgroup wg owns q rows
-// [64 wg, 64 wg + 64) of the tile and walks 64-key k-tiles in steps. The
+// One block per (q-tile of kTQ<DP> rows: 128, or 64 at DP = 256, head,
+// batch); warpgroup wg owns q rows [64 wg, 64 wg + 64) of the tile and walks
+// 64-key k-tiles in steps. The
 // flash kernel takes one step a k-tile with the online softmax. The
 // one-pass kernel takes two passes, a step a k-tile: pass 1 (S only: the
 // rows' m and l), then pass 2 (S again, P = exp(S - m) / l, P.V).
@@ -180,12 +180,14 @@ __device__ __forceinline__ void wgmma_fwd(const bf16* __restrict__ q,
                                           int causal) {
   using Sm = WgSmem<DP>;
   constexpr int C = DP / 8;
+  // q rows, ring buffers and threads of a block
+  constexpr int QR = kTQ<DP>, NS = kStages<DP>, NT = kTcThreads<DP>;
   extern __shared__ __align__(128) unsigned char wg_smem[];
   const uint32_t s_q = sm90::smem_addr(wg_smem);
   const uint32_t s_kv = s_q + Sm::kQ;
   // causal: the q-tiles with the most k-tiles launch first
   const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int q0 = qt * kTQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * QR, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, wg = tid >> 7, w = (tid >> 5) & 3;
   const int lane = tid & 31;
   const int offset = Tk - Tq;
@@ -194,7 +196,7 @@ __device__ __forceinline__ void wgmma_fwd(const bf16* __restrict__ q,
   // row with no key visits them all
   int last = (Tk + kTK - 1) / kTK - 1;
   if (causal && q0 + offset >= 0)
-    last = min(last, (min(q0 + kTQ, Tq) - 1 + offset) / kTK);
+    last = min(last, (min(q0 + QR, Tq) - 1 + offset) / kTK);
   const int n_tiles = last + 1;
   // steps: the one-pass kernel's pass 1 (one a k-tile), then a k-tile a
   // step with P.V
@@ -209,11 +211,11 @@ __device__ __forceinline__ void wgmma_fwd(const bf16* __restrict__ q,
   const int ra = r0 + 16 * w + (lane >> 2);
   const int c0 = 2 * (lane & 3);
 
-  const sm90::TileCopy<kTK, C, kTcThreads> k_copy(k, b, Tk, H, h, D);
-  const sm90::TileCopy<kTK, C, kTcThreads> v_copy(v, b, Tk, H, h, D);
+  const sm90::TileCopy<kTK, C, NT> k_copy(k, b, Tk, H, h, D);
+  const sm90::TileCopy<kTK, C, NT> v_copy(v, b, Tk, H, h, D);
   // byte offset of a step's K buffer from the first; V follows at + kKV
   auto buf = [&](int step) {
-    return (uint32_t)(step % kStages) * 2 * Sm::kKV;
+    return (uint32_t)(step % NS) * 2 * Sm::kKV;
   };
   auto issue = [&](int step) {
     if (step < n_steps) {
@@ -236,14 +238,14 @@ __device__ __forceinline__ void wgmma_fwd(const bf16* __restrict__ q,
 
   // wgmma descriptors of this warpgroup's Q rows and of the first K and V
   // buffers; a step and a k16 slice add their byte offset / 16
-  const uint64_t d_q = sm90::kmajor(s_q + wg * 64 * 16, kTQ);
+  const uint64_t d_q = sm90::kmajor(s_q + wg * 64 * 16, QR);
   const uint64_t d_k = sm90::kmajor(s_kv, kTK);
   const uint64_t d_v = sm90::mnmajor(s_kv + Sm::kKV, kTK);
   // S(step) = Q K^T into s (issued, not waited for)
   auto scores = [&](int step) {
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      sm90::wgmma_ss_n64(s, d_q + (kk * 2 * kTQ * 16 >> 4),
+      sm90::wgmma_ss_n64(s, d_q + (kk * 2 * QR * 16 >> 4),
                          d_k + ((buf(step) + kk * 2 * kTK * 16) >> 4),
                          kk > 0);
     sm90::wgmma_commit();
@@ -252,7 +254,7 @@ __device__ __forceinline__ void wgmma_fwd(const bf16* __restrict__ q,
   auto pv = [&](int step) {
 #pragma unroll
     for (int kk = 0; kk < kTK / 16; ++kk)
-      sm90::wgmma_rs<DP>(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+      sm90::wgmma_rs<DP, kTK>(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                          p[4 * kk + 3],
                          d_v + ((buf(step) + kk * 16 * 16) >> 4));
     sm90::wgmma_commit();
@@ -290,14 +292,14 @@ __device__ __forceinline__ void wgmma_fwd(const bf16* __restrict__ q,
     }
     float mx_a = -INFINITY, mx_b = -INFINITY;
     tile_max(s, mx_a, mx_b);
-    const float mn_a = fmaxf(m_a, quad_max(mx_a));
-    const float mn_b = fmaxf(m_b, quad_max(mx_b));
+    const float mn_a = fmaxf(m_a, sm90::quad_max(mx_a));
+    const float mn_b = fmaxf(m_b, sm90::quad_max(mx_b));
     al_a = sm90::ex2(m_a - mn_a);
     al_b = sm90::ex2(m_b - mn_b);
     float sum_a = 0.f, sum_b = 0.f;
     exp_sum(s, mn_a, mn_b, sum_a, sum_b);
-    l_a = al_a * l_a + quad_sum(sum_a);
-    l_b = al_b * l_b + quad_sum(sum_b);
+    l_a = al_a * l_a + sm90::quad_sum(sum_a);
+    l_b = al_b * l_b + sm90::quad_sum(sum_b);
     m_a = mn_a;
     m_b = mn_b;
   };
@@ -316,11 +318,11 @@ __device__ __forceinline__ void wgmma_fwd(const bf16* __restrict__ q,
     constexpr bool kNext = decltype(has_next)::value;
     constexpr bool kPv = decltype(has_pv)::value;
     if (kNext) {
-      sm90::cp_async_wait<kStages - 3>();
+      sm90::cp_async_wait<NS - 3>();
       sm90::fence_async_shared();
     }
     __syncthreads();
-    issue(j + kStages - 1);
+    issue(j + NS - 1);
     sm90::wgmma_fence();
     if constexpr (kNext) scores(j + 1);
     if constexpr (kPv) pv(j);
@@ -342,10 +344,10 @@ __device__ __forceinline__ void wgmma_fwd(const bf16* __restrict__ q,
   using yes = std::true_type;
   using no = std::false_type;
 
-  const sm90::TileCopy<kTQ, C, kTcThreads> q_copy(q, b, Tq, H, h, D);
+  const sm90::TileCopy<QR, C, NT> q_copy(q, b, Tq, H, h, D);
   q_copy.load(s_q, q0, Tq);                      // joins step 0's group
-  for (int j = 0; j < kStages - 1; ++j) issue(j);
-  sm90::cp_async_wait<kStages - 2>();            // Q and step 0
+  for (int j = 0; j < NS - 1; ++j) issue(j);
+  sm90::cp_async_wait<NS - 2>();            // Q and step 0
   sm90::fence_async_shared();
   __syncthreads();
   sm90::wgmma_fence();
@@ -361,7 +363,7 @@ __device__ __forceinline__ void wgmma_fwd(const bf16* __restrict__ q,
   // O (divided by l for flash) as bf16 into this warpgroup's rows of the Q
   // tile (read only by its own, finished products), then out by 16-byte
   // stores; rows past T_q are dropped
-  sm90::stage_out<DP>(wg_smem, kTQ, o, 64 * wg + 16 * w + (lane >> 2), lane,
+  sm90::stage_out<DP>(wg_smem, QR, o, 64 * wg + 16 * w + (lane >> 2), lane,
                       kOnepass ? 1.f : l_a, kOnepass ? 1.f : l_b);
   if (!kOnepass && (lane & 3) == 0) {
     if (ra < Tq)
@@ -370,11 +372,11 @@ __device__ __forceinline__ void wgmma_fwd(const bf16* __restrict__ q,
       lse[((size_t)b * Tq + ra + 8) * H + h] = m_b * kLn2 + logf(l_b);
   }
   __syncthreads();
-  sm90::store_tile<kTQ, C, kTcThreads>(out, wg_smem, b, q0, Tq, H, h, D);
+  sm90::store_tile<QR, C, NT>(out, wg_smem, b, q0, Tq, H, h, D);
 }
 
 template <int DP>
-__global__ void __launch_bounds__(kTcThreads)
+__global__ void __launch_bounds__(kTcThreads<DP>)
     onepass_fwd_kernel_wgmma(const bf16* __restrict__ q,
                              const bf16* __restrict__ k,
                              const bf16* __restrict__ v,
@@ -385,7 +387,7 @@ __global__ void __launch_bounds__(kTcThreads)
 }
 
 template <int DP>
-__global__ void __launch_bounds__(kTcThreads)
+__global__ void __launch_bounds__(kTcThreads<DP>)
     flash_fwd_kernel_wgmma(const bf16* __restrict__ q,
                            const bf16* __restrict__ k,
                            const bf16* __restrict__ v, bf16* __restrict__ out,
@@ -402,10 +404,12 @@ int launch_wgmma(bool onepass, const void* q, const void* k, const void* v,
                  const char** name) {
   auto kernel = onepass ? onepass_fwd_kernel_wgmma<DP>
                         : flash_fwd_kernel_wgmma<DP>;
-  *name = onepass ? (DP == 64 ? "onepass_fwd_kernel_wgmma<64>"
-                              : "onepass_fwd_kernel_wgmma<128>")
-                  : (DP == 64 ? "flash_fwd_kernel_wgmma<64>"
-                              : "flash_fwd_kernel_wgmma<128>");
+  static const char* const names[2][3] = {
+      {"flash_fwd_kernel_wgmma<64>", "flash_fwd_kernel_wgmma<128>",
+       "flash_fwd_kernel_wgmma<256>"},
+      {"onepass_fwd_kernel_wgmma<64>", "onepass_fwd_kernel_wgmma<128>",
+       "onepass_fwd_kernel_wgmma<256>"}};
+  *name = names[onepass][DP == 64 ? 0 : (DP == 128 ? 1 : 2)];
   // 16-byte copies need 16-byte aligned rows (D % 8 == 0 gives the rest)
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
@@ -415,8 +419,8 @@ int launch_wgmma(bool onepass, const void* q, const void* k, const void* v,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Tq + kTQ - 1) / kTQ, H, B);
-  kernel<<<grid, kTcThreads, smem, stream>>>(
+  const dim3 grid((Tq + kTQ<DP> - 1) / kTQ<DP>, H, B);
+  kernel<<<grid, kTcThreads<DP>, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, Tq, Tk, H, D,
       scale, causal);
@@ -653,7 +657,7 @@ extern "C" int onepass_attention_fwd(const void* q, const void* k,
                                      const void* v, void* out, int B, int Tq,
                                      int Tk, int H, int D, float scale,
                                      int causal, int dtype, void* stream) {
-  if (bad_shape(B, Tq, Tk, H, D) || Tk > kOnepassMaxTk)
+  if (bad_shape(B, Tq, Tk, H, D, dtype) || Tk > kOnepassMaxTk)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
@@ -662,11 +666,11 @@ extern "C" int onepass_attention_fwd(const void* q, const void* k,
                                  s);
   }
   if (dtype == 1)
-    return D <= 64 ? launch_wgmma<64>(true, q, k, v, out, nullptr, B, Tq, Tk,
-                                      H, D, scale, causal, s, &g_last_kernel)
-                   : launch_wgmma<128>(true, q, k, v, out, nullptr, B, Tq,
-                                       Tk, H, D, scale, causal, s,
-                                       &g_last_kernel);
+    return by_dp(D, [&](auto dp) {
+      constexpr int DP = decltype(dp)::value;
+      return launch_wgmma<DP>(true, q, k, v, out, nullptr, B, Tq, Tk, H, D,
+                              scale, causal, s, &g_last_kernel);
+    });
   return (int)cudaErrorInvalidValue;
 }
 
@@ -674,7 +678,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* out, void* lse, int B, int Tq, int Tk,
                                    int H, int D, float scale, int causal,
                                    int dtype, void* stream) {
-  if (bad_shape(B, Tq, Tk, H, D)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, Tq, Tk, H, D, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (dtype == 0) {
@@ -683,10 +687,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                s);
   }
   if (dtype == 1)
-    return D <= 64 ? launch_wgmma<64>(false, q, k, v, out, l, B, Tq, Tk, H, D,
-                                      scale, causal, s, &g_last_kernel)
-                   : launch_wgmma<128>(false, q, k, v, out, l, B, Tq, Tk, H,
-                                       D, scale, causal, s, &g_last_kernel);
+    return by_dp(D, [&](auto dp) {
+      constexpr int DP = decltype(dp)::value;
+      return launch_wgmma<DP>(false, q, k, v, out, l, B, Tq, Tk, H, D, scale,
+                              causal, s, &g_last_kernel);
+    });
   return (int)cudaErrorInvalidValue;
 }
 

@@ -9,12 +9,18 @@
 #include <math.h>
 #include <stddef.h>
 
+#include <type_traits>
+
 namespace attn {
 
 constexpr int kThreads = 256;          // 16 x 16 threads
 constexpr int kBQ = 64;                // query rows per block
 constexpr int kBK = 64;                // key rows per tile
+// head dims: the float32 kernels hold D / 16 output columns a thread in
+// registers and (D + 1)-wide f32 tiles in shared memory, which stop fitting
+// past 128; the bfloat16 tensor-core kernels pad D to 64, 128 or 256
 constexpr int kMaxD = 128;
+constexpr int kMaxDBf16 = 256;
 constexpr int kMaxJ = kMaxD / 16;      // output columns per thread
 constexpr int kOnepassMaxTk = 512;
 constexpr float kNegInf = -1e30f;
@@ -124,9 +130,19 @@ __device__ void store_out(T* out, float o[4][kMaxJ], const float* div,
   }
 }
 
-inline bool bad_shape(int B, int Tq, int Tk, int H, int D) {
+// dtype: 0 = float32, 1 = bfloat16
+// f(std::integral_constant<int, DP>()) at the DP (64, 128 or 256) that pads
+// D for the bf16 tensor-core kernels
+template <typename F>
+int by_dp(int D, F f) {
+  if (D <= 64) return f(std::integral_constant<int, 64>());
+  if (D <= 128) return f(std::integral_constant<int, 128>());
+  return f(std::integral_constant<int, 256>());
+}
+
+inline bool bad_shape(int B, int Tq, int Tk, int H, int D, int dtype) {
   return B < 1 || B > 65535 || H < 1 || H > 65535 || Tq < 1 || Tk < 1 ||
-         D < 8 || D > kMaxD || D % 8 != 0;
+         D < 8 || D > (dtype == 1 ? kMaxDBf16 : kMaxD) || D % 8 != 0;
 }
 
 }  // namespace attn

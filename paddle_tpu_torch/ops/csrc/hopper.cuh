@@ -109,6 +109,17 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// max and sum over the four threads of a quad (the four that hold one
+// accumulator row)
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
 // two f32 as one register of two bf16 (round to nearest even), lo first
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -329,16 +340,24 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
     wgmma_ss_n64(d, a, b, accumulate);
 }
 
-// an output tile of N = 64 or 128 columns: d (64 x N) += A (64 x 16,
-// registers) * B (16 x N, shared, MN-major)
-template <int N>
+// an output tile of N = 64, 128 or 256 columns: d (64 x N) += A (64 x 16,
+// registers) * B (16 x N, shared, MN-major, a tile of R rows). N = 256 runs
+// as two n128 halves: the accumulator's 8-column blocks 16-31 are its
+// registers 64-127, and B's chunk columns 16-31 start 16 * R * 16 bytes on
+template <int N, int R>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], uint32_t a0,
                                          uint32_t a1, uint32_t a2,
                                          uint32_t a3, uint64_t b) {
-  if constexpr (N == 64)
+  if constexpr (N == 64) {
     wgmma_rs_n64(d, a0, a1, a2, a3, b);
-  else
+  } else if constexpr (N == 128) {
     wgmma_rs_n128(d, a0, a1, a2, a3, b);
+  } else {
+    static_assert(N == 256, "N = 64, 128 or 256");
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[0]), a0, a1, a2, a3, b);
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[64]), a0, a1, a2, a3,
+                  b + ((16 * R * 16) >> 4));
+  }
 }
 
 }  // namespace sm90

@@ -138,6 +138,25 @@ def test_wrappers_never_fall_back_off_the_cpu(fn):
         fn(x, x, x)
 
 
+@pytest.mark.parametrize("fn", [TA.onepass_attention_fwd_bthd,
+                                TA.flash_attention_fwd_bthd,
+                                TA.onepass_attention_bwd_bthd])
+@pytest.mark.parametrize("dtype,d,limit", [(torch.float32, 136, 128),
+                                           (torch.bfloat16, 264, 256)])
+def test_wrappers_refuse_head_dims_past_the_kernels(fn, dtype, d, limit):
+    """The kernels take D up to 256 in bfloat16 (tensor cores) and up to
+    128 in float32 (CUDA cores): past that a wrapper raises, naming the
+    limit, before it looks for a card; at the limit it goes on to ask for
+    one."""
+    x = torch.empty(1, 8, 2, d, dtype=dtype, device="meta")
+    with pytest.raises(ValueError, match="up to %d in %s" % (
+            limit, str(dtype).split(".")[-1])):
+        fn(*[x] * (4 if fn is TA.onepass_attention_bwd_bthd else 3))
+    x = torch.empty(1, 8, 2, limit, dtype=dtype, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(*[x] * (4 if fn is TA.onepass_attention_bwd_bthd else 3))
+
+
 def test_kernel_sources_exist_and_name_their_pallas_kernels():
     """The CUDA source ships in the package and names the TPU kernels it
     replaces (nvcc builds it on the card, never here)."""

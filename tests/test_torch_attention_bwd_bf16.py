@@ -1,11 +1,12 @@
-"""The port's plain flash backward versions in bfloat16 against the JAX
-package's Pallas backward kernels run in interpret mode on the CPU.
+"""The port's plain flash and one-pass backward versions in bfloat16 against
+the JAX package's Pallas backward kernels run in interpret mode on the CPU.
 
 On the card chip_smoke.py holds the bf16 tensor-core backward kernels to
 these plain versions, so here their rounding points are pinned in bf16: the
 same seeded numpy inputs, cast to bf16 in both packages, with the Pallas
-forward's out and lse given to both backward passes, at head widths 16 and
-40 (a multiple of 8 but not of 16) and ragged lengths.
+forward's out and lse given to both flash backward passes, at head widths
+16, 40 (a multiple of 8 but not of 16) and 256 (bench.py's wide
+Transformer) and ragged lengths.
 
 Both round P (before P^T dO) and dS = P (dP - delta) scale to bf16
 elementwise and every output once, but they sum S, dP and delta in other
@@ -15,7 +16,10 @@ backward: rtol 2^-7 of the element (one bf16 ulp of the output) and atol
 orders of S, dP and delta can move through single P and dS terms whose bf16
 rounding flips (chip_smoke.flash_bwd_rounding_bound: a term whose f32 value
 lies near a rounding midpoint, and every term of a row that sees one key,
-where dS is f32 noise).
+where dS is f32 noise). The one-pass backward takes P from the row max and
+sum that each side computes itself, and delta = rowsum(dP o P) from that P:
+chip_smoke.onepass_bwd_rounding_bound carries the orders of those sums into
+the same flips.
 """
 import importlib.util
 import os
@@ -44,6 +48,12 @@ def _chip_smoke():
 
 CS = _chip_smoke()
 RTOL, ATOL = CS.BWD_TOL["flash_bwd"]["bfloat16"]
+ONEPASS_TOL = CS.BWD_TOL["onepass_bwd"]["bfloat16"]
+# (causal, T_q, T_k) without keyless rows: the Pallas one-pass kernel gives
+# a keyless row dS = P (dP - delta) scale where the port follows the dense
+# path (dS = 0; tests/test_torch_attention.py)
+KEYED = [(c, t_q, t_k) for c in (False, True) for t_q, t_k in SHAPES
+         if not (c and t_q > t_k)]
 
 
 def _inputs(seed, t_q, t_k, d, b=2, h=2):
@@ -75,19 +85,18 @@ def _pallas(jq, jk, jv, jdo, causal):
     return _torch(out), _torch(lse), [_torch(g) for g in grads]
 
 
-def _within(got, want, extra, slack=None):
-    """max |got - want| / bound <= 1, with the flash backward's bound."""
-    bound = CS.bwd_bound(want, RTOL, ATOL, extra)
+def _within(got, want, extra, slack=None, tol=(RTOL, ATOL)):
+    """max |got - want| / bound <= 1, with the flash backward's bound (or
+    tol's rtol and atol)."""
+    bound = CS.bwd_bound(want, *tol, extra)
     if slack is not None:
         bound = bound + slack
     ratio = CS.err_ratio(got, want, 0, 0, bound=bound)
     assert ratio <= 1.0, "max |diff| / bound = %g" % ratio
 
 
-@pytest.mark.parametrize("causal,t_q,t_k", [
-    (c, t_q, t_k) for c in (False, True) for t_q, t_k in SHAPES
-    if not (c and t_q > t_k)])       # keyless rows: the test after next
-@pytest.mark.parametrize("d", [16, 40])
+@pytest.mark.parametrize("causal,t_q,t_k", KEYED)  # keyless: 2 tests on
+@pytest.mark.parametrize("d", [16, 40, 256])
 def test_flash_bwd_plain_bf16_matches_pallas_interpret(d, causal, t_q, t_k):
     (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _inputs(21, t_q, t_k, d)
     out, lse, want = _pallas(jq, jk, jv, jdo, causal)
@@ -136,7 +145,7 @@ def test_flash_bwd_bound_rejects_a_wrong_plain_version(causal):
     assert CS.err_ratio(wrong_dv, want[2][:, keep], 0, 0, bound=bound) > 1
 
 
-@pytest.mark.parametrize("d", [16, 40])
+@pytest.mark.parametrize("d", [16, 40, 256])
 def test_bf16_bwd_keyless_rows_follow_the_dense_path(d):
     """Causal with T_q > T_k: the first T_q - T_k rows have no key. As on
     the dense path, their scores are constants: dq is exactly 0 there, they
@@ -165,6 +174,50 @@ def test_bf16_bwd_keyless_rows_follow_the_dense_path(d):
     dv_kl = uniform * tdo[:, :n_kl].float().sum(1, keepdim=True)
     want_dv = want[2].float() + dv_kl
     _within(dv, want_dv, extra[2], slack=2.0 ** -8 * want[2].float().abs())
+
+
+def _pallas_onepass(jq, jk, jv, jdo, causal):
+    return [_torch(g) for g in JA.onepass_attention_bwd_bthd(
+        jq, jk, jv, jdo, causal=causal, interpret=True)]
+
+
+@pytest.mark.parametrize("causal,t_q,t_k", KEYED)
+@pytest.mark.parametrize("d", [16, 40, 256])
+def test_onepass_bwd_plain_bf16_matches_pallas_interpret(d, causal, t_q,
+                                                          t_k):
+    """The one-pass plain version against the Pallas kernel under the
+    one-pass bound: BWD_TOL's plus onepass_bwd_rounding_bound."""
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _inputs(24, t_q, t_k, d)
+    want = _pallas_onepass(jq, jk, jv, jdo, causal)
+    before = TA.onepass_attention_bwd_bthd.launches
+    got = TA.onepass_attention_bwd_bthd(tq, tk, tv, tdo, causal)
+    assert TA.onepass_attention_bwd_bthd.launches == before   # no kernel
+    extra = CS.onepass_bwd_rounding_bound(TA, tq, tk, tv, tdo, causal)
+    for g, w, e, x in zip(got, want, extra, (tq, tk, tv)):
+        assert g.dtype == torch.bfloat16 and g.shape == x.shape
+        _within(g, w, e, tol=ONEPASS_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [16, 256])
+def test_onepass_bwd_bound_rejects_a_wrong_plain_version(d, causal):
+    """The one-pass bound is no blanket either: chip_smoke.py's control with
+    delta dropped (dq, dk), and the plain version with the last key tile
+    dropped (dv), fall outside it."""
+    t_q, t_k = 48, 48
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _inputs(25, t_q, t_k, d)
+    want = _pallas_onepass(jq, jk, jv, jdo, causal)
+    extra = CS.onepass_bwd_rounding_bound(TA, tq, tk, tv, tdo, causal)
+    wrong = CS._onepass_bwd_no_delta(TA, tq, tk, tv, tdo, causal)
+    for g, w, e in zip(wrong[:2], want[:2], extra[:2]):
+        bound = CS.bwd_bound(w, *ONEPASS_TOL, e)
+        assert CS.err_ratio(g, w, 0, 0, bound=bound) > 1
+    keep = slice(0, t_k - BLOCK)
+    wrong_dv = TA.onepass_attention_bwd_plain(
+        tq, tk[:, keep].contiguous(), tv[:, keep].contiguous(), tdo,
+        causal)[2]
+    bound = CS.bwd_bound(want[2][:, keep], *ONEPASS_TOL, extra[2][:, keep])
+    assert CS.err_ratio(wrong_dv, want[2][:, keep], 0, 0, bound=bound) > 1
 
 
 def test_bf16_flip_marks_only_terms_near_a_rounding_midpoint():

@@ -130,6 +130,13 @@ def test_one_step_loss_and_gradients_match_jax_executor():
     _assert_f32_step_agrees(*_one_step({}))
 
 
+def test_one_step_at_head_dim_256_matches_jax_executor():
+    """D = 256, the width of bench.py's wide Transformer (d_model 2048 over
+    8 heads) that the bf16 kernels take on the card: here d_model 512 over 2
+    heads, 1 + 1 layers, f32, at the tolerances above."""
+    _assert_f32_step_agrees(*_one_step({"n_head": 2, "d_model": 512}))
+
+
 def _assert_f32_step_agrees(grads, want, got):
     """The f32 tolerances of the module docstring."""
     assert got[0].shape == () and abs(got[0] - want[0]) <= 1e-5 * want[0]

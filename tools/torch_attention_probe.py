@@ -5,17 +5,20 @@ toolkit:
 
     python3 tools/torch_attention_probe.py            # forward and backward
     python3 tools/torch_attention_probe.py --fwd      # forward only
-    python3 tools/torch_attention_probe.py --bwd      # flash backward only
+    python3 tools/torch_attention_probe.py --bwd      # backward only
 
 It builds the CUDA kernels (paddle_tpu_torch/ops/csrc) and prints the
-registers and any serialization warning ptxas gave the attention kernels.
-It holds every forward case of chip_smoke.py's KERNEL_CASES and every flash
-backward case of its BWD_CASES against the plain version with chip_smoke.py's
-bounds and kernel names (a backward case also names the (batch, row, head)
-where each gradient's error is largest against its bound), and times the
-one-pass and flash forward kernels beside PyTorch's
-scaled_dot_product_attention, and the flash backward pair (dq, dkv) beside
-SDPA's backward, at the serving and training paths' shapes. One JSON line
+registers, spills and any serialization warning ptxas gave the attention
+kernels (every instantiation: DP = 64, 128 and 256). It holds every forward
+case of chip_smoke.py's KERNEL_CASES and every backward case of its
+BWD_CASES (one-pass and flash) against the plain version with
+chip_smoke.py's bounds and kernel names (a backward case also names the
+(batch, row, head) where each gradient's error is largest against its
+bound), and times the one-pass and flash forward kernels beside PyTorch's
+scaled_dot_product_attention, and the one-pass backward and the flash
+backward pair (dq, dkv) beside SDPA's backward, each with the least time
+the card could take (chip_smoke.py's bounds), at the serving and training
+paths' shapes and at D = 256 (bench.py's wide Transformer). One JSON line
 per case, then the card's name and power limit. It is the quick loop for
 kernel work: a few seconds of card time after the build, against
 chip_smoke.py's minutes.
@@ -27,15 +30,28 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-# (kernel, B, T, H, D, causal): the paths' forward shapes, bf16
+# (kernel, B, T, H, D, causal): the paths' forward shapes, bf16, and the
+# wide Transformer's (D = 256); the flash kernels at D = 256 at seq 4096
 TIMED = [("onepass", 8, 256, 8, 64, False),
          ("onepass", 256, 256, 8, 64, False),
          ("onepass", 256, 256, 8, 64, True),
+         ("onepass", 64, 256, 8, 256, False),
+         ("onepass", 64, 256, 8, 256, True),
          ("flash", 1, 4096, 8, 64, False),
          ("flash", 8, 4096, 8, 64, False),
-         ("flash", 8, 4096, 8, 64, True)]
-# (B, T, H, D, causal): the flash backward at train4096's shapes, bf16
-TIMED_BWD = [(8, 4096, 8, 64, False), (8, 4096, 8, 64, True)]
+         ("flash", 8, 4096, 8, 64, True),
+         ("flash", 2, 4096, 8, 256, False),
+         ("flash", 2, 4096, 8, 256, True)]
+# (kernel, B, T, H, D, causal): the backward at train256's, train4096's and
+# train256_wide's shapes, and the flash pair at D = 256, bf16
+TIMED_BWD = [("onepass_bwd", 256, 256, 8, 64, False),
+             ("onepass_bwd", 256, 256, 8, 64, True),
+             ("onepass_bwd", 64, 256, 8, 256, False),
+             ("onepass_bwd", 64, 256, 8, 256, True),
+             ("flash_bwd", 8, 4096, 8, 64, False),
+             ("flash_bwd", 8, 4096, 8, 64, True),
+             ("flash_bwd", 2, 4096, 8, 256, False),
+             ("flash_bwd", 2, 4096, 8, 256, True)]
 
 
 def _ptxas_lines(logs):
@@ -74,10 +90,17 @@ def _forward(cs, A, gen):
     for kernel, b, t, h, d, causal in TIMED:
         q, k, v = cs._qkv(gen, b, t, t, h, d, torch.bfloat16)
         fn = fns[kernel][0]
+        fn(q, k, v, causal)
+        bound, by = cs._bound(4.0 * b * h * d * cs._pairs(t, t, causal),
+                              2 * b * h * d * 4 * t +
+                              (4 * b * t * h if kernel == "flash" else 0), 2)
         print(json.dumps({
             "kernel": kernel, "shape": [b, t, t, h, d], "causal": causal,
+            "cuda_kernel": A.last_kernel_name(),
             "kernel_ms": cs.time_ms(lambda: fn(q, k, v, causal)),
-            "sdpa_ms": cs.time_ms(cs._sdpa(q, k, v, causal))}), flush=True)
+            "sdpa_ms": cs.time_ms(cs._sdpa(q, k, v, causal)),
+            "bound_ms": bound, "bound_by": by}), flush=True)
+        del q, k, v
     return ok
 
 
@@ -96,29 +119,37 @@ def _backward(cs, A, gen):
     import torch
     ok = True
     for kernel, b, t_q, t_k, h, d, causal, dtype, _, _ in cs.BWD_CASES:
-        if kernel != "flash_bwd":
-            continue
         tdtype = getattr(torch, dtype)
         q, k, v = cs._qkv(gen, b, t_q, t_k, h, d, tdtype)
         do = torch.randn(q.shape, generator=gen, device="cuda").to(tdtype)
-        out, lse = A.flash_attention_fwd_bthd(q, k, v, causal)
-        delta = A.flash_delta(out, do)
-        dq = A.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
-        names = [A.last_bwd_kernel_name()]
-        got = (dq,) + A.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+        if kernel == "onepass_bwd":
+            got = A.onepass_attention_bwd_bthd(q, k, v, do, causal)
+            names = A.last_bwd_kernel_name().split(" + ")
+            want = A.onepass_attention_bwd_plain(q, k, v, do, causal)
+        else:
+            out, lse = A.flash_attention_fwd_bthd(q, k, v, causal)
+            delta = A.flash_delta(out, do)
+            dq = A.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+            names = [A.last_bwd_kernel_name()]
+            got = (dq,) + A.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                    causal)
+            names.append(A.last_bwd_kernel_name())
+            want = (A.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                   causal),) + \
+                A.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
                                                 causal)
-        names.append(A.last_bwd_kernel_name())
-        want = (A.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta,
-                                               causal),) + \
-            A.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal)
         torch.cuda.synchronize()
         rtol, atol = cs.BWD_TOL[kernel][dtype]
         rec = {"kernel": kernel, "shape": [b, t_q, t_k, h, d],
                "causal": causal, "dtype": dtype, "cuda_kernels": names,
                "err_ratio": {}, "err_ratio_without_flips": {}, "worst": {}}
-        extra = cs.flash_bwd_rounding_bound(A, q, k, v, do, out, lse,
-                                            causal) \
-            if dtype == "bfloat16" else (None,) * 3
+        if dtype != "bfloat16":
+            extra = (None,) * 3
+        elif kernel == "onepass_bwd":
+            extra = cs.onepass_bwd_rounding_bound(A, q, k, v, do, causal)
+        else:
+            extra = cs.flash_bwd_rounding_bound(A, q, k, v, do, out, lse,
+                                                causal)
         for n, g, w, e in zip(("dq", "dk", "dv"), got, want, extra):
             bound = cs.bwd_bound(w, rtol, atol, e)
             rec["err_ratio"][n] = cs.err_ratio(g, w, 0, 0, bound=bound)
@@ -126,34 +157,47 @@ def _backward(cs, A, gen):
                                                              atol)
             rec["worst"][n] = _worst(g, w, bound)
         del extra
+        want_names = cs.BWD_CODE_PATH[kernel][dtype]
         rec["ok"] = max(rec["err_ratio"].values()) <= 1 and \
             all(bool(torch.isfinite(g.float()).all()) for g in got) and \
-            all(n.startswith(p) for n, p in
-                zip(names, cs.BWD_CODE_PATH[dtype]))
+            len(names) == len(want_names) and \
+            all(n.startswith(p) for n, p in zip(names, want_names))
         ok = ok and rec["ok"]
         print(json.dumps(rec), flush=True)
-        del q, k, v, do, out, lse, delta, got, want
+        del q, k, v, do, got, want
+        if kernel == "flash_bwd":
+            del out, lse, delta
         torch.cuda.empty_cache()
-    for b, t, h, d, causal in TIMED_BWD:
+    for kernel, b, t, h, d, causal in TIMED_BWD:
         q, k, v = cs._qkv(gen, b, t, t, h, d, torch.bfloat16)
         do = torch.randn(q.shape, generator=gen, device="cuda").to(
             torch.bfloat16)
-        out, lse = A.flash_attention_fwd_bthd(q, k, v, causal)
-        delta = A.flash_delta(out, do)
-        rec = {"kernel": "flash_bwd", "shape": [b, t, t, h, d],
-               "causal": causal}
-        for part, fn in (("dq", A.flash_attention_bwd_dq),
-                         ("dkv", A.flash_attention_bwd_dkv)):
-            rec[part + "_ms"] = cs.time_ms(
-                lambda: fn(q, k, v, do, lse, delta, causal), iters=10)
-            rec[part + "_bound_ms"] = cs.bwd_bound_ms(
-                "flash_bwd_" + part, b, t, t, h, d, causal, 2)[0]
+        rec = {"kernel": kernel, "shape": [b, t, t, h, d], "causal": causal}
+        if kernel == "onepass_bwd":
+            parts = {"onepass_bwd": lambda: A.onepass_attention_bwd_bthd(
+                q, k, v, do, causal)}
+        else:
+            out, lse = A.flash_attention_fwd_bthd(q, k, v, causal)
+            delta = A.flash_delta(out, do)
+            parts = {"flash_bwd_" + part: (
+                lambda fn=fn: fn(q, k, v, do, lse, delta, causal))
+                for part, fn in (("dq", A.flash_attention_bwd_dq),
+                                 ("dkv", A.flash_attention_bwd_dkv))}
+        for part, fn in parts.items():
+            fn()
+            rec[part] = {"cuda_kernel": A.last_bwd_kernel_name(),
+                         "ms": cs.time_ms(fn, iters=10)}
+            rec[part]["bound_ms"], rec[part]["bound_by"] = cs.bwd_bound_ms(
+                part, b, t, t, h, d, causal, 2)
         rec["sdpa_bwd_ms"] = cs.time_ms(cs._sdpa_bwd(q, k, v, do, causal),
                                         iters=10)
-        rec["pair_vs_sdpa"] = (rec["dq_ms"] + rec["dkv_ms"]) / \
-            rec["sdpa_bwd_ms"]
+        rec["vs_sdpa"] = sum(r["ms"] for r in rec.values()
+                             if isinstance(r, dict)) / rec["sdpa_bwd_ms"]
         print(json.dumps(rec), flush=True)
-        del q, k, v, do, out, lse, delta
+        del q, k, v, do, parts
+        if kernel == "flash_bwd":
+            del out, lse, delta
+        torch.cuda.empty_cache()
     return ok
 
 

@@ -8,9 +8,11 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 tools/torch_profile_serve.py --seq 4096           # batch 1
     python3 tools/torch_profile_serve.py --train --seq 256    # batch 256
     python3 tools/torch_profile_serve.py --train --seq 4096   # batch 8
+    python3 tools/torch_profile_serve.py --train --wide       # batch 64
 
-It builds the flagship model (bench.py's config) with random weights from
-the seed chip_smoke.py uses. Serving: two warm-up requests, then three
+It builds the flagship model (bench.py's config; with --wide bench.py's wide
+Transformer, d_model 2048 and d_ff 8192, so D = 256) with random weights
+from the seed chip_smoke.py uses. Serving: two warm-up requests, then three
 traced with torch.profiler. Training (bench.py's training leg, as
 chip_smoke.py's train phases run it): one warm step, then two steps traced
 through Executor.run_steps. It prints one JSON line. Busy share is the
@@ -35,6 +37,9 @@ def main():
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--train", action="store_true",
                     help="trace training steps instead of requests")
+    ap.add_argument("--wide", action="store_true",
+                    help="bench.py's wide Transformer (d_model 2048, d_ff "
+                    "8192; training batch 64)")
     args = ap.parse_args()
 
     import torch
@@ -46,10 +51,13 @@ def main():
     from paddle_tpu_torch.models import transformer
 
     cfg = dict(transformer.FLAGSHIP_CFG, seq_len=args.seq)
+    if args.wide:       # bench.py's WIDE_CFG_OVERRIDES
+        cfg.update(d_model=2048, d_ff=8192)
     exe, scope = fluid.Executor(), fluid.Scope()
     if args.train:
-        # bench.py's BATCH and LONGSEQ_BATCH
-        batch, n, warm, unit = (256 if args.seq <= 512 else 8), 2, 1, "step"
+        # bench.py's BATCH, LONGSEQ_BATCH and WIDE_BATCH
+        batch = 64 if args.wide else (256 if args.seq <= 512 else 8)
+        n, warm, unit = 2, 1, "step"
         main_prog, startup, loss = transformer.training_programs(SEED, **cfg)
         one = transformer.synthetic_batch(batch, args.seq, cfg["tgt_vocab"],
                                           SEED)
@@ -94,6 +102,7 @@ def main():
         by_kind[kind] = (kms + ms / n, kcalls + calls / n)
     print(json.dumps({
         "mode": "train" if args.train else "serve", "seq_len": args.seq,
+        "d_model": cfg["d_model"],
         "batch": batch, unit + "s": n,
         "wall_ms_per_" + unit: wall_ms,
         "device_busy_ms_per_" + unit: busy_ms if kernels else None,
@@ -111,7 +120,8 @@ def main():
 
 # the port's kernels by their CUDA function names (csrc/*.cu)
 _PORT_KERNELS = [("onepass_bwd_dq_kernel", "onepass_bwd"),
-                 # ahead of "bwd_dkv_kernel", a substring of the second
+                 # ahead of "bwd_dkv_kernel", a substring of the next two
+                 ("onepass_bwd_dkv_kernel_wgmma", "onepass_bwd"),
                  ("flash_bwd_dq_kernel_wgmma", "flash_bwd_dq"),
                  ("flash_bwd_dkv_kernel_wgmma", "flash_bwd_dkv"),
                  ("bwd_dkv_kernel", "attention_bwd_dkv"),
