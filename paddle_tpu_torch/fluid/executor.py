@@ -12,7 +12,10 @@ did for free is done here by a per-(program, fetch list) plan:
 - a training program's forward ops run once: each ``grad_of`` op is paired
   with its forward op, which runs under autograd and keeps its record until
   the grad op takes the gradient (XLA merged the JAX package's recomputed
-  forward with the real one; ops/grad_ops.py).
+  forward with the real one; ops/grad_ops.py);
+- a run of consecutive ops with a group lowering (the optimizer's adam ops,
+  one per parameter) runs as one call, so its kernel launches once for the
+  run (XLA fused the JAX package's per-op updates into one program).
 
 ``run_steps`` runs a training program over stacked feeds, one eager step
 after another.
@@ -32,7 +35,8 @@ from .core_types import to_torch_dtype
 from .framework import Variable, default_main_program
 from .interop import tensor_from_numpy
 from .ops.grad_ops import record_forward
-from .ops.registry import LoweringContext, lower_op, is_host_op
+from .ops.registry import (LoweringContext, group_key, is_host_op,
+                           lower_group, lower_op)
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard", "as_numpy"]
 
@@ -157,12 +161,42 @@ def _pair_grad_ops(ops):
     return pairs
 
 
+def _runs(ops, taped):
+    """{step of a run's first op: the steps of the run}: each maximal run
+    (two ops or more) of consecutive ops of one type with a group lowering
+    and one run key (registry.group_key), none taped, where no name that one
+    op of the run writes is read or written by another."""
+    runs, k = {}, 0
+    while k < len(ops):
+        key = group_key(ops[k]) if k not in taped else None
+        run = [k]
+        if key is not None:
+            written = set(ops[k].output_arg_names)
+            touched = set(ops[k].input_arg_names) | written
+            j = k + 1
+            while j < len(ops) and j not in taped and \
+                    ops[j].type == ops[k].type and group_key(ops[j]) == key:
+                ins, outs = set(ops[j].input_arg_names), \
+                    set(ops[j].output_arg_names)
+                if (ins | outs) & written or outs & touched:
+                    break
+                written |= outs
+                touched |= ins | outs
+                run.append(j)
+                j += 1
+        if len(run) > 1:
+            runs[k] = run
+        k = run[-1] + 1
+    return runs
+
+
 class _Plan(object):
     """The ops a run must execute, for each op the output slots that a later
     op or a fetch reads or that are persistable (a lowering may skip the
     others), and after each op the names no later op or fetch reads. Each
     ``grad_of`` op is paired with its forward op, which the run tapes
-    (ops/grad_ops.py): a kept grad op keeps its forward op."""
+    (ops/grad_ops.py): a kept grad op keeps its forward op. Runs of ops with
+    a group lowering (``runs``: first step -> its steps) run as one call."""
 
     def __init__(self, program, fetch_names):
         block = program.global_block()
@@ -208,6 +242,8 @@ class _Plan(object):
                          if i in pairs}
         self.taped = {pos[pairs[i]]: ops[i].attrs["need_grad"]
                       for i in kept_idx if i in pairs}
+        self.runs = _runs(kept, self.taped)
+        self.in_run = {j for run in self.runs.values() for j in run[1:]}
         self.persistable = {n for op in kept for n in op.output_arg_names
                             if persistable(n)}
         self.host_ops = sorted({op.type for op in kept
@@ -298,16 +334,24 @@ class Executor(object):
 
     def _run_step(self, plan, env, scope, block, gen, is_test):
         """Run the plan once on env; taped forward ops keep their autograd
-        record until their grad_of consumes it."""
+        record until their grad_of consumes it, and each run of grouped ops
+        goes through its group lowering in one call."""
         ctx = LoweringContext(self.device, gen, is_test=is_test)
         tape = {}
         with torch.no_grad():
             for k, (op, drop) in enumerate(plan.steps):
-                for n in op.input_arg_names:
-                    if n not in env and n != "@EMPTY@":
-                        env[n] = self._read_state(scope, n, block)
+                if k in plan.in_run:
+                    continue
+                run = plan.runs.get(k, (k,))
+                for j in run:
+                    for n in plan.steps[j][0].input_arg_names:
+                        if n not in env and n != "@EMPTY@":
+                            env[n] = self._read_state(scope, n, block)
                 ctx.live_outputs = plan.live[k]
-                if k in plan.taped:
+                if len(run) > 1:
+                    ctx.live_outputs = None
+                    lower_group([plan.steps[j][0] for j in run], env, ctx)
+                elif k in plan.taped:
                     tape[k] = record_forward(op, env, ctx, plan.taped[k])
                 elif op.type == "grad_of":
                     ctx.record = tape.pop(plan.grad_fwd.get(k), None)
@@ -315,11 +359,14 @@ class Executor(object):
                     ctx.record = None
                 else:
                     lower_op(op, env, ctx)
-                for n in op.output_arg_names:
-                    if n in env and (n in plan.persistable or scope.has(n)):
-                        scope.set(n, env[n])
-                for n in drop:
-                    env.pop(n, None)
+                for j in run:
+                    op_j, drop_j = plan.steps[j]
+                    for n in op_j.output_arg_names:
+                        if n in env and (n in plan.persistable or
+                                         scope.has(n)):
+                            scope.set(n, env[n])
+                    for n in drop_j:
+                        env.pop(n, None)
 
     @staticmethod
     def _fetch(env, scope, name):

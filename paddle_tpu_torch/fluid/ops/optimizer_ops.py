@@ -7,12 +7,20 @@ card and ``adam_ok(shape)`` admits the parameter; the plain update
 otherwise. The kernel updates Param, Moment1 and Moment2 in place; the
 plain path returns new tensors. lr_t = lr*sqrt(1-b2^t)/(1-b1^t) and the
 beta-power updates stay outside the kernel, on the device: the kernel reads
-lr_t through a pointer, so a step costs no host sync. The sparse (GradRows)
-and lazy paths come with the DeepFM slice.
+lr_t through a pointer, so a step costs no host sync.
+
+A training program's adam ops (one per parameter) come one after another.
+The executor hands such a run to ``_adam_group`` at once (registry
+``register_group_lowering``): every admitted parameter of the run goes to
+one multi-tensor kernel launch, and lr_t and the beta powers of the whole
+run come from ``torch._foreach_*`` ops over its lists, with the rounding of
+the per-op formula. The program stays op for op the JAX package's; only the
+launches change. A lone adam op is a run of one. The sparse (GradRows) and
+lazy paths come with the DeepFM slice.
 """
 import torch
 
-from .registry import register_lowering
+from .registry import register_group_lowering, register_lowering
 from .common import one
 
 
@@ -38,26 +46,70 @@ def _sgd(ctx, inputs, attrs):
     return {"ParamOut": [p - lr * g.to(p.dtype)]}
 
 
+def _adam_run_key(op):
+    """Adam ops of one run share beta1, beta2 and epsilon and have no
+    GradRows; an op with GradRows runs alone (and raises)."""
+    if op.inputs.get("GradRows"):
+        return None
+    return (op.attrs.get("beta1", 0.9), op.attrs.get("beta2", 0.999),
+            op.attrs.get("epsilon", 1e-8))
+
+
+@register_group_lowering("adam", key=_adam_run_key)
+def _adam_group(ctx, inputs, attrs):
+    """A run of adam ops (lists of their inputs and attrs; the key above
+    equal for all) at once. Returns each op's outputs."""
+    for ins in inputs:
+        _no_rows(ins, "adam")
+    b1 = attrs[0].get("beta1", 0.9)
+    b2 = attrs[0].get("beta2", 0.999)
+    eps = attrs[0].get("epsilon", 1e-8)
+    ps = [one(i, "Param") for i in inputs]
+    b1ps = [one(i, "Beta1Pow") for i in inputs]
+    b2ps = [one(i, "Beta2Pow") for i in inputs]
+    lrs = [one(i, "LearningRate") for i in inputs]
+    # lr_t = lr * sqrt(1 - b2p) / (1 - b1p), each step rounded as the per-op
+    # formula rounds it (1 - x as -x + 1 is the same f32 sum)
+    one_minus_b2 = torch._foreach_neg(b2ps)
+    torch._foreach_add_(one_minus_b2, 1.0)
+    lr_ts = torch._foreach_sqrt(one_minus_b2)
+    if all(lr is lrs[0] for lr in lrs):
+        torch._foreach_mul_(lr_ts, lrs[0].reshape(()).float())
+    else:
+        torch._foreach_mul_(lr_ts, [lr.float() for lr in lrs])
+    one_minus_b1 = torch._foreach_neg(b1ps)
+    torch._foreach_add_(one_minus_b1, 1.0)
+    torch._foreach_div_(lr_ts, one_minus_b1)
+    b1p_out = torch._foreach_mul(b1ps, b1)
+    b2p_out = torch._foreach_mul(b2ps, b2)
+
+    outs, kernel = [], []
+    for k, (ins, p, lr_t) in enumerate(zip(inputs, ps, lr_ts)):
+        g = one(ins, "Grad")
+        m1, m2 = one(ins, "Moment1"), one(ins, "Moment2")
+        if _adam_kernel_ok(p):
+            kernel.append(k)
+            out = (p, m1, m2)      # updated in place by the launch below
+        else:
+            gf = g.float()
+            m1_out = b1 * m1 + (1.0 - b1) * gf
+            m2_out = b2 * m2 + (1.0 - b2) * torch.square(gf)
+            out = (p - (lr_t * m1_out / (torch.sqrt(m2_out) + eps)).to(
+                p.dtype), m1_out, m2_out)
+        outs.append({"ParamOut": [out[0]], "Moment1Out": [out[1]],
+                     "Moment2Out": [out[2]], "Beta1PowOut": [b1p_out[k]],
+                     "Beta2PowOut": [b2p_out[k]]})
+    if kernel:
+        from ...ops.adam_kernel import adam_update_multi
+        adam_update_multi([ps[k] for k in kernel],
+                          [one(inputs[k], "Grad").contiguous()
+                           for k in kernel],
+                          [one(inputs[k], "Moment1") for k in kernel],
+                          [one(inputs[k], "Moment2") for k in kernel],
+                          [lr_ts[k] for k in kernel], b1, b2, eps)
+    return outs
+
+
 @register_lowering("adam", no_grad=True)
 def _adam(ctx, inputs, attrs):
-    _no_rows(inputs, "adam")
-    p, g = one(inputs, "Param"), one(inputs, "Grad")
-    m1, m2 = one(inputs, "Moment1"), one(inputs, "Moment2")
-    b1p, b2p = one(inputs, "Beta1Pow"), one(inputs, "Beta2Pow")
-    lr = one(inputs, "LearningRate").reshape(()).float()
-    b1 = attrs.get("beta1", 0.9)
-    b2 = attrs.get("beta2", 0.999)
-    eps = attrs.get("epsilon", 1e-8)
-    lr_t = lr * torch.sqrt(1.0 - b2p.reshape(())) / (1.0 - b1p.reshape(()))
-    if _adam_kernel_ok(p):
-        from ...ops.adam_kernel import adam_update
-        p_out, m1_out, m2_out = adam_update(p, g.contiguous(), m1, m2, lr_t,
-                                            b1, b2, eps)
-    else:
-        gf = g.float()
-        m1_out = b1 * m1 + (1.0 - b1) * gf
-        m2_out = b2 * m2 + (1.0 - b2) * torch.square(gf)
-        p_out = p - (lr_t * m1_out / (torch.sqrt(m2_out) + eps)).to(p.dtype)
-    return {"ParamOut": [p_out], "Moment1Out": [m1_out],
-            "Moment2Out": [m2_out],
-            "Beta1PowOut": [b1p * b1], "Beta2PowOut": [b2p * b2]}
+    return _adam_group(ctx, [inputs], [attrs])[0]

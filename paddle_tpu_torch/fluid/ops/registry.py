@@ -22,6 +22,7 @@ import torch
 
 __all__ = [
     "register_lowering", "get_lowering", "has_lowering",
+    "register_group_lowering", "group_key", "lower_group",
     "register_grad_maker", "get_grad_maker", "has_grad_maker",
     "maker_wants_og", "mark_no_grad", "is_no_grad", "is_host_op",
     "LoweringContext", "infer_outputs", "lower_op",
@@ -32,6 +33,7 @@ _GRAD_MAKERS = {}
 _OG_MAKERS = set()       # makers that take the og_avail 4th argument
 _NO_GRAD_OPS = set()     # ops with no gradient
 _HOST_OPS = set()        # ops run on the host outside the device step
+_GROUP_LOWERINGS = {}    # op type -> (group lowering, run key)
 
 
 class LoweringContext(object):
@@ -81,6 +83,32 @@ def register_lowering(op_type, no_grad=False, host=False):
             _HOST_OPS.add(op_type)
         return fn
     return deco
+
+
+def register_group_lowering(op_type, key):
+    """Decorator: ``fn(ctx, [inputs], [attrs]) -> [outputs]`` lowers a run of
+    consecutive ops of ``op_type`` at once (the executor's plan finds the
+    runs). ``key(op)`` is what the ops of one run share, or None for an op
+    that runs alone through its own lowering."""
+    def deco(fn):
+        _GROUP_LOWERINGS[op_type] = (fn, key)
+        return fn
+    return deco
+
+
+def group_key(op):
+    """The run key of ``op``, or None if its type has no group lowering."""
+    entry = _GROUP_LOWERINGS.get(op.type)
+    return entry[1](op) if entry else None
+
+
+def lower_group(ops, env, ctx):
+    """Run a run of ops (one type, one key) through its group lowering."""
+    fn = _GROUP_LOWERINGS[ops[0].type][0]
+    inputs = [{slot: [None if n == "@EMPTY@" else env[n] for n in names]
+               for slot, names in op.inputs.items()} for op in ops]
+    for op, outs in zip(ops, fn(ctx, inputs, [op.attrs for op in ops])):
+        write_outputs(op, outs, env)
 
 
 def get_lowering(op_type):

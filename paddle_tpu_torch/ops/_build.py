@@ -8,6 +8,7 @@ so an edited source rebuilds and an
 unchanged one loads. Nothing is built at import: ``library(name)`` builds
 at first use, and ``build_all()`` starts one nvcc per source together.
 """
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -43,14 +44,14 @@ SIGNATURES = {
         ("attention_bwd_last_kernel", []),
     ],
     "adam": [
-        ("adam_update", [_P] * 5 + [_I] + [_F] * 5 + [_I, _I, _P]),
+        ("adam_update_multi", [_P, _I] + [_F] * 5 + [_P]),
     ],
     "ce": [
         ("ce_forward", [_P] * 4 + [_I] * 4 + [_P]),
         ("ce_backward", [_P] * 5 + [_I] * 4 + [_P]),
     ],
     "layernorm": [
-        ("ln_backward", [_P] * 6 + [_I, _I, _F, _I, _I, _I, _P]),
+        ("ln_backward", [_P] * 9 + [_I, _I, _F, _I, _I, _P]),
     ],
     "emb_grad": [
         ("emb_grad_scatter", [_P] * 3 + [_I] * 4 + [_P]),
@@ -154,8 +155,12 @@ def launch(wrapper, name, entry, device, *args):
     lib = library(name)
     args = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
             else a for a in args]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    index = device.index
+    # the kernel launches on the calling thread's current device: make it
+    # the tensors' for the call unless it already is
+    with contextlib.nullcontext() if index == torch.cuda.current_device() \
+            else torch.cuda.device(index):
+        stream = torch.cuda.current_stream(index).cuda_stream
         err = getattr(lib, entry)(*args, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError("%s: CUDA error %d (%s)"

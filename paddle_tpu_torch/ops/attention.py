@@ -42,9 +42,13 @@ The backward kernels live in ``csrc/attention_bwd.cu``:
   rowsum(dO o O) computed outside; one wrapper per kernel. bfloat16 runs
   on the tensor cores, float32 on the CUDA cores, as in the forward.
 
-Head dims: D % 8 == 0, up to 256 in bfloat16 (padded to 64, 128 or 256 on
-the tensor cores) and up to 128 in float32 (the CUDA-core kernels' f32
-tiles do not fit the card past it); a kernel wrapper raises on others.
+Head dims: any D % 8 == 0, as the JAX package's gate asks; a kernel
+wrapper raises on others. bfloat16 runs the tensor cores up to D = 256
+(padded to 64, 128 or 256) and the CUDA-core kernels, instantiated for
+bf16, past it; float32 runs the CUDA-core kernels at every D. Past 128
+columns those split the output into 128-column chunks, one block each, and
+stream the sums over all of D (S, dP) in 128-column pieces, so their tiles
+and registers stay those of D = 128.
 
 In the backward a keyless row keeps the dense path's answer: P = 1/T_k over
 all keys, dS = 0. ``fused_attention_bthd`` is differentiable: an
@@ -64,10 +68,6 @@ NEG_INF = -1e30        # avoids inf-inf=nan in the online-softmax rescale
 # must fit the 227 KB a block may use (the bf16 kernel keeps no score tile;
 # both take the same T_k)
 _ONEPASS_KERNEL_MAX_TK = 512
-# the kernels' head dims: bfloat16 pads D to 64, 128 or 256 on the tensor
-# cores; the float32 kernels' (D + 1)-wide f32 tiles and D / 16 register
-# columns a thread stop fitting the card past 128
-_KERNEL_MAX_D = {torch.float32: 128, torch.bfloat16: 256}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -131,12 +131,9 @@ def _check_kernel_inputs(name, q, k, v, max_tk):
                                          tuple(v.shape)))
     b, t_q, h, d = q.shape
     t_k = k.shape[1]
-    max_d = _KERNEL_MAX_D[q.dtype]
-    if d % 8 or d > max_d or min(b, t_q, t_k, h) < 1:
-        raise ValueError("%s: needs D a multiple of 8 up to %d in %s and "
-                         "non-empty B, T, H; got %s"
-                         % (name, max_d, str(q.dtype).split(".")[-1],
-                            tuple(q.shape)))
+    if d % 8 or min(b, t_q, t_k, h) < 1:
+        raise ValueError("%s: needs D a multiple of 8 and non-empty B, T, H; "
+                         "got %s" % (name, tuple(q.shape)))
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("%s: q, k, v must be on one CUDA device" % name)
     if t_k > max_tk:
@@ -206,8 +203,9 @@ flash_attention_fwd_bthd.launches = 0
 
 def last_kernel_name():
     """Name of the CUDA kernel instantiation that the last forward launch
-    ran: ``*_wgmma<64|128|256>`` (tensor cores) for bfloat16, ``*<float>``
-    (CUDA cores) for float32."""
+    ran: ``*_wgmma<64|128|256>`` (tensor cores) for bfloat16 up to D = 256,
+    ``*<__nv_bfloat16>`` (CUDA cores) past it, ``*<float>`` (CUDA cores) for
+    float32."""
     return _build.library("attention").attention_last_kernel().decode()
 
 
@@ -387,12 +385,13 @@ flash_attention_bwd_dkv.launches = 0
 def last_bwd_kernel_name():
     """Name of the CUDA kernel instantiation that the last backward launch
     ran: the flash backward's ``flash_bwd_{dq,dkv}_kernel_wgmma<DP>``
-    (tensor cores, DP = 64, 128 or 256) for bfloat16,
-    ``flash_bwd_dq_kernel<float>`` or ``bwd_dkv_kernel<float, false>`` (CUDA
-    cores) for float32; the one-pass backward's two launches as "dq + dkv":
+    (tensor cores, DP = 64, 128 or 256) for bfloat16 up to D = 256,
+    ``flash_bwd_dq_kernel<T>`` or ``bwd_dkv_kernel<T, false>`` (CUDA cores)
+    for float32 (T = float) and for bfloat16 past D = 256 (T =
+    __nv_bfloat16); the one-pass backward's two launches as "dq + dkv":
     ``onepass_bwd_dq_kernel_wgmma<DP> + onepass_bwd_dkv_kernel_wgmma<DP>``
-    for bfloat16, ``onepass_bwd_dq_kernel<float> + bwd_dkv_kernel<float,
-    true>`` for float32."""
+    for bfloat16 up to D = 256, ``onepass_bwd_dq_kernel<T> +
+    bwd_dkv_kernel<T, true>`` on the CUDA cores."""
     return _build.library("attention_bwd").attention_bwd_last_kernel().decode()
 
 

@@ -5,8 +5,9 @@
 // flash_fwd_kernel_* replaces the Pallas kernel `_fwd_kernel`
 // (paddle_tpu/ops/attention.py:272, called by flash_attention_fwd_bthd).
 // The entry points pick the code by dtype: bfloat16 runs the tensor-core
-// kernels (*_wgmma<DP>), float32 the CUDA-core kernels (*<float>), since the
-// tensor cores take f32 only as TF32 (about three decimal digits).
+// kernels (*_wgmma<DP>) up to D = 256 and the CUDA-core kernels
+// (*<__nv_bfloat16>) past it, float32 the CUDA-core kernels (*<float>),
+// since the tensor cores take f32 only as TF32 (about three decimal digits).
 //
 // What bounds them on the H100. Per (batch, head) both kernels read Q, K and
 // V once and write O once, and do 4*D operations per unmasked (row, col)
@@ -47,6 +48,13 @@
 // The float32 kernels keep the first version's design: a 16 x 16 thread
 // block with 4 x 4 register micro-tiles on the CUDA cores, f32 tiles in
 // shared memory padded to D + 1, and (one-pass) a 64 x T_k f32 score tile.
+// They take any D % 8 == 0: past 128 columns the output splits into
+// 128-column chunks, one block each, and S streams through the same
+// 129-wide tiles in 128-column pieces, recomputed by every chunk's block
+// (attention_common.cuh), so the tiles and registers stay those of D = 128
+// and the score products cost ceil(D / 128) times over. bfloat16 past
+// D = 256 (the widest the tensor-core kernels pad to) runs them too,
+// instantiated for __nv_bfloat16.
 //
 // Rounding points follow the Pallas kernels: scores in f32 with the scale
 // applied after the product (the bf16 kernels fold log2(e) into that one
@@ -428,33 +436,42 @@ int launch_wgmma(bool onepass, const void* q, const void* k, const void* v,
 }
 
 // --------------------------------------------------------------------------
-// float32: CUDA cores
+// float32 (and bfloat16 past kMaxDWgmma): CUDA cores
 // --------------------------------------------------------------------------
 
-// One block per (64-row q-tile, head, batch). Shared: Q tile, one K/V tile,
-// and the full 64 x T_k f32 score/probability tile.
+// One block per (64-row q-tile and kDC-column output chunk, head, batch).
+// Shared: Q tile, one K/V tile, and the full 64 x T_k f32 score/probability
+// tile. Past kDC every chunk's block computes the same S, streamed through
+// the Q and K tiles in pieces.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     onepass_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int Tq,
                        int Tk, int H, int D, float scale, int causal) {
   extern __shared__ float smem[];
-  const int ld = D + 1;
+  const int ld = min(D, kDC) + 1;
   float* q_s = smem;
   float* kv_s = q_s + kBQ * ld;
   float* s_s = kv_s + kBK * ld;
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const Chunk ch(D);
+  const bool whole = D <= kDC;
+  const int q0 = ch.tile * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int warp = tid >> 5, lane = tid & 31;
   const int offset = Tk - Tq;
 
-  load_tile(q_s, ld, q, b, q0, kBQ, Tq, H, h, D);
+  if (whole) load_tile(q_s, ld, q, b, q0, kBQ, Tq, H, h, D, 0, D);
   for (int k0 = 0; k0 < Tk; k0 += kBK) {
-    __syncthreads();
-    load_tile(kv_s, ld, k, b, k0, kBK, Tk, H, h, D);
-    __syncthreads();
     float acc[4][4];
-    score_tile(acc, q_s, kv_s, ld, D, ty, tx);
+    if (whole) {
+      __syncthreads();
+      load_tile(kv_s, ld, k, b, k0, kBK, Tk, H, h, D, 0, D);
+      __syncthreads();
+      score_tile(acc, q_s, kv_s, ld, D, ty, tx);
+    } else {
+      score_stream(acc, q_s, kv_s, ld, q, q0, Tq, k, k0, Tk, b, H, h, D, ty,
+                   tx);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty * 4 + i;
@@ -494,16 +511,18 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < kMaxJ; ++j) o[i][j] = 0.f;
   for (int k0 = 0; k0 < Tk; k0 += kBK) {
     __syncthreads();
-    load_tile(kv_s, ld, v, b, k0, kBK, Tk, H, h, D);
+    load_tile(kv_s, ld, v, b, k0, kBK, Tk, H, h, D, ch.c0, ch.w);
     __syncthreads();
-    pv_tile(o, s_s + k0, Tk, kv_s, ld, min(kBK, Tk - k0), D, ty, tx);
+    pv_tile(o, s_s + k0, Tk, kv_s, ld, min(kBK, Tk - k0), ch.w, ty, tx);
   }
-  store_out(out, o, nullptr, b, q0, Tq, H, h, D, ty, tx);
+  store_out(out, o, nullptr, b, q0, Tq, H, h, D, ch.c0, ch.w, ty, tx);
 }
 
-// One block per (64-row q-tile, head, batch), looping over 64-row k-tiles
-// with the online softmax; running m, l and the rescale factor per row in
-// shared memory, the output accumulator in registers.
+// One block per (64-row q-tile and kDC-column output chunk, head, batch),
+// looping over 64-row k-tiles with the online softmax; running m, l and the
+// rescale factor per row in shared memory, the output accumulator in
+// registers. Past kDC every chunk's block computes the same S, m and l; the
+// first chunk's writes lse.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -511,7 +530,7 @@ __global__ void __launch_bounds__(kThreads)
                      float* __restrict__ lse, int Tq, int Tk, int H, int D,
                      float scale, int causal) {
   extern __shared__ float smem[];
-  const int ld = D + 1, pld = kBK + 1;
+  const int ld = min(D, kDC) + 1, pld = kBK + 1;
   float* q_s = smem;
   float* k_s = q_s + kBQ * ld;
   float* v_s = k_s + kBK * ld;
@@ -519,12 +538,14 @@ __global__ void __launch_bounds__(kThreads)
   float* m_s = p_s + kBQ * pld;
   float* l_s = m_s + kBQ;
   float* a_s = l_s + kBQ;
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const Chunk ch(D);
+  const bool whole = D <= kDC;
+  const int q0 = ch.tile * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int warp = tid >> 5, lane = tid & 31;
   const int offset = Tk - Tq;
 
-  load_tile(q_s, ld, q, b, q0, kBQ, Tq, H, h, D);
+  if (whole) load_tile(q_s, ld, q, b, q0, kBQ, Tq, H, h, D, 0, D);
   for (int r = tid; r < kBQ; r += kThreads) {
     m_s[r] = kNegInf;
     l_s[r] = 0.f;
@@ -548,12 +569,19 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int kt = 0; kt <= last; ++kt) {
     const int k0 = kt * kBK;
-    __syncthreads();
-    load_tile(k_s, ld, k, b, k0, kBK, Tk, H, h, D);
-    load_tile(v_s, ld, v, b, k0, kBK, Tk, H, h, D);
-    __syncthreads();
     float acc[4][4];
-    score_tile(acc, q_s, k_s, ld, D, ty, tx);
+    if (whole) {
+      __syncthreads();
+      load_tile(k_s, ld, k, b, k0, kBK, Tk, H, h, D, 0, D);
+      load_tile(v_s, ld, v, b, k0, kBK, Tk, H, h, D, 0, D);
+      __syncthreads();
+      score_tile(acc, q_s, k_s, ld, D, ty, tx);
+    } else {
+      // the barrier score_stream starts with ends the last tile's P.V
+      score_stream(acc, q_s, k_s, ld, q, q0, Tq, k, k0, Tk, b, H, h, D, ty,
+                   tx);
+      load_tile(v_s, ld, v, b, k0, kBK, Tk, H, h, D, ch.c0, ch.w);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty * 4 + i;
@@ -596,11 +624,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < kMaxJ; ++j) o[i][j] *= alpha;
     }
-    pv_tile(o, p_s, pld, v_s, ld, kBK, D, ty, tx);
+    pv_tile(o, p_s, pld, v_s, ld, kBK, ch.w, ty, tx);
   }
 
-  store_out(out, o, l_s, b, q0, Tq, H, h, D, ty, tx);
-  if (tx == 0) {
+  store_out(out, o, l_s, b, q0, Tq, H, h, D, ch.c0, ch.w, ty, tx);
+  if (tx == 0 && ch.first) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty * 4 + i, t = q0 + r;
@@ -613,13 +641,13 @@ template <typename T>
 int launch_onepass(const void* q, const void* k, const void* v, void* out,
                    int B, int Tq, int Tk, int H, int D, float scale,
                    int causal, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)(kBQ + kBK) * (D + 1) +
+  const size_t smem = sizeof(float) * ((size_t)(kBQ + kBK) * tile_ld(D) +
                                        (size_t)kBQ * Tk);
   cudaError_t err = cudaFuncSetAttribute(
       onepass_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
+  const dim3 grid(chunked_blocks(Tq, kBQ, D), H, B);
   onepass_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), Tq, Tk, H, D, scale,
@@ -632,13 +660,13 @@ int launch_flash(const void* q, const void* k, const void* v, void* out,
                  float* lse, int B, int Tq, int Tk, int H, int D, float scale,
                  int causal, cudaStream_t stream) {
   const size_t smem =
-      sizeof(float) * ((size_t)(kBQ + 2 * kBK) * (D + 1) +
+      sizeof(float) * ((size_t)(kBQ + 2 * kBK) * tile_ld(D) +
                        (size_t)kBQ * (kBK + 1) + 3 * kBQ);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
+  const dim3 grid(chunked_blocks(Tq, kBQ, D), H, B);
   flash_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, Tq, Tk, H, D,
@@ -651,19 +679,24 @@ int launch_flash(const void* q, const void* k, const void* v, void* out,
 // name of the kernel instantiation the last entry-point call launched
 static const char* g_last_kernel = "";
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores). Returns a
-// cudaError_t value (0 = ok).
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores up to D =
+// kMaxDWgmma, CUDA cores past it). Returns a cudaError_t value (0 = ok).
 extern "C" int onepass_attention_fwd(const void* q, const void* k,
                                      const void* v, void* out, int B, int Tq,
                                      int Tk, int H, int D, float scale,
                                      int causal, int dtype, void* stream) {
-  if (bad_shape(B, Tq, Tk, H, D, dtype) || Tk > kOnepassMaxTk)
+  if (bad_shape(B, Tq, Tk, H, D) || Tk > kOnepassMaxTk)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     g_last_kernel = "onepass_fwd_kernel<float>";
     return launch_onepass<float>(q, k, v, out, B, Tq, Tk, H, D, scale, causal,
                                  s);
+  }
+  if (dtype == 1 && D > kMaxDWgmma) {
+    g_last_kernel = "onepass_fwd_kernel<__nv_bfloat16>";
+    return launch_onepass<bf16>(q, k, v, out, B, Tq, Tk, H, D, scale, causal,
+                                s);
   }
   if (dtype == 1)
     return by_dp(D, [&](auto dp) {
@@ -678,13 +711,18 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* out, void* lse, int B, int Tq, int Tk,
                                    int H, int D, float scale, int causal,
                                    int dtype, void* stream) {
-  if (bad_shape(B, Tq, Tk, H, D, dtype)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, Tq, Tk, H, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (dtype == 0) {
     g_last_kernel = "flash_fwd_kernel<float>";
     return launch_flash<float>(q, k, v, out, l, B, Tq, Tk, H, D, scale, causal,
                                s);
+  }
+  if (dtype == 1 && D > kMaxDWgmma) {
+    g_last_kernel = "flash_fwd_kernel<__nv_bfloat16>";
+    return launch_flash<bf16>(q, k, v, out, l, B, Tq, Tk, H, D, scale, causal,
+                              s);
   }
   if (dtype == 1)
     return by_dp(D, [&](auto dp) {

@@ -53,8 +53,12 @@
 //   block per (64-row k-tile, head, batch) loops over q-tiles, rebuilds the
 //   same P = exp(S - m) / l bit for bit (the same score arithmetic), and
 //   accumulates dV = P^T dO and dK = dS^T Q in f32 registers. The flash dkv
-//   kernel is kernel (b) with P = exp(S - lse). Their f32 tiles stop
-//   fitting past D = 128.
+//   kernel is kernel (b) with P = exp(S - lse). They take any D % 8 == 0:
+//   past 128 the output columns (dQ; dK and dV) split into 128-column
+//   chunks, one block each, and S and dP stream through the same 129-wide
+//   tiles in 128-column pieces, recomputed by every chunk's block
+//   (attention_common.cuh): the score products cost ceil(D / 128) times
+//   over, the tiles and registers stay those of D = 128.
 //
 // delta = rowsum(dO o O) for the flash kernels comes from outside
 // (attention.py:524).
@@ -92,9 +96,11 @@ using namespace attn;
 
 constexpr int kPld = kBK + 1;   // row stride of the 64 x 64 P and dS tiles
 
-// (a) One block per (64-row q-tile, head, batch) of the one-pass backward.
-// Shared: Q, dO and one K/V tile, the 64 x T_k f32 score/probability tile,
-// and delta per row.
+// (a) One block per (64-row q-tile and kDC-column dq chunk, head, batch) of
+// the one-pass backward. Shared: Q, dO and one K/V tile, the 64 x T_k f32
+// score/probability tile, and delta per row. Past kDC every chunk's block
+// computes the same S, P and delta (S and dP streamed through the Q, dO
+// and K/V tiles in pieces); the first chunk's writes m, l and delta.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     onepass_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -104,27 +110,48 @@ __global__ void __launch_bounds__(kThreads)
                           float* __restrict__ row_delta, int Tq, int Tk,
                           int H, int D, float scale, int causal) {
   extern __shared__ float smem[];
-  const int ld = D + 1;
+  const int ld = min(D, kDC) + 1;
   float* q_s = smem;
   float* do_s = q_s + kBQ * ld;
   float* kv_s = do_s + kBQ * ld;
   float* s_s = kv_s + kBK * ld;
   float* delta_s = s_s + kBQ * Tk;
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const Chunk ch(D);
+  const bool whole = D <= kDC;
+  const int q0 = ch.tile * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int warp = tid >> 5, lane = tid & 31;
   const int offset = Tk - Tq;
   const int nk = (Tk + kBK - 1) / kBK;
+  // dP = dO V^T of k-tile k0 (D > kDC: streamed, starting with a barrier)
+  auto dp_tile = [&](float dp[4][4], int k0) {
+    if (whole) {
+      __syncthreads();
+      load_tile(kv_s, ld, v, b, k0, kBK, Tk, H, h, D, 0, D);
+      __syncthreads();
+      score_tile(dp, do_s, kv_s, ld, D, ty, tx);
+    } else {
+      score_stream(dp, do_s, kv_s, ld, dout, q0, Tq, v, k0, Tk, b, H, h, D,
+                   ty, tx);
+    }
+  };
 
-  load_tile(q_s, ld, q, b, q0, kBQ, Tq, H, h, D);
-  load_tile(do_s, ld, dout, b, q0, kBQ, Tq, H, h, D);
+  if (whole) {
+    load_tile(q_s, ld, q, b, q0, kBQ, Tq, H, h, D, 0, D);
+    load_tile(do_s, ld, dout, b, q0, kBQ, Tq, H, h, D, 0, D);
+  }
   // S = Q K^T * scale, masked, for the whole row block (as the forward)
   for (int k0 = 0; k0 < Tk; k0 += kBK) {
-    __syncthreads();
-    load_tile(kv_s, ld, k, b, k0, kBK, Tk, H, h, D);
-    __syncthreads();
     float acc[4][4];
-    score_tile(acc, q_s, kv_s, ld, D, ty, tx);
+    if (whole) {
+      __syncthreads();
+      load_tile(kv_s, ld, k, b, k0, kBK, Tk, H, h, D, 0, D);
+      __syncthreads();
+      score_tile(acc, q_s, kv_s, ld, D, ty, tx);
+    } else {
+      score_stream(acc, q_s, kv_s, ld, q, q0, Tq, k, k0, Tk, b, H, h, D, ty,
+                   tx);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty * 4 + i;
@@ -155,7 +182,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     sum = warp_sum(sum);
     for (int c = lane; c < Tk; c += 32) row[c] = row[c] / sum;
-    if (lane == 0 && q0 + r < Tq) {
+    if (lane == 0 && q0 + r < Tq && ch.first) {
       const size_t at = ((size_t)b * Tq + q0 + r) * H + h;
       row_m[at] = m;
       row_l[at] = sum;
@@ -174,11 +201,8 @@ __global__ void __launch_bounds__(kThreads)
   float part[4] = {0.f, 0.f, 0.f, 0.f};
   for (int kt = 0; kt < kend; ++kt) {
     const int k0 = kt * kBK;
-    __syncthreads();
-    load_tile(kv_s, ld, v, b, k0, kBK, Tk, H, h, D);
-    __syncthreads();
     float dp[4][4];
-    score_tile(dp, do_s, kv_s, ld, D, ty, tx);
+    dp_tile(dp, k0);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty * 4 + i;
@@ -196,12 +220,13 @@ __global__ void __launch_bounds__(kThreads)
     if (tx == 0) {
       const int r = ty * 4 + i;
       delta_s[r] = x;
-      if (q0 + r < Tq) row_delta[((size_t)b * Tq + q0 + r) * H + h] = x;
+      if (q0 + r < Tq && ch.first)
+        row_delta[((size_t)b * Tq + q0 + r) * H + h] = x;
     }
   }
   __syncthreads();
 
-  // dS = P o (dP - delta) * scale, rounded; dQ = dS K
+  // dS = P o (dP - delta) * scale, rounded; dQ = dS K (this chunk's columns)
   float o[4][kMaxJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -209,11 +234,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < kMaxJ; ++j) o[i][j] = 0.f;
   for (int kt = 0; kt < kend; ++kt) {
     const int k0 = kt * kBK;
-    __syncthreads();
-    load_tile(kv_s, ld, v, b, k0, kBK, Tk, H, h, D);
-    __syncthreads();
     float dp[4][4];
-    score_tile(dp, do_s, kv_s, ld, D, ty, tx);
+    dp_tile(dp, k0);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty * 4 + i;
@@ -230,17 +252,19 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();
-    load_tile(kv_s, ld, k, b, k0, kBK, Tk, H, h, D);
+    load_tile(kv_s, ld, k, b, k0, kBK, Tk, H, h, D, ch.c0, ch.w);
     __syncthreads();
-    pv_tile(o, s_s + k0, Tk, kv_s, ld, min(kBK, Tk - k0), D, ty, tx);
+    pv_tile(o, s_s + k0, Tk, kv_s, ld, min(kBK, Tk - k0), ch.w, ty, tx);
   }
-  store_out(dq, o, nullptr, b, q0, Tq, H, h, D, ty, tx);
+  store_out(dq, o, nullptr, b, q0, Tq, H, h, D, ch.c0, ch.w, ty, tx);
 }
 
-// (b) One block per (64-row k-tile, head, batch), looping over q-tiles:
-// dV = sum_q P^T dO (P rounded), dK = sum_q dS^T Q. kNormalized: P =
-// exp(S - m) / l from the one-pass kernel (a)'s row statistics; otherwise
-// P = exp(S - lse) from the flash forward's lse.
+// (b) One block per (64-row k-tile and kDC-column dk/dv chunk, head, batch),
+// looping over q-tiles: dV = sum_q P^T dO (P rounded), dK = sum_q dS^T Q.
+// kNormalized: P = exp(S - m) / l from the one-pass kernel (a)'s row
+// statistics; otherwise P = exp(S - lse) from the flash forward's lse. Past
+// kDC every chunk's block computes the same S and dP, streamed through the
+// K, Q, V and dO tiles in pieces, then loads Q's and dO's chunk columns.
 template <typename T, bool kNormalized>
 __global__ void __launch_bounds__(kThreads)
     bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -251,7 +275,7 @@ __global__ void __launch_bounds__(kThreads)
                    T* __restrict__ dv, int Tq, int Tk, int H, int D,
                    float scale, int causal) {
   extern __shared__ float smem[];
-  const int ld = D + 1;
+  const int ld = min(D, kDC) + 1;
   float* k_s = smem;
   float* v_s = k_s + kBK * ld;
   float* q_s = v_s + kBK * ld;
@@ -261,13 +285,17 @@ __global__ void __launch_bounds__(kThreads)
   float* st0_s = ds_s + kBQ * kPld;
   float* st1_s = st0_s + kBQ;
   float* dl_s = st1_s + kBQ;
-  const int k0 = blockIdx.x * kBK, h = blockIdx.y, b = blockIdx.z;
+  const Chunk ch(D);
+  const bool whole = D <= kDC;
+  const int k0 = ch.tile * kBK, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int offset = Tk - Tq;
   const float uniform = 1.f / (float)Tk;
 
-  load_tile(k_s, ld, k, b, k0, kBK, Tk, H, h, D);
-  load_tile(v_s, ld, v, b, k0, kBK, Tk, H, h, D);
+  if (whole) {
+    load_tile(k_s, ld, k, b, k0, kBK, Tk, H, h, D, 0, D);
+    load_tile(v_s, ld, v, b, k0, kBK, Tk, H, h, D, 0, D);
+  }
   float dk_acc[4][kMaxJ], dv_acc[4][kMaxJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -279,9 +307,16 @@ __global__ void __launch_bounds__(kThreads)
     // holds a keyless row (uniform P over all keys)
     if (causal && q0 + offset >= 0 && min(q0 + kBQ, Tq) - 1 + offset < k0)
       continue;
+    float acc[4][4], dp[4][4];
+    if (!whole) {
+      score_stream(acc, q_s, k_s, ld, q, q0, Tq, k, k0, Tk, b, H, h, D, ty,
+                   tx);
+      score_stream(dp, do_s, v_s, ld, dout, q0, Tq, v, k0, Tk, b, H, h, D,
+                   ty, tx);
+    }
     __syncthreads();
-    load_tile(q_s, ld, q, b, q0, kBQ, Tq, H, h, D);
-    load_tile(do_s, ld, dout, b, q0, kBQ, Tq, H, h, D);
+    load_tile(q_s, ld, q, b, q0, kBQ, Tq, H, h, D, ch.c0, ch.w);
+    load_tile(do_s, ld, dout, b, q0, kBQ, Tq, H, h, D, ch.c0, ch.w);
     for (int r = tid; r < kBQ; r += kThreads) {
       const int t = q0 + r;
       const size_t at = ((size_t)b * Tq + t) * H + h;
@@ -290,9 +325,10 @@ __global__ void __launch_bounds__(kThreads)
       dl_s[r] = t < Tq ? delta[at] : 0.f;
     }
     __syncthreads();
-    float acc[4][4], dp[4][4];
-    score_tile(acc, q_s, k_s, ld, D, ty, tx);
-    score_tile(dp, do_s, v_s, ld, D, ty, tx);
+    if (whole) {
+      score_tile(acc, q_s, k_s, ld, D, ty, tx);
+      score_tile(dp, do_s, v_s, ld, D, ty, tx);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty * 4 + i, t = q0 + r;
@@ -326,7 +362,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < kMaxJ; ++j) {
         const int col = tx + 16 * j;
-        if (col < D) {
+        if (col < ch.w) {
           const float dov = do_s[r * ld + col], qv = q_s[r * ld + col];
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
@@ -337,12 +373,15 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
-  store_out(dk, dk_acc, nullptr, b, k0, Tk, H, h, D, ty, tx);
-  store_out(dv, dv_acc, nullptr, b, k0, Tk, H, h, D, ty, tx);
+  store_out(dk, dk_acc, nullptr, b, k0, Tk, H, h, D, ch.c0, ch.w, ty, tx);
+  store_out(dv, dv_acc, nullptr, b, k0, Tk, H, h, D, ch.c0, ch.w, ty, tx);
 }
 
-// Flash dq: one block per (64-row q-tile, head, batch), looping over the
-// k-tiles the causal predicate keeps; dQ = sum_k dS K in f32 registers.
+// Flash dq: one block per (64-row q-tile and kDC-column dq chunk, head,
+// batch), looping over the k-tiles the causal predicate keeps; dQ = sum_k
+// dS K in f32 registers. Past kDC every chunk's block computes the same S
+// and dP, streamed through the Q, K, dO and V tiles in pieces, then loads
+// K's chunk columns.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -352,7 +391,7 @@ __global__ void __launch_bounds__(kThreads)
                         int Tq, int Tk, int H, int D, float scale,
                         int causal) {
   extern __shared__ float smem[];
-  const int ld = D + 1;
+  const int ld = min(D, kDC) + 1;
   float* q_s = smem;
   float* do_s = q_s + kBQ * ld;
   float* k_s = do_s + kBQ * ld;
@@ -360,12 +399,16 @@ __global__ void __launch_bounds__(kThreads)
   float* ds_s = v_s + kBK * ld;
   float* lse_s = ds_s + kBQ * kPld;
   float* dl_s = lse_s + kBQ;
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const Chunk ch(D);
+  const bool whole = D <= kDC;
+  const int q0 = ch.tile * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int offset = Tk - Tq;
 
-  load_tile(q_s, ld, q, b, q0, kBQ, Tq, H, h, D);
-  load_tile(do_s, ld, dout, b, q0, kBQ, Tq, H, h, D);
+  if (whole) {
+    load_tile(q_s, ld, q, b, q0, kBQ, Tq, H, h, D, 0, D);
+    load_tile(do_s, ld, dout, b, q0, kBQ, Tq, H, h, D, 0, D);
+  }
   for (int r = tid; r < kBQ; r += kThreads) {
     const int t = q0 + r;
     const size_t at = ((size_t)b * Tq + t) * H + h;
@@ -385,13 +428,22 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < kMaxJ; ++j) o[i][j] = 0.f;
   for (int kt = 0; kt <= last; ++kt) {
     const int k0 = kt * kBK;
-    __syncthreads();
-    load_tile(k_s, ld, k, b, k0, kBK, Tk, H, h, D);
-    load_tile(v_s, ld, v, b, k0, kBK, Tk, H, h, D);
-    __syncthreads();
     float acc[4][4], dp[4][4];
-    score_tile(acc, q_s, k_s, ld, D, ty, tx);
-    score_tile(dp, do_s, v_s, ld, D, ty, tx);
+    if (whole) {
+      __syncthreads();
+      load_tile(k_s, ld, k, b, k0, kBK, Tk, H, h, D, 0, D);
+      load_tile(v_s, ld, v, b, k0, kBK, Tk, H, h, D, 0, D);
+      __syncthreads();
+      score_tile(acc, q_s, k_s, ld, D, ty, tx);
+      score_tile(dp, do_s, v_s, ld, D, ty, tx);
+    } else {
+      score_stream(acc, q_s, k_s, ld, q, q0, Tq, k, k0, Tk, b, H, h, D, ty,
+                   tx);
+      score_stream(dp, do_s, v_s, ld, dout, q0, Tq, v, k0, Tk, b, H, h, D,
+                   ty, tx);
+      // the second stream's barriers end every read of k_s
+      load_tile(k_s, ld, k, b, k0, kBK, Tk, H, h, D, ch.c0, ch.w);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty * 4 + i, t = q0 + r;
@@ -407,9 +459,9 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();
-    pv_tile(o, ds_s, kPld, k_s, ld, kBK, D, ty, tx);
+    pv_tile(o, ds_s, kPld, k_s, ld, kBK, ch.w, ty, tx);
   }
-  store_out(dq, o, nullptr, b, q0, Tq, H, h, D, ty, tx);
+  store_out(dq, o, nullptr, b, q0, Tq, H, h, D, ch.c0, ch.w, ty, tx);
 }
 
 template <typename K>
@@ -419,7 +471,7 @@ cudaError_t set_smem(K kernel, size_t bytes) {
 }
 
 size_t dkv_smem(int D) {
-  return sizeof(float) * ((size_t)(2 * kBK + 2 * kBQ) * (D + 1) +
+  return sizeof(float) * ((size_t)(2 * kBK + 2 * kBQ) * tile_ld(D) +
                           (size_t)2 * kBQ * kPld + 3 * kBQ);
 }
 
@@ -431,7 +483,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   const size_t smem = dkv_smem(D);
   cudaError_t err = set_smem(bwd_dkv_kernel<T, kNormalized>, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Tk + kBK - 1) / kBK, H, B);
+  const dim3 grid(chunked_blocks(Tk, kBK, D), H, B);
   bwd_dkv_kernel<T, kNormalized><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), st0, st1, delta,
@@ -445,11 +497,11 @@ int launch_onepass_bwd(const void* q, const void* k, const void* v,
                        float* row_m, float* row_l, float* row_delta, int B,
                        int Tq, int Tk, int H, int D, float scale, int causal,
                        cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)(2 * kBQ + kBK) * (D + 1) +
+  const size_t smem = sizeof(float) * ((size_t)(2 * kBQ + kBK) * tile_ld(D) +
                                        (size_t)kBQ * Tk + kBQ);
   cudaError_t err = set_smem(onepass_bwd_dq_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
+  const dim3 grid(chunked_blocks(Tq, kBQ, D), H, B);
   onepass_bwd_dq_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
@@ -466,11 +518,12 @@ int launch_flash_dq(const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* delta,
                     void* dq, int B, int Tq, int Tk, int H, int D,
                     float scale, int causal, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)(2 * kBQ + 2 * kBK) * (D + 1) +
+  const size_t smem = sizeof(float) * ((size_t)(2 * kBQ + 2 * kBK) *
+                                       tile_ld(D) +
                                        (size_t)kBQ * kPld + 2 * kBQ);
   cudaError_t err = set_smem(flash_bwd_dq_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
+  const dim3 grid(chunked_blocks(Tq, kBQ, D), H, B);
   flash_bwd_dq_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
@@ -1158,8 +1211,9 @@ static const char* g_last_kernel = "";
 // dtype: 0 = float32, 1 = bfloat16. Each returns a cudaError_t value (0 =
 // ok). row_m, row_l and row_delta are [B, T_q, H] f32 scratch the caller
 // allocates; lse and delta are [B, T_q, H] f32 inputs. bfloat16 runs on the
-// tensor cores (*_wgmma<DP>, DP = D padded to 64, 128 or 256), float32 on
-// the CUDA cores (D <= 128).
+// tensor cores (*_wgmma<DP>, DP = D padded to 64, 128 or 256) up to D =
+// 256 and on the CUDA cores (*<__nv_bfloat16>) past it, float32 on the CUDA
+// cores at every D.
 extern "C" int onepass_attention_bwd(const void* q, const void* k,
                                      const void* v, const void* dout,
                                      void* dq, void* dk, void* dv,
@@ -1167,7 +1221,7 @@ extern "C" int onepass_attention_bwd(const void* q, const void* k,
                                      void* row_delta, int B, int Tq, int Tk,
                                      int H, int D, float scale, int causal,
                                      int dtype, void* stream) {
-  if (bad_shape(B, Tq, Tk, H, D, dtype) || Tk > kOnepassMaxTk)
+  if (bad_shape(B, Tq, Tk, H, D) || Tk > kOnepassMaxTk)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float *m = static_cast<float*>(row_m), *l = static_cast<float*>(row_l),
@@ -1177,6 +1231,13 @@ extern "C" int onepass_attention_bwd(const void* q, const void* k,
         "onepass_bwd_dq_kernel<float> + bwd_dkv_kernel<float, true>";
     return launch_onepass_bwd<float>(q, k, v, dout, dq, dk, dv, m, l, dl, B,
                                      Tq, Tk, H, D, scale, causal, s);
+  }
+  if (dtype == 1 && D > kMaxDWgmma) {
+    g_last_kernel =
+        "onepass_bwd_dq_kernel<__nv_bfloat16> + "
+        "bwd_dkv_kernel<__nv_bfloat16, true>";
+    return launch_onepass_bwd<bf16>(q, k, v, dout, dq, dk, dv, m, l, dl, B,
+                                    Tq, Tk, H, D, scale, causal, s);
   }
   if (dtype == 1)
     return by_dp(D, [&](auto dp) {
@@ -1194,7 +1255,7 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       void* dq, int B, int Tq, int Tk, int H,
                                       int D, float scale, int causal,
                                       int dtype, void* stream) {
-  if (bad_shape(B, Tq, Tk, H, D, dtype)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, Tq, Tk, H, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
@@ -1202,6 +1263,11 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
     g_last_kernel = "flash_bwd_dq_kernel<float>";
     return launch_flash_dq<float>(q, k, v, dout, l, dl, dq, B, Tq, Tk, H, D,
                                   scale, causal, s);
+  }
+  if (dtype == 1 && D > kMaxDWgmma) {
+    g_last_kernel = "flash_bwd_dq_kernel<__nv_bfloat16>";
+    return launch_flash_dq<bf16>(q, k, v, dout, l, dl, dq, B, Tq, Tk, H, D,
+                                 scale, causal, s);
   }
   if (dtype == 1)
     return by_dp(D, [&](auto dp) {
@@ -1218,7 +1284,7 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        void* dk, void* dv, int B, int Tq,
                                        int Tk, int H, int D, float scale,
                                        int causal, int dtype, void* stream) {
-  if (bad_shape(B, Tq, Tk, H, D, dtype)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, Tq, Tk, H, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
@@ -1226,6 +1292,11 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
     g_last_kernel = "bwd_dkv_kernel<float, false>";
     return launch_dkv<float, false>(q, k, v, dout, l, nullptr, dl, dk, dv, B,
                                     Tq, Tk, H, D, scale, causal, s);
+  }
+  if (dtype == 1 && D > kMaxDWgmma) {
+    g_last_kernel = "bwd_dkv_kernel<__nv_bfloat16, false>";
+    return launch_dkv<bf16, false>(q, k, v, dout, l, nullptr, dl, dk, dv, B,
+                                   Tq, Tk, H, D, scale, causal, s);
   }
   if (dtype == 1)
     return by_dp(D, [&](auto dp) {

@@ -9,11 +9,11 @@ the row statistics recomputed from x (two-pass centered variance):
     xhat = (x - mean) * rsqrt(var + eps),  g = dy * gamma
     dx   = rstd * (g - (sum(g) + xhat * sum(g * xhat)) / d)   in x's dtype
 
-dgamma = sum_rows dy * xhat and dbeta = sum_rows dy come out of the kernel
-as one f32 partial row per block, summed outside with ``torch.sum`` (the
-JAX package sums its per-tile partials outside too). ``ln_bwd_ok`` and
-``_block_rows`` are the JAX package's, verbatim, so the same shapes take
-the kernel.
+dgamma = sum_rows dy * xhat and dbeta = sum_rows dy come out of the same
+launch: each block writes a partial row pair and the last blocks to finish
+add them in a fixed order (the JAX package sums its per-tile partials
+outside the kernel). ``ln_bwd_ok`` and ``_block_rows`` are the JAX
+package's, verbatim, so the same shapes take the kernel.
 """
 import torch
 
@@ -23,10 +23,12 @@ _VMEM_BUDGET = 10 * 1024 * 1024
 # bf16 x/dy/dx + f32 staging of x, dy, xhat, g (~26 B/elem), x2 double-buffer
 _BYTES_PER_ELEM = 56
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the card's launch shape: each warp keeps two f32 rows of column sums in
-# shared memory, so a block has min(8, this budget / (8 d)) warps
-_SMEM_BUDGET = 200 * 1024
-_ROWS_PER_BLOCK = 64
+# the kernel's grid: at most 8 blocks a SM (csrc/layernorm.cu), whose
+# partials it adds in groups of 16 blocks
+_BLOCKS_PER_SM, _GROUP = 8, 16
+# (device index, stream) -> the kernel's zeroed counters (it leaves them
+# zero)
+_counters = {}
 
 
 def ln_bwd_ok(rows, d):
@@ -94,15 +96,26 @@ def ln_backward(x, dy, gamma, eps):
         return ln_backward_plain(x, dy, gamma, eps)
     _check(x, dy, gamma)
     rows, d = x.shape
-    warps = min(8, _SMEM_BUDGET // (8 * d))
-    blocks = -(-rows // _ROWS_PER_BLOCK)
+    dev = x.device
+    index = dev.index
+    max_blocks = _BLOCKS_PER_SM * \
+        torch.cuda.get_device_properties(index).multi_processor_count
+    groups = -(-max_blocks // _GROUP)
+    # counters per stream: launches on one stream are ordered, so they
+    # never share them at once
+    key = (index, torch.cuda.current_stream(index).cuda_stream)
+    counters = _counters.get(key)
+    if counters is None:
+        counters = _counters[key] = torch.zeros(groups + 1, dtype=torch.int32,
+                                                device=dev)
     dx = torch.empty_like(x)
-    part = torch.empty((2, blocks, d), dtype=torch.float32, device=x.device)
-    _build.launch(ln_backward, "layernorm", "ln_backward", x.device, x, dy,
-                  gamma, dx, part[0], part[1], rows, d, float(eps), warps,
-                  _ROWS_PER_BLOCK, _DTYPE_CODE[x.dtype])
-    dg, db = part.sum(dim=1)
-    return dx, dg, db
+    out = torch.empty((2, d), dtype=torch.float32, device=dev)
+    part = torch.empty((max_blocks + groups, 2, d), dtype=torch.float32,
+                       device=dev)
+    _build.launch(ln_backward, "layernorm", "ln_backward", dev, x, dy, gamma,
+                  dx, out[0], out[1], part, part[max_blocks:], counters, rows,
+                  d, float(eps), max_blocks, _DTYPE_CODE[x.dtype])
+    return dx, out[0], out[1]
 
 
 ln_backward.launches = 0

@@ -141,20 +141,22 @@ def test_wrappers_never_fall_back_off_the_cpu(fn):
 @pytest.mark.parametrize("fn", [TA.onepass_attention_fwd_bthd,
                                 TA.flash_attention_fwd_bthd,
                                 TA.onepass_attention_bwd_bthd])
-@pytest.mark.parametrize("dtype,d,limit", [(torch.float32, 136, 128),
-                                           (torch.bfloat16, 264, 256)])
-def test_wrappers_refuse_head_dims_past_the_kernels(fn, dtype, d, limit):
-    """The kernels take D up to 256 in bfloat16 (tensor cores) and up to
-    128 in float32 (CUDA cores): past that a wrapper raises, naming the
-    limit, before it looks for a card; at the limit it goes on to ask for
-    one."""
-    x = torch.empty(1, 8, 2, d, dtype=dtype, device="meta")
-    with pytest.raises(ValueError, match="up to %d in %s" % (
-            limit, str(dtype).split(".")[-1])):
-        fn(*[x] * (4 if fn is TA.onepass_attention_bwd_bthd else 3))
-    x = torch.empty(1, 8, 2, limit, dtype=dtype, device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        fn(*[x] * (4 if fn is TA.onepass_attention_bwd_bthd else 3))
+@pytest.mark.parametrize("dtype,ds", [(torch.float32, (136, 256, 512)),
+                                      (torch.bfloat16, (264, 512))])
+def test_wrappers_refuse_head_dims_past_the_kernels(fn, dtype, ds):
+    """The kernels take every D that is a multiple of 8, as the JAX
+    package's gate does: past 128 in float32 and past 256 in bfloat16 (the
+    tensor cores' widest padding) a wrapper goes on to ask for a card (the
+    CUDA-core kernels split D into 128-column chunks); a D that is not a
+    multiple of 8 it refuses before it looks for one."""
+    n_in = 4 if fn is TA.onepass_attention_bwd_bthd else 3
+    for d in ds:
+        x = torch.empty(1, 8, 2, d, dtype=dtype, device="meta")
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(*[x] * n_in)
+        x = torch.empty(1, 8, 2, d + 4, dtype=dtype, device="meta")
+        with pytest.raises(ValueError, match="multiple of 8"):
+            fn(*[x] * n_in)
 
 
 def test_kernel_sources_exist_and_name_their_pallas_kernels():
@@ -292,3 +294,55 @@ def test_bwd_kernel_source_names_its_pallas_kernels():
         assert sym in src
     assert set(_build.SIGNATURES) == {"attention", "attention_bwd", "adam",
                                       "ce", "layernorm", "emb_grad"}
+
+
+# --------------------------------------------------------------------------
+# head dims past 128: the CUDA-core kernels' 128-column chunks
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [136, 256])
+def test_wide_head_dim_forward_plain_matches_pallas_interpret(d, causal):
+    """float32 at D 136 (one 128-column chunk and an 8-column one) and 256
+    (two chunks): the plain versions that chip_smoke.py holds the chunked
+    CUDA-core kernels to, against the Pallas forward kernels."""
+    q, k, v = _qkv(19, 1, 24, 40, 2, d)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    _close(TA.onepass_attention_fwd_bthd(tq, tk, tv, causal),
+           JA.onepass_attention_fwd_bthd(jq, jk, jv, causal=causal,
+                                         block_q=8, interpret=True))
+    want_out, want_lse = JA.flash_attention_fwd_bthd(
+        jq, jk, jv, causal=causal, block_q=8, block_k=8, interpret=True)
+    out, lse = TA.flash_attention_fwd_bthd(tq, tk, tv, causal)
+    _close(out, want_out)
+    _close(lse, want_lse)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [136, 256])
+def test_wide_head_dim_backward_plain_matches_pallas_interpret(d, causal):
+    """float32 at D 136 and 256: the one-pass and the flash backward's plain
+    versions against the Pallas backward kernels."""
+    q, k, v = _qkv(20, 1, 24, 40, 2, d)
+    do = _do(21, q)
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    want = JA.onepass_attention_bwd_bthd(jq, jk, jv, jdo, causal=causal,
+                                         interpret=True)
+    for g, w in zip(TA.onepass_attention_bwd_bthd(tq, tk, tv, tdo, causal),
+                    want):
+        _close(g, w)
+    jout, jlse = JA.flash_attention_fwd_bthd(jq, jk, jv, causal=causal,
+                                             block_q=8, block_k=8,
+                                             interpret=True)
+    want = JA.flash_attention_bwd_bthd(jq, jk, jv, jout, jlse, jdo,
+                                       causal=causal, block_q=8, block_k=8,
+                                       interpret=True)
+    out, lse = TA.flash_attention_fwd_bthd(tq, tk, tv, causal)
+    delta = TA.flash_delta(out, tdo)
+    _close(TA.flash_attention_bwd_dq(tq, tk, tv, tdo, lse, delta, causal),
+           want[0])
+    for g, w in zip(TA.flash_attention_bwd_dkv(tq, tk, tv, tdo, lse, delta,
+                                               causal), want[1:]):
+        _close(g, w)

@@ -4,8 +4,9 @@ package's Pallas kernels run in interpret mode on the CPU.
 On the card chip_smoke.py holds the bf16 tensor-core kernels to these plain
 versions, so here their rounding points are pinned in bf16: the same seeded
 numpy inputs, cast to bf16 in both packages, at head widths 16, 40 (a
-multiple of 8 but not of 16) and 256 (the widest the bf16 kernels take:
-bench.py's wide Transformer) and ragged lengths. The one-pass plain version
+multiple of 8 but not of 16), 256 (the widest the tensor-core kernels
+take: bench.py's wide Transformer) and 264 (past it: the CUDA-core kernels
+in bf16) and ragged lengths. The one-pass plain version
 must equal the Pallas kernel bit for bit (both normalise P in f32 and round
 it once to bf16). The flash plain version runs in one tile and the Pallas
 kernel rounds P to bf16 per k-tile against the running max. Each rounding
@@ -65,7 +66,7 @@ def _within_p_rounding(got, want, v):
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("t_q,t_k", SHAPES)
-@pytest.mark.parametrize("d", [16, 40, 256])
+@pytest.mark.parametrize("d", [16, 40, 256, 264])
 def test_onepass_plain_bf16_equals_pallas_interpret(d, t_q, t_k, causal):
     """Bit for bit at D 16 and 40, where XLA and PyTorch sum each score's D
     products in the same order on the CPU. At D 256 the two orders differ,
@@ -84,7 +85,7 @@ def test_onepass_plain_bf16_equals_pallas_interpret(d, t_q, t_k, causal):
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("t_q,t_k", SHAPES)
-@pytest.mark.parametrize("d", [16, 40, 256])
+@pytest.mark.parametrize("d", [16, 40, 256, 264])
 def test_flash_plain_bf16_matches_pallas_interpret(d, t_q, t_k, causal):
     (jq, jk, jv), (tq, tk, tv) = _both(_qkv(12, t_q, t_k, d))
     want_out, want_lse = JA.flash_attention_fwd_bthd(
@@ -99,7 +100,7 @@ def test_flash_plain_bf16_matches_pallas_interpret(d, t_q, t_k, causal):
                                atol=LSE_TOL)
 
 
-@pytest.mark.parametrize("d", [16, 40, 256])
+@pytest.mark.parametrize("d", [16, 40, 256, 264])
 def test_bf16_keyless_rows_follow_the_dense_path(d):
     """Causal with T_q > T_k: the rows before T_q - T_k have no key. Both
     plain versions give them the dense path's uniform softmax over all keys
@@ -132,10 +133,11 @@ def _global_kernels():
             continue
         text = open(os.path.join(_build._CSRC, src)).read()
         for tmpl, name in re.findall(
-                r"template\s*<([^>]*)>\s*__global__\s+void\s+"
+                r"(?:template\s*<([^>]*)>\s*)?__global__\s+void\s+"
                 r"(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", text):
             args = ", ".join("__nv_bfloat16" if p.strip().startswith(
-                "typename") else "64" for p in tmpl.split(","))
+                "typename") else "64" for p in tmpl.split(",")) if tmpl \
+                else None
             found.append((src, name, args))
     return found
 
@@ -156,7 +158,8 @@ def test_profile_tool_classifies_every_port_kernel(src, name, args):
     """The trace shows each kernel by its demangled name; the profiling
     tool must count it as a port kernel, not as a product or "other"."""
     kind = _profile_tool()._kind(
-        "void (anonymous namespace)::%s<%s>(int, float)" % (name, args))
+        "void (anonymous namespace)::%s%s(int, float)"
+        % (name, "" if args is None else "<%s>" % args))
     assert kind not in ("matmul", "other"), (src, name, kind)
 
 
@@ -183,13 +186,31 @@ def test_profile_tool_names_the_onepass_backward_kernels(name):
         "void (anonymous namespace)::%s(int, float)" % name) == "onepass_bwd"
 
 
+@pytest.mark.parametrize("name,kind", [
+    ("adam_multi_kernel", "adam"),
+    ("ln_bwd_kernel<__nv_bfloat16, 8, 2>", "ln_bwd"),
+    ("ln_bwd_kernel_wide<float>", "ln_bwd"),
+    ("onepass_fwd_kernel<__nv_bfloat16>", "onepass_fwd"),
+    ("flash_fwd_kernel<__nv_bfloat16>", "flash_fwd"),
+    ("onepass_bwd_dq_kernel<__nv_bfloat16>", "onepass_bwd"),
+    ("flash_bwd_dq_kernel<__nv_bfloat16>", "flash_bwd_dq"),
+    ("bwd_dkv_kernel<__nv_bfloat16, (bool)1>", "attention_bwd_dkv")])
+def test_profile_tool_names_the_multi_adam_ln_and_wide_kernels(name, kind):
+    """The multi-tensor Adam kernel, both LayerNorm backward kernels and the
+    CUDA-core attention kernels instantiated for bf16 (past D = 256), as
+    the trace names them."""
+    assert _profile_tool()._kind(
+        "void (anonymous namespace)::%s(int, float)" % name) == kind
+
+
 def test_every_kernel_source_has_a_global_function():
     names = {name for _, name, _ in _global_kernels()}
     assert {"onepass_fwd_kernel_wgmma", "flash_fwd_kernel_wgmma",
             "onepass_fwd_kernel", "flash_fwd_kernel",
             "flash_bwd_dq_kernel_wgmma", "flash_bwd_dkv_kernel_wgmma",
             "onepass_bwd_dq_kernel_wgmma",
-            "onepass_bwd_dkv_kernel_wgmma"} <= names
+            "onepass_bwd_dkv_kernel_wgmma", "adam_multi_kernel",
+            "ln_bwd_kernel", "ln_bwd_kernel_wide"} <= names
     assert len({src for src, _, _ in _global_kernels()}) == 6
 
 

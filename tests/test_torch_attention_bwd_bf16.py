@@ -5,8 +5,9 @@ On the card chip_smoke.py holds the bf16 tensor-core backward kernels to
 these plain versions, so here their rounding points are pinned in bf16: the
 same seeded numpy inputs, cast to bf16 in both packages, with the Pallas
 forward's out and lse given to both flash backward passes, at head widths
-16, 40 (a multiple of 8 but not of 16) and 256 (bench.py's wide
-Transformer) and ragged lengths.
+16, 40 (a multiple of 8 but not of 16), 256 (bench.py's wide Transformer)
+and 264 (past the tensor-core kernels: the CUDA-core kernels in bf16) and
+ragged lengths.
 
 Both round P (before P^T dO) and dS = P (dP - delta) scale to bf16
 elementwise and every output once, but they sum S, dP and delta in other
@@ -96,7 +97,7 @@ def _within(got, want, extra, slack=None, tol=(RTOL, ATOL)):
 
 
 @pytest.mark.parametrize("causal,t_q,t_k", KEYED)  # keyless: 2 tests on
-@pytest.mark.parametrize("d", [16, 40, 256])
+@pytest.mark.parametrize("d", [16, 40, 256, 264])
 def test_flash_bwd_plain_bf16_matches_pallas_interpret(d, causal, t_q, t_k):
     (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _inputs(21, t_q, t_k, d)
     out, lse, want = _pallas(jq, jk, jv, jdo, causal)
@@ -145,7 +146,7 @@ def test_flash_bwd_bound_rejects_a_wrong_plain_version(causal):
     assert CS.err_ratio(wrong_dv, want[2][:, keep], 0, 0, bound=bound) > 1
 
 
-@pytest.mark.parametrize("d", [16, 40, 256])
+@pytest.mark.parametrize("d", [16, 40, 256, 264])
 def test_bf16_bwd_keyless_rows_follow_the_dense_path(d):
     """Causal with T_q > T_k: the first T_q - T_k rows have no key. As on
     the dense path, their scores are constants: dq is exactly 0 there, they
@@ -182,7 +183,7 @@ def _pallas_onepass(jq, jk, jv, jdo, causal):
 
 
 @pytest.mark.parametrize("causal,t_q,t_k", KEYED)
-@pytest.mark.parametrize("d", [16, 40, 256])
+@pytest.mark.parametrize("d", [16, 40, 256, 264])
 def test_onepass_bwd_plain_bf16_matches_pallas_interpret(d, causal, t_q,
                                                           t_k):
     """The one-pass plain version against the Pallas kernel under the

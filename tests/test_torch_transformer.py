@@ -175,7 +175,8 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py",
-                                    "tools/torch_profile_serve.py"])
+                                    "tools/torch_profile_serve.py",
+                                    "tools/torch_train_steps.py"])
 def test_card_scripts_import_no_jax(script):
     """The scripts that run on the card (which has no JAX) import neither
     JAX nor the JAX package, at top level or inside a function."""

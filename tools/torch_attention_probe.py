@@ -9,7 +9,8 @@ toolkit:
 
 It builds the CUDA kernels (paddle_tpu_torch/ops/csrc) and prints the
 registers, spills and any serialization warning ptxas gave the attention
-kernels (every instantiation: DP = 64, 128 and 256). It holds every forward
+kernels (every instantiation: DP = 64, 128 and 256, and the CUDA-core
+ones). It holds every forward
 case of chip_smoke.py's KERNEL_CASES and every backward case of its
 BWD_CASES (one-pass and flash) against the plain version with
 chip_smoke.py's bounds and kernel names (a backward case also names the
@@ -84,7 +85,8 @@ def _forward(cs, A, gen):
         rec["err_ratio"] = cs.err_ratio(got, want, *cs.OUT_TOL[dtype])
         rec["ok"] = rec["err_ratio"] <= 1 and \
             rec.get("lse_err_ratio", 0.0) <= 1 and \
-            bool(torch.isfinite(got.float()).all())
+            bool(torch.isfinite(got.float()).all()) and \
+            cs.FWD_CODE_PATH[cs._code_dtype(dtype, d)] in rec["cuda_kernel"]
         ok = ok and rec["ok"]
         print(json.dumps(rec), flush=True)
     for kernel, b, t, h, d, causal in TIMED:
@@ -157,7 +159,7 @@ def _backward(cs, A, gen):
                                                              atol)
             rec["worst"][n] = _worst(g, w, bound)
         del extra
-        want_names = cs.BWD_CODE_PATH[kernel][dtype]
+        want_names = cs.BWD_CODE_PATH[kernel][cs._code_dtype(dtype, d)]
         rec["ok"] = max(rec["err_ratio"].values()) <= 1 and \
             all(bool(torch.isfinite(g.float()).all()) for g in got) and \
             len(names) == len(want_names) and \

@@ -128,10 +128,10 @@ _PORT_KERNELS = [("onepass_bwd_dq_kernel", "onepass_bwd"),
                  ("flash_bwd_dq_kernel", "flash_bwd_dq"),
                  ("onepass_fwd_kernel", "onepass_fwd"),
                  ("flash_fwd_kernel", "flash_fwd"),
-                 ("adam_kernel", "adam"),
+                 ("adam_multi_kernel", "adam"),
                  ("ce_fwd_kernel", "ce_fwd"),
                  ("ce_bwd_kernel", "ce_bwd"),
-                 ("ln_bwd_kernel", "ln_bwd"),
+                 ("ln_bwd_kernel", "ln_bwd"),      # and ln_bwd_kernel_wide
                  ("namespace)::scatter_kernel", "emb_scatter"),
                  ("namespace)::segsum_kernel", "emb_segsum")]
 
