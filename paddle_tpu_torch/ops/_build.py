@@ -55,7 +55,7 @@ SIGNATURES = {
     ],
     "emb_grad": [
         ("emb_grad_scatter", [_P] * 3 + [_I] * 4 + [_P]),
-        ("emb_grad_segsum", [_P] * 4 + [_I] * 4 + [_P]),
+        ("emb_grad_segsum", [_P] * 3 + [_I] * 4 + [_P]),
     ],
 }
 

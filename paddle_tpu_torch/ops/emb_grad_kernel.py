@@ -2,17 +2,18 @@
 Hopper, their plain PyTorch versions, and the JAX package's admission rule.
 
 Counterpart of ``paddle_tpu/ops/emb_grad_kernel.py``; the kernels
-(``csrc/emb_grad.cu``) replace the Pallas ``_scatter_kernel``
+(``csrc/emb_grad.cu``, one template) replace the Pallas ``_scatter_kernel``
 (paddle_tpu/ops/emb_grad_kernel.py:96) and ``_segsum_kernel`` (:147),
 chosen by ``FLAGS_emb_grad_kernel``, with their accumulation semantics:
 
-- "scatter": dW zeroed, each id's dout row added in the TABLE dtype (one
-  rounding per add, as ``zeros.at[ids].add(dout.astype(w.dtype))``). On the
-  card the adds are atomic and their order is not fixed.
-- "segsum": the ids argsorted (stably) outside the kernel and each vocab
-  row's run of sorted positions located by ``searchsorted``; each row sums
-  its run in f32 in sorted order and rounds once. Deterministic: the
-  kernel equals its plain version bit for bit.
+- "scatter": each id's dout row added in the TABLE dtype, one rounding per
+  add (as ``zeros.at[ids].add(dout.astype(w.dtype))``), in id order.
+- "segsum": each row's dout rows summed in f32 in id order, rounded once.
+
+On the card each block keeps the accumulator of its rows in shared memory,
+filters the ids for them in order and writes dW whole: one launch a call,
+no sort, no atomics, no memset. Both kernels equal their plain versions bit
+for bit.
 
 dout is cast to the table dtype first, as in the JAX package. An id outside
 [0, vocab) contributes nothing (the lowering wraps negative ids before
@@ -87,9 +88,9 @@ def _segments(flat_ids, vocab):
 
 
 def _sum_runs(w, flat_ids, dflat, acc_dtype):
-    """Each row's dout rows (cast to the table dtype), in id order, summed
-    one add at a time in acc_dtype (the k-th terms of every row added
-    together, k = 0, 1, ...); the sum in the table dtype."""
+    """Each row's dout rows (cast to the table dtype), in id order (a stable
+    sort's), summed one add at a time in acc_dtype (the k-th terms of every
+    row added together, k = 0, 1, ...); the sum in the table dtype."""
     vocab = w.shape[0]
     order, starts = _segments(flat_ids, vocab)
     sdout = dflat.to(w.dtype)[order]
@@ -103,14 +104,13 @@ def _sum_runs(w, flat_ids, dflat, acc_dtype):
 
 def emb_grad_scatter_plain(w, flat_ids, dflat):
     """Plain version of the scatter kernel: each id's dout row added in the
-    table dtype, rounded after every add, in id order (the kernel's atomics
-    add in any order)."""
+    table dtype, rounded after every add, in id order."""
     return _sum_runs(w, flat_ids, dflat, w.dtype)
 
 
 def emb_grad_segsum_plain(w, flat_ids, dflat):
-    """Plain version of the segsum kernel: each row's run of sorted dout
-    rows summed in f32 in sorted order, rounded once to the table dtype."""
+    """Plain version of the segsum kernel: each row's dout rows summed in
+    f32 in id order, rounded once to the table dtype."""
     return _sum_runs(w, flat_ids, dflat, torch.float32)
 
 
@@ -133,45 +133,42 @@ def _check(name, w, ids, dflat, impl):
         raise ValueError("%s: at most 2^31 - 1 ids and table elements" % name)
 
 
-def _dout(dflat, w):
-    """dout in the table dtype, contiguous and 16-byte aligned."""
-    d = dflat.to(w.dtype).contiguous()
-    return d if d.data_ptr() % 16 == 0 else d.clone()
+def _aligned(t):
+    """t contiguous and 16-byte aligned (the kernels' 16-byte copies)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(wrapper, entry, w, flat_ids, dflat):
+    vocab, dim = w.shape
+    dw = torch.empty_like(w, memory_format=torch.contiguous_format)
+    _build.launch(wrapper, "emb_grad", entry, w.device, _aligned(flat_ids),
+                  _aligned(dflat.to(w.dtype)), dw, flat_ids.shape[0], vocab,
+                  dim, _DTYPE_CODE[w.dtype])
+    return dw
 
 
 def emb_grad_scatter(w, flat_ids, dflat):
-    """Dense embedding grad by atomic adds in the table dtype: w [vocab,
-    dim] (dtype and shape source only), flat_ids [n] int64, dflat [n, dim]
-    -> dW [vocab, dim] in w.dtype. The CUDA kernel for CUDA tensors (or
+    """Dense embedding grad by adds in the table dtype: w [vocab, dim]
+    (dtype and shape source only), flat_ids [n] int64, dflat [n, dim] ->
+    dW [vocab, dim] in w.dtype. The CUDA kernel for CUDA tensors (or
     raises), the plain version for CPU tensors."""
     if w.device.type == "cpu":
         return emb_grad_scatter_plain(w, flat_ids, dflat)
     _check("emb_grad_scatter", w, flat_ids, dflat, "scatter")
-    vocab, dim = w.shape
-    dw = torch.empty_like(w, memory_format=torch.contiguous_format)
-    _build.launch(emb_grad_scatter, "emb_grad", "emb_grad_scatter", w.device,
-                  flat_ids.contiguous(), _dout(dflat, w), dw,
-                  flat_ids.shape[0], vocab, dim, _DTYPE_CODE[w.dtype])
-    return dw
+    return _launch(emb_grad_scatter, "emb_grad_scatter", w, flat_ids, dflat)
 
 
 emb_grad_scatter.launches = 0
 
 
 def emb_grad_segsum(w, flat_ids, dflat):
-    """Dense embedding grad by segment sum over the argsorted ids, f32
-    accumulation rounded once; same signature and result shape as
-    emb_grad_scatter."""
+    """Dense embedding grad by per-row f32 sums, rounded once; same
+    signature and result shape as emb_grad_scatter."""
     if w.device.type == "cpu":
         return emb_grad_segsum_plain(w, flat_ids, dflat)
     _check("emb_grad_segsum", w, flat_ids, dflat, "segsum")
-    vocab, dim = w.shape
-    order, starts = _segments(flat_ids, vocab)
-    dw = torch.empty_like(w, memory_format=torch.contiguous_format)
-    _build.launch(emb_grad_segsum, "emb_grad", "emb_grad_segsum", w.device,
-                  order, starts, _dout(dflat, w), dw, flat_ids.shape[0],
-                  vocab, dim, _DTYPE_CODE[w.dtype])
-    return dw
+    return _launch(emb_grad_segsum, "emb_grad_segsum", w, flat_ids, dflat)
 
 
 emb_grad_segsum.launches = 0
