@@ -81,10 +81,42 @@ non-zero exit):
               and 1 Adam kernel (67 parameters).
 11. train_parity_wide - train_parity's check (flags off) at the wide width,
               1+1 layers, batch 2, dropout 0.
+12. bert_base - bench.py's BERT-base leg (vocab 30,522, 12 layers, 12
+              heads, d_model 768, d_ff 3072, seq 128, dropout 0.1, bf16,
+              Adam(1e-4)) at batch 256: one warm step, then 4 steps
+              through run_steps; each step must launch 12 one-pass forward,
+              12 one-pass backward and 2 Adam kernels (the 74 parameters
+              the kernel takes, 72 a launch) and nothing else.
+13. bert_base_kernels - bert_base with FLAGS_ce_kernel=1, FLAGS_ln_kernel=1
+              and FLAGS_emb_grad_kernel=scatter: also 25 LayerNorm backward
+              launches a step, and no CE or embedding-grad launch (their
+              gates refuse V 30,522 and 2, and the [30522, 768] and [2, 768]
+              tables).
+14. bert_parity - one step of BERT at full width with 2 layers, batch 2,
+              dropout 0, on the card and on the CPU, in bf16 and in f32:
+              the loss and the gradients of word_emb, mlm.transform.w,
+              pooler.w, an attention weight and a LayerNorm scale within
+              BERT_PARITY_LIMITS, which the card's step with the masked
+              positions moved one token on must break.
+15. deepfm - bench.py's DeepFM leg (26 fields, vocab 100,000, embed 16, MLP
+              128-64, sparse tables, Adam(1e-3)) at batch 4096: one warm
+              step, then 8 steps through run_steps; each step one Adam
+              launch (the [416, 128] weight), nothing else.
+16. deepfm_parity - the DeepFM leg for 3 f32 steps in lockstep on the card
+              and on the CPU, on batches with repeated ids: loss, AUC and
+              histograms, the sparse gradients' rows and values, the MLP
+              weights' gradients, Adam's moments and the parameters' change
+              within the limits set out above DFM_LOSS_REL_MAX, and the
+              rows no id touched to a few ulp, which the card's steps with
+              the tables' adam ops in lazy mode must break.
 
-Then it prints the card's name and power limit (nvidia-smi), one JSON line
-with every kernel's numbers, and last {"ok": true, "device": {...}}. It
-imports nothing of JAX or of the JAX package paddle_tpu.
+The kernel cases also time rows 1, 3, 8 and 11 at BERT-base's shapes
+(attention at batch 256, 12 heads, seq 128, D 64; LayerNorm on [32768,
+768]; Adam over its 74 parameters in 2 launches). Then it prints the card's
+name and power limit (nvidia-smi), one JSON line with every kernel's
+numbers (with a "bert_base" entry where a kernel runs at BERT-base's
+shapes), and last {"ok": true, "device": {...}}. It imports nothing of JAX
+or of the JAX package paddle_tpu.
 """
 import contextlib
 import gc
@@ -104,6 +136,10 @@ TRAIN_BATCH, TRAIN_STEPS = 256, 4
 WIDE_CFG_OVERRIDES = dict(d_model=2048, d_ff=8192)
 WIDE_BATCH = 64
 LONG_TRAIN_BATCH, LONG_TRAIN_STEPS = 8, 2
+# bench.py's BERT and DeepFM legs: the timed steps, and bert_parity's depth
+# (full width)
+DEEPFM_STEPS = 8
+BERT_PARITY_LAYERS = 2
 
 # H100 SXM published dense peaks (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
@@ -219,6 +255,7 @@ KERNEL_CASES = [
     ("onepass", 8, 256, 256, 8, 64, True, "bfloat16", "serve256", 4),
     ("onepass", 256, 256, 256, 8, 64, False, "bfloat16", "train256", 8),
     ("onepass", 256, 256, 256, 8, 64, True, "bfloat16", "train256", 4),
+    ("onepass", 256, 128, 128, 12, 64, False, "bfloat16", "bert_base", 12),
     ("onepass", 8, 200, 256, 8, 64, True, "bfloat16", None, 0),
     ("onepass", 2, 77, 77, 2, 40, True, "float32", None, 0),
     ("onepass", 1, 130, 100, 2, 128, True, "float32", None, 0),
@@ -290,6 +327,8 @@ BWD_CODE_PATH = {
 BWD_CASES = [
     ("onepass_bwd", 256, 256, 256, 8, 64, False, "bfloat16", "train256", 8),
     ("onepass_bwd", 256, 256, 256, 8, 64, True, "bfloat16", "train256", 4),
+    ("onepass_bwd", 256, 128, 128, 12, 64, False, "bfloat16", "bert_base",
+     12),
     ("onepass_bwd", 8, 256, 256, 8, 64, False, "bfloat16", None, 0),
     ("onepass_bwd", 8, 256, 256, 8, 64, True, "bfloat16", None, 0),
     ("onepass_bwd", 8, 200, 256, 8, 64, True, "bfloat16", None, 0),
@@ -331,6 +370,13 @@ BWD_CASES = [
 ADAM_CASES = [((512, 512), "bfloat16", 48), ((512, 2048), "bfloat16", 8),
               ((2048, 512), "bfloat16", 8), ((8192, 512), "bfloat16", 2),
               ((512, 8192), "bfloat16", 1), ((16, 256), "float32", 0)]
+# the 2-D parameters the kernel takes in BERT-base: the four [768, 768],
+# the [768, 3072] and the [3072, 768] weights of each of the 12 layers,
+# mlm.transform.w and pooler.w: 74, past the 72 one launch takes, so 2
+# launches a step
+BERT_ADAM_CASES = [((768, 768), "bfloat16", 50),
+                   ((768, 3072), "bfloat16", 12),
+                   ((3072, 768), "bfloat16", 12)]
 # Adam kernel vs plain version (assert_allclose semantics, |got - want| <=
 # atol + rtol*|want|): the moments at tests/test_adam_kernel.py's tolerance;
 # p within one unit in the last place of its dtype
@@ -358,12 +404,15 @@ CE_LOSS_TOL = (1e-5, 1e-5)
 ROW_TOL = {"bfloat16": (2.0 ** -7, 2.0 ** -12), "float32": (1e-5, 1e-5)}
 LN_PARAM_TOL = (1e-5, 1e-5)
 IGNORE = -100
-# (kernel, rows, cols, dtype, path weight): CE (tokens, V); LN (rows, d);
-# the path cases are timed and must reject a control
+# CE (tokens, V, dtype, path weight on train256); LN (rows, d, dtype, path,
+# path weight: train256's 20 and BERT-base's 25 a step); the path cases are
+# timed and must reject a control
 CE_CASES = [(65536, 8192, "bfloat16", 1), (24, 384, "bfloat16", 0),
             (64, 1024, "float32", 0)]
-LN_CASES = [(65536, 512, "bfloat16", 20), (24, 384, "bfloat16", 0),
-            (64, 1024, "float32", 0), (16, 8192, "bfloat16", 0)]
+LN_CASES = [(65536, 512, "bfloat16", "train256", 20),
+            (32768, 768, "bfloat16", "bert_base", 25),
+            (24, 384, "bfloat16", None, 0), (64, 1024, "float32", None, 0),
+            (16, 8192, "bfloat16", None, 0)]
 # embedding grad: (vocab, dim, ids, dtype, id draw, douts, path weight,
 # timed). Both kernels add each row's douts in id order, as their plain
 # versions do (the scatter rounding to the table dtype after every add, the
@@ -889,17 +938,18 @@ def _adam_cases(K, gen, max_err, failed):
             failed.append(rec)
 
 
-def _adam_multi_case(K, gen, summary, max_err, failed):
-    """The training step's update: one adam_update_multi launch over the
-    flagship's 67 admitted parameter shapes (ADAM_CASES' counts), each with
-    its own lr_t, bit for bit the plain version's p, m1 and m2, and a wrong
-    beta2 rejected. Timed: the launch on the card (CUDA events), the
-    wrapper's host time a call (the card's queue never full), the plain
-    version, and one torch._fused_adam_ call on the same 67 tensors as
-    float32 lists."""
+def _adam_multi_case(K, gen, summary, max_err, failed, cases=ADAM_CASES,
+                     path="train"):
+    """A training step's update: one adam_update_multi call over the
+    admitted parameter shapes of `cases` (the flagship's 67 by default, one
+    launch; BERT-base's 74, two launches of up to 72), each with its own
+    lr_t, bit for bit the plain version's p, m1 and m2, and a wrong beta2
+    rejected. Timed: the call on the card (CUDA events), the wrapper's host
+    time a call (the card's queue never full), the plain version, and one
+    torch._fused_adam_ call on the same tensors as float32 lists."""
     import torch
     b1, b2, eps = ADAM_HPARAMS
-    shapes = [(shape, dtype) for shape, dtype, n in ADAM_CASES
+    shapes = [(shape, dtype) for shape, dtype, n in cases
               for _ in range(n)]
     rnd = lambda shape: torch.randn(shape, generator=gen, device="cuda")
     ps = [rnd(shape).to(getattr(torch, dtype)) for shape, dtype in shapes]
@@ -914,7 +964,7 @@ def _adam_multi_case(K, gen, summary, max_err, failed):
     K.adam_update_multi(got[0], gs, got[1], got[2], lr_ts, b1, b2, eps)
     torch.cuda.synchronize()
     rec = {"phase": "kernels", "kernel": "adam_multi", "tensors": len(ps),
-           "elements": sum(p.numel() for p in ps), "path": "train",
+           "elements": sum(p.numel() for p in ps), "path": path,
            "launches": K.adam_update_multi.launches - before,
            "last_tensors": K.adam_update_multi.last_tensors}
     for i, name in enumerate(("p", "m1", "m2")):
@@ -928,7 +978,8 @@ def _adam_multi_case(K, gen, summary, max_err, failed):
     rec["control_rejected"] = not all(_adam_close(x, w[2], rtol, atol)
                                       for x, w in zip(got[2], wrong))
     del wrong, want
-    rec["ok"] = rec["launches"] == 1 and rec["last_tensors"] == len(ps) and \
+    rec["ok"] = rec["launches"] == -(-len(ps) // K._MAX_TENSORS) and \
+        rec["last_tensors"] == len(ps) and \
         rec["p_elements_differing"] == rec["m1_elements_differing"] == \
         rec["m2_elements_differing"] == 0 and rec["control_rejected"]
     # bytes: p, g, m1, m2 read, p, m1, m2 written; about 12 f32 operations
@@ -950,14 +1001,14 @@ def _adam_multi_case(K, gen, summary, max_err, failed):
         kernel_ms=time_ms(run), host_ms=host_ms,
         plain_ms=time_ms(lambda: K.adam_update_multi_plain(
             ps, gs, m1s, m2s, lr_ts, b1, b2, eps), iters=3, warmup=1),
-        library="one torch._fused_adam_ call on the 67 tensors as float32 "
-        "lists",
+        library="one torch._fused_adam_ call on the %d tensors as float32 "
+        "lists" % len(ps),
         library_ms=time_ms(lambda: torch._fused_adam_(
             *f32, [], steps, lr=1e-4, beta1=b1, beta2=b2, weight_decay=0.0,
             eps=eps, amsgrad=False, maximize=False)),
         bound_ms=bound, bound_by=by)
-    _summary_add(summary, "adam", "train", 1, rec, by)
-    summary[("adam", "train")]["host_ms"] = host_ms
+    _summary_add(summary, "adam", path, 1, rec, by)
+    summary[("adam", path)]["host_ms"] = host_ms
     max_err["adam"] = max(max_err.get("adam", 0.0), rec["max_abs_err"])
     emit(rec)
     if not rec["ok"]:
@@ -1100,7 +1151,7 @@ def _ln_dx_no_s2(x, dy, gamma, eps):
 
 def _ln_cases(LN, gen, summary, max_err, failed):
     import torch
-    for r, d, dtype, weight in LN_CASES:
+    for r, d, dtype, path, weight in LN_CASES:
         tdtype = getattr(torch, dtype)
         rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
         x, dy = (rnd(r, d) * 2 + 0.3).to(tdtype), rnd(r, d).to(tdtype)
@@ -1113,7 +1164,7 @@ def _ln_cases(LN, gen, summary, max_err, failed):
         names = ("dx", "dgamma", "dbeta")
         tols = ((rtol, atol), LN_PARAM_TOL, LN_PARAM_TOL)
         rec = {"phase": "kernels", "kernel": "ln_bwd", "shape": [r, d],
-               "dtype": dtype, "path": "train256" if weight else None,
+               "dtype": dtype, "path": path,
                "tol": {"dx": [rtol, atol], "dgamma_dbeta": LN_PARAM_TOL},
                "launches": LN.ln_backward.launches - before,
                "err_ratio": {n: err_ratio(g.reshape(-1, w.shape[-1]),
@@ -1152,7 +1203,7 @@ def _ln_cases(LN, gen, summary, max_err, failed):
                     lambda: torch.ops.aten.native_layer_norm_backward(
                         dy, x, [d], mean, rstd, gw, gb, [True, True, True])),
                 bound_ms=bound, bound_by=by)
-            _summary_add(summary, "ln_bwd", "train256", weight, rec, by)
+            _summary_add(summary, "ln_bwd", path, weight, rec, by)
             del gw, gb, mean, rstd
         if dtype == "bfloat16":
             max_err["ln_bwd"] = max(max_err.get("ln_bwd", 0.0),
@@ -1346,6 +1397,8 @@ def phase_kernels():
           _bwd_cases(A, gen, summary, max_err, failed)})
     _adam_cases(K, gen, max_err, failed)
     _adam_multi_case(K, gen, summary, max_err, failed)
+    _adam_multi_case(K, gen, summary, max_err, failed, BERT_ADAM_CASES,
+                     "bert_base")
     _ce_cases(CE, gen, summary, max_err, failed)
     _ln_cases(LN, gen, summary, max_err, failed)
     _emb_cases(EG, gen, summary, max_err, failed)
@@ -1558,10 +1611,10 @@ def train_flops_per_token(cfg):
     return 6 * n_matmul + 3 * nl * 3 * 2 * (2 * cfg["seq_len"] * d)
 
 
-def _stacked(transformer, batch, seq_len, vocab, steps, seed):
+def _stacked(feed, steps):
+    """A feed repeated on a leading [steps] axis, as run_steps takes it."""
     import numpy as np
-    b = transformer.synthetic_batch(batch, seq_len, vocab, seed)
-    return {n: np.stack([x] * steps) for n, x in b.items()}
+    return {n: np.stack([x] * steps) for n, x in feed.items()}
 
 
 # the parameters the fused Adam kernel takes in the flagship model (and in
@@ -1569,23 +1622,23 @@ def _stacked(transformer, batch, seq_len, vocab, steps, seed):
 ADAM_TENSORS = sum(n for _, _, n in ADAM_CASES)
 
 
-def _train_phase(name, fluid, transformer, counters, cfg, batch, steps,
-                 want_per_step):
-    """Startup on the card, one warm step, then `steps` steps through
-    run_steps with every launch count zeroed just before and read just
-    after; each step's one Adam launch must cover ADAM_TENSORS
-    parameters."""
+def _window(name, fluid, counters, programs, warm_feed, feed, steps,
+            want_per_step, adam_tensors, info, work):
+    """Startup on the card, one warm step on `warm_feed` (stacked [1,
+    ...]), then `steps` steps through run_steps on `feed` (stacked [steps,
+    ...]) with every launch count zeroed just before and read just after.
+    Every loss must be finite, the launches must be `want_per_step` times
+    the steps, and the step's Adam call must have covered `adam_tensors`
+    parameters. Emits the phase's line (`info`, the window's times and
+    rates per unit of `work` = {unit: count a step}, peak memory) and
+    returns the launches."""
     import numpy as np
     import torch
-    main, startup, loss = transformer.training_programs(SEED, **cfg)
+    main, startup, loss = programs
     exe, scope = fluid.Executor(), fluid.Scope()
     exe.run(startup, scope=scope)
-    vocab = cfg["tgt_vocab"]
-    warm = exe.run_steps(main, feed=_stacked(transformer, batch,
-                                             cfg["seq_len"], vocab, 1, SEED),
-                         n_steps=1, fetch_list=[loss], scope=scope)
-    feed = _stacked(transformer, batch, cfg["seq_len"], vocab, steps,
-                    SEED + 1)
+    warm = exe.run_steps(main, feed=warm_feed, n_steps=1, fetch_list=[loss],
+                         scope=scope)
     # the earlier phases' programs and scopes are cyclic garbage: collect
     # it now, so that no full collection of it lands in the window
     gc.collect()
@@ -1601,31 +1654,49 @@ def _train_phase(name, fluid, transformer, counters, cfg, batch, steps,
     launched = _read(counters)
     losses = losses.float().cpu().numpy()
     want = {k: v * steps for k, v in want_per_step.items()}
-    tokens = batch * cfg["seq_len"] * steps
-    adam_tensors = counters["adam"].last_tensors
+    tensors = counters["adam"].last_tensors
     ok = losses.shape == (steps,) and bool(np.isfinite(losses).all()) and \
         bool(np.isfinite(np.asarray(warm[0])).all()) and launched == want \
-        and adam_tensors == ADAM_TENSORS
-    emit({"phase": name, "ok": ok, "batch": batch,
-          "seq_len": cfg["seq_len"], "dropout_rate": cfg["dropout_rate"],
-          "flags": {k: v for k, v in os.environ.items()
-                    if k.startswith("FLAGS_")},
-          "steps": steps, "losses": losses.tolist(),
-          "warm_loss": float(np.asarray(warm[0]).reshape(-1)[0]),
-          "window_seconds": seconds, "step_ms": seconds / steps * 1e3,
-          "tokens_per_s": tokens / seconds,
-          "model_tflops_per_s": tokens * train_flops_per_token(cfg) /
-          seconds / 1e12,
-          "launches": launched, "launches_want": want,
-          "adam_tensors_a_launch": adam_tensors,
-          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+        and tensors == adam_tensors
+    rec = dict({"phase": name, "ok": ok}, **info)
+    rec.update({"flags": {k: v for k, v in os.environ.items()
+                          if k.startswith("FLAGS_")},
+                "steps": steps, "losses": losses.tolist(),
+                "warm_loss": float(np.asarray(warm[0]).reshape(-1)[0]),
+                "window_seconds": seconds, "step_ms": seconds / steps * 1e3})
+    for unit, count in work.items():
+        rec[unit + "_per_s"] = count * steps / seconds
+    rec.update({"launches": launched, "launches_want": want,
+                "adam_tensors_a_step": tensors,
+                "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    emit(rec)
     if not ok:
         raise AssertionError("%s failed: launches %s, want %s, Adam "
-                             "tensors a launch %d, losses %s"
-                             % (name, launched, want, adam_tensors, losses))
+                             "tensors a step %d (want %d), losses %s"
+                             % (name, launched, want, tensors, adam_tensors,
+                                losses))
     del exe, scope
     torch.cuda.empty_cache()
     return launched
+
+
+def _train_phase(name, fluid, transformer, counters, cfg, batch, steps,
+                 want_per_step):
+    """The flagship Transformer's training program (bench.py's training
+    leg) through _window at `batch`; each step's one Adam launch must cover
+    ADAM_TENSORS parameters."""
+    vocab, seq = cfg["tgt_vocab"], cfg["seq_len"]
+    tokens = batch * seq
+    return _window(
+        name, fluid, counters, transformer.training_programs(SEED, **cfg),
+        _stacked(transformer.synthetic_batch(batch, seq, vocab, SEED), 1),
+        _stacked(transformer.synthetic_batch(batch, seq, vocab, SEED + 1),
+                 steps), steps,
+        want_per_step, ADAM_TENSORS,
+        {"batch": batch, "seq_len": seq,
+         "dropout_rate": cfg["dropout_rate"]},
+        {"tokens": tokens, "model_tflops": tokens *
+         train_flops_per_token(cfg) / 1e12})
 
 
 # Card vs CPU after one training step of the bf16 model with dropout 0
@@ -1673,14 +1744,19 @@ WIDE_PARITY_GRADS = ["enc.0.attn.q.w", "dec.0.self.q.w", "dec.0.self.k.w",
                      "tgt_emb", "proj.w", "dec.0.ffn_post.ln_scale"]
 
 
-def phase_train_parity(fluid, transformer, counters, name="train_parity",
-                       cfg=None, grads=PARITY_GRADS, flag_runs=PARITY_FLAGS):
+def _card_vs_cpu(name, fluid, counters, programs, feed, grads, flag_runs,
+                 control, info, limits=(None, None)):
+    """One training step of `programs` (main, startup, loss) on the card and
+    on the CPU from the same startup state and `feed`, for each of
+    `flag_runs` ([(name, env)]) on the card: the loss and the gradients of
+    `grads` must agree within `limits` (loss, gradients; by default
+    TRAIN_LOSS_REL_MAX and TRAIN_GRAD_REL_MAX), and `control` =
+    (description, program, feed), a faulty run on the card, must not."""
     import numpy as np
     import torch
-    cfg = dict(cfg or transformer.FLAGSHIP_CFG, dropout_rate=0.0)
-    main, startup, loss = transformer.training_programs(SEED, **cfg)
-    feed = transformer.synthetic_batch(2, cfg["seq_len"], cfg["tgt_vocab"],
-                                       SEED + 300)
+    main, startup, loss = programs
+    loss_max = limits[0] or TRAIN_LOSS_REL_MAX
+    grad_max = limits[1] or TRAIN_GRAD_REL_MAX
     fetch = [loss.name] + [n + "@GRAD" for n in grads]
     exe, scope = fluid.Executor(), fluid.Scope()
     exe.run(startup, scope=scope)
@@ -1688,25 +1764,23 @@ def phase_train_parity(fluid, transformer, counters, name="train_parity",
              for v in main.global_block().vars.values()
              if v.persistable and scope.get(v.name) is not None}
 
-    def run(program, place):
+    def run(program, place, run_feed=feed):
         sc = fluid.Scope()
         for n, t in state.items():
             sc.set(n, t.clone())
         e = exe if place == "card" else fluid.Executor(fluid.CPUPlace())
-        return e.run(program, feed=feed, fetch_list=fetch, scope=sc)
+        return e.run(program, feed=run_feed, fetch_list=fetch, scope=sc)
 
     def agreement(card, cpu):
         rel = {"loss": float(abs(card[0] - cpu[0]) / abs(cpu[0]))}
         for n, c, w in zip(grads, card[1:], cpu[1:]):
             rel[n] = float(np.abs(c - w).max() / np.abs(w).max())
-        ok = rel["loss"] <= TRAIN_LOSS_REL_MAX and \
-            max(v for k, v in rel.items() if k != "loss") <= \
-            TRAIN_GRAD_REL_MAX
+        ok = rel["loss"] <= loss_max and \
+            max(v for k, v in rel.items() if k != "loss") <= grad_max
         return rel, ok
 
     cpu = run(main, "cpu")
-    faulty = main.clone()
-    changed = _make_noncausal(faulty)
+    what, faulty, faulty_feed = control
     failures = []
     for flag_name, flags in flag_runs:
         with _env(**flags):
@@ -1714,22 +1788,298 @@ def phase_train_parity(fluid, transformer, counters, name="train_parity",
             card = run(main, "card")
             launched = {k: v for k, v in _read(counters).items() if v}
             rel, ok = agreement(card, cpu)
-            wrong, control_ok = agreement(run(faulty, "card"), cpu)
-        emit({"phase": name, "flags": flag_name,
-              "ok": ok and not control_ok, "batch": 2,
-              "d_model": cfg["d_model"], "n_head": cfg["n_head"],
-              "n_layer": cfg["n_layer"],
-              "seq_len": cfg["seq_len"], "dropout_rate": 0.0,
-              "loss_card": float(card[0]), "loss_cpu": float(cpu[0]),
-              "rel_err": rel, "loss_rel_max": TRAIN_LOSS_REL_MAX,
-              "grad_rel_max": TRAIN_GRAD_REL_MAX, "card_launches": launched,
-              "control": "decoder self-attention not causal",
-              "control_ops_changed": changed, "control_rel_err": wrong,
-              "control_rejected": not control_ok})
+            wrong, control_ok = agreement(run(faulty, "card", faulty_feed),
+                                          cpu)
+        rec = dict({"phase": name, "flags": flag_name,
+                    "ok": ok and not control_ok}, **info)
+        rec.update({"loss_card": float(card[0]), "loss_cpu": float(cpu[0]),
+                    "rel_err": rel, "loss_rel_max": loss_max,
+                    "grad_rel_max": grad_max,
+                    "card_launches": launched, "control": what,
+                    "control_rel_err": wrong,
+                    "control_rejected": not control_ok})
+        emit(rec)
         if not ok or control_ok:
             failures.append((flag_name, rel, wrong))
     if failures:
         raise AssertionError("%s: card vs CPU %s" % (name, failures))
+    torch.cuda.empty_cache()
+
+
+def phase_train_parity(fluid, transformer, counters, name="train_parity",
+                       cfg=None, grads=PARITY_GRADS, flag_runs=PARITY_FLAGS):
+    """The flagship's training step (dropout 0, batch 2) on the card and on
+    the CPU; the control is the program with its decoder self-attention
+    made non-causal."""
+    cfg = dict(cfg or transformer.FLAGSHIP_CFG, dropout_rate=0.0)
+    programs = transformer.training_programs(SEED, **cfg)
+    feed = transformer.synthetic_batch(2, cfg["seq_len"], cfg["tgt_vocab"],
+                                       SEED + 300)
+    faulty = programs[0].clone()
+    changed = _make_noncausal(faulty)
+    _card_vs_cpu(name, fluid, counters, programs, feed, grads, flag_runs,
+                 ("decoder self-attention not causal (%d ops changed)"
+                  % changed, faulty, feed),
+                 {"batch": 2, "d_model": cfg["d_model"],
+                  "n_head": cfg["n_head"], "n_layer": cfg["n_layer"],
+                  "seq_len": cfg["seq_len"], "dropout_rate": 0.0})
+
+
+def bert_flops_per_step(cfg, batch, max_predictions=20):
+    """bench.py's 6N rule for BERT: the encoder's matmul params times 6 a
+    token plus the attention score and context products times 3, and the
+    MLM head (transform and vocab projection, on max_predictions tokens a
+    sequence) and the pooler and NSP head (one token) times 6."""
+    d, dff, nl, t = cfg["d_model"], cfg["d_ff"], cfg["n_layer"], \
+        cfg["seq_len"]
+    enc = 6 * nl * (4 * d * d + 2 * d * dff) + 3 * nl * 2 * (2 * t * d)
+    heads = 6 * max_predictions * (d * d + d * cfg["vocab_size"]) + \
+        6 * (d * d + 2 * d)
+    return batch * (t * enc + heads)
+
+
+def _bert_phase(name, fluid, bert, counters, cfg, batch, steps,
+                want_per_step):
+    """bench.py's BERT leg (bert.training_programs: Adam(1e-4)) through
+    _window at `batch`; each step's Adam call must cover the 74 parameters
+    the kernel takes."""
+    tokens = batch * cfg["seq_len"]
+    feed = lambda seed: bert.synthetic_batch(
+        batch, cfg["seq_len"], cfg["vocab_size"], seed=seed)
+    return _window(
+        name, fluid, counters, bert.training_programs(SEED, **cfg),
+        _stacked(feed(SEED), 1), _stacked(feed(SEED + 1), steps), steps,
+        want_per_step, sum(n for _, _, n in BERT_ADAM_CASES),
+        {"batch": batch, "seq_len": cfg["seq_len"],
+         "n_layer": cfg["n_layer"], "d_model": cfg["d_model"],
+         "vocab_size": cfg["vocab_size"], "dtype": cfg["dtype"],
+         "dropout_rate": cfg["dropout_rate"]},
+        {"tokens": tokens,
+         "model_tflops": bert_flops_per_step(cfg, batch) / 1e12})
+
+
+# bert_parity's gradients: the word embedding, the MLM transform, the
+# pooler, one attention weight and one LayerNorm scale
+BERT_PARITY_GRADS = ["word_emb", "mlm.transform.w", "pooler.w",
+                     "bert.0.attn.q.w", "bert.1.ffn_post.ln_scale"]
+# bert_parity's limits (loss, gradients) by dtype. bfloat16: train_parity's
+# gradient limit; its loss limit sits between the sound reading, 8.4e-5,
+# and the control's, 3.3e-4 (this phase on an NVIDIA H100 80GB HBM3 at
+# 700 W; PERF.md): the loss averages the bf16 noise of 40 masked tokens,
+# where the flagship's averages 512 tokens (so train_parity's 3e-5 times
+# sqrt(512 / 40) = 1.1e-4 for the same noise a token). float32: the orders
+# of f32 sums only, 1e-7 an operation through the step.
+BERT_PARITY_LIMITS = {"bfloat16": (1.5e-4, TRAIN_GRAD_REL_MAX),
+                      "float32": (1e-5, 1e-3)}
+
+
+def phase_bert_parity(fluid, bert, counters, cfg, batch=2):
+    """BERT at `cfg` (dropout 0) for one training step on the card and on
+    the CPU, in bfloat16 and in float32, at BERT_PARITY_LIMITS; the control
+    is the card's step with the masked positions moved one token on."""
+    for dtype, limits in BERT_PARITY_LIMITS.items():
+        dcfg = dict(cfg, dropout_rate=0.0, dtype=dtype)
+        programs = bert.training_programs(SEED, **dcfg)
+        feed = bert.synthetic_batch(batch, cfg["seq_len"], cfg["vocab_size"],
+                                    seed=SEED + 500)
+        shifted = dict(feed, mlm_positions=(feed["mlm_positions"] + 1) %
+                       cfg["seq_len"])
+        _card_vs_cpu("bert_parity", fluid, counters, programs, feed,
+                     BERT_PARITY_GRADS, PARITY_FLAGS[:1],
+                     ("mlm_positions moved one token on", programs[0],
+                      shifted),
+                     {"batch": batch, "d_model": cfg["d_model"],
+                      "n_head": cfg["n_head"], "n_layer": cfg["n_layer"],
+                      "seq_len": cfg["seq_len"],
+                      "vocab_size": cfg["vocab_size"], "dtype": dtype,
+                      "dropout_rate": 0.0}, limits)
+
+
+def _deepfm_phase(fluid, deepfm, counters, cfg, batch, steps):
+    """bench.py's DeepFM leg (deepfm.training_programs: Adam(1e-3), both
+    tables sparse) through _window at `batch`: each step one Adam launch,
+    for the [416, 128] first MLP weight, the one parameter the kernel
+    takes; the sparse tables' adam ops run alone, on their sparse path."""
+    main, startup, loss, _ = deepfm.training_programs(SEED, **cfg)
+    none = dict.fromkeys(counters, 0)
+    feed = lambda seed: deepfm.synthetic_batch(
+        batch, cfg["num_fields"], cfg["vocab_size"], seed=seed)
+    return _window(
+        "deepfm", fluid, counters, (main, startup, loss),
+        _stacked(feed(SEED), 1), _stacked(feed(SEED + 1), steps), steps,
+        dict(none, adam=1), 1, dict({"batch": batch}, **cfg),
+        {"examples": batch})
+
+
+# deepfm_parity: bench.py's DeepFM leg at its full size (float32, sparse
+# tables, non-lazy Adam) for 3 steps in lockstep: each step runs on the card
+# and on the CPU from the CPU's state after the step before, on a batch
+# whose ids repeat (106,496 ids over 100,000 rows), and the two steps must
+# agree:
+# - the loss to 1e-5 relative (f32 sums in other orders: about 1e-7);
+# - the AUC to 1e-5 absolute; the histograms to the same totals and
+#   sum |card - cpu| at most twice the count of the CPU's probabilities
+#   within 1e-5 (40 times the f32 noise of a probability) of a bucket edge
+#   k / 4095, the only ones that can change bucket; and the card's AUC
+#   within 1e-6 of the area recomputed on the host from its histograms;
+# - the rows no id of the step touched, in both tables' parameters and
+#   moments, elementwise to 1e-6 (about 8 f32 ulp) of |before| + |the
+#   CPU's change| (a zero must stay zero): the non-lazy update decays their
+#   moments and moves their parameters by a few elementwise f32 operations
+#   on both devices, which differ in their last bits; relative to the
+#   result alone, a parameter moved to near 0 would read large;
+# - the sparse pairs' rows equal; the gradients (the pairs' values, the MLP
+#   weights'), the moments after the step and the step's change of the
+#   parameters, of both tables and the MLP weights, by ||card - cpu|| /
+#   ||cpu|| to 0.05. The orders of f32 sums (the card's index_add_ adds an
+#   id's repeats in another order than the CPU's loop) move these by about
+#   1e-6. A ReLU preactivation within rounding of 0 can take the other side
+#   on the other device and so route one example's gradient another way:
+#   tools/torch_deepfm_lockstep.py saw one such flip in 12 steps, which
+#   moved that example's sparse values by 0.135 of their largest and these
+#   norms by at most 0.0044 (NVIDIA H100 80GB HBM3, 700 W); the limit
+#   admits about ten a step, where a dropped or misplaced duplicate moves
+#   them by far more.
+# The control, the card's steps with the tables' adam ops in lazy mode
+# (rows untouched in a step keep their moments and parameters), must fail
+# the untouched rows' check from the second step on (their moments are
+# then 1 / b1 = 1.11 times the CPU's).
+DFM_LOSS_REL_MAX = 1e-5
+DFM_UNTOUCHED_REL_MAX = 1e-6
+DFM_NORM_MAX = 0.05
+DFM_AUC_ABS_MAX = 1e-5
+DFM_EDGE = 1e-5
+DFM_PARITY_STEPS = 3
+DFM_TABLES = ["fm_first", "fm_second"]
+DFM_MLP = ["fc_0.w_0", "fc_1.w_0", "fc_2.w_0"]
+
+
+def _auc_of(pos, neg):
+    """The auc op's area from its histograms, in float64 on the host."""
+    import numpy as np
+    pos, neg = np.asarray(pos, np.float64), np.asarray(neg, np.float64)
+    above = np.cumsum(pos[::-1])[::-1]
+    return float(np.sum(neg * (above - pos / 2.0)) /
+                 max(pos.sum() * neg.sum(), 1.0))
+
+
+def _deepfm_step_agreement(card, cpu, prev, ids, vocab):
+    """One lockstep step's readings and verdict: card and cpu are (fetched
+    {name: array}, state after the step {name: array}), prev the state
+    before it, ids the step's ids."""
+    import numpy as np
+    (cf, cs), (wf, ws) = card, cpu
+    r = {"loss": abs(float(cf["loss"]) - float(wf["loss"])) /
+         abs(float(wf["loss"]))}
+
+    def norm(c, w):
+        return float(np.linalg.norm(c - w) / max(np.linalg.norm(w), 1e-30))
+    for n in DFM_TABLES + DFM_MLP:
+        r[n + "@GRAD"] = norm(cf[n + "@GRAD"], wf[n + "@GRAD"])
+        r[n + "_step"] = norm(cs[n] - prev[n], ws[n] - prev[n])
+        for m in (1, 2):
+            k = "%s_moment%d_acc_0" % (n, m)
+            r[k] = norm(cs[k], ws[k])
+    rows_equal = all(np.array_equal(cf[t + "@GRAD@ROWS"],
+                                    wf[t + "@GRAD@ROWS"]) for t in DFM_TABLES)
+    untouched = np.setdiff1d(np.arange(vocab), ids)
+
+    def untouched_rel(k):
+        c, w, p = (x[k][untouched] for x in (cs, ws, prev))
+        scale = np.abs(p) + np.abs(w - p)     # the operands' magnitudes
+        return float(np.max(np.abs(c - w) / np.maximum(scale, 1e-30)))
+    r["untouched_rows_rel"] = max(
+        untouched_rel(k) for t in DFM_TABLES
+        for k in (t, t + "_moment1_acc_0", t + "_moment2_acc_0"))
+    pos, neg = cs["auc_0_stat_pos"], cs["auc_0_stat_neg"]
+    p = np.asarray(wf["prob"], np.float64)
+    near = int(np.sum(np.abs(p * 4095 - np.round(p * 4095)) <
+                      4095 * DFM_EDGE))
+    r.update(hist_l1=int(np.abs(pos - ws["auc_0_stat_pos"]).sum() +
+                         np.abs(neg - ws["auc_0_stat_neg"]).sum()),
+             hist_l1_max=2 * near,
+             auc_abs=abs(float(cf["auc"]) - float(wf["auc"])),
+             auc_vs_histograms=abs(float(cf["auc"]) - _auc_of(pos, neg)))
+    totals = pos.sum() + neg.sum() == \
+        ws["auc_0_stat_pos"].sum() + ws["auc_0_stat_neg"].sum()
+    ok = r["loss"] <= DFM_LOSS_REL_MAX and rows_equal and totals and \
+        r["untouched_rows_rel"] <= DFM_UNTOUCHED_REL_MAX and \
+        r["hist_l1"] <= r["hist_l1_max"] and \
+        r["auc_abs"] <= DFM_AUC_ABS_MAX and \
+        r["auc_vs_histograms"] <= 1e-6 and \
+        all(v <= DFM_NORM_MAX for k, v in r.items()
+            if k.endswith(("@GRAD", "_step", "_acc_0")))
+    return r, bool(ok)
+
+
+def phase_deepfm_parity(fluid, deepfm, counters, cfg, batch):
+    import numpy as np
+    import torch
+    main, startup, loss, auc = deepfm.training_programs(SEED, **cfg)
+    block = main.global_block()
+    prob = [op.output("Out")[0] for op in block.ops
+            if op.type == "sigmoid"][0]
+    grads = [n + "@GRAD" for n in DFM_TABLES + DFM_MLP] + \
+        [t + "@GRAD@ROWS" for t in DFM_TABLES]
+    fetch = {"loss": loss.name, "auc": auc.name, "prob": prob}
+    fetch.update({g: g for g in grads})
+    cpu_exe, card_exe = fluid.Executor(fluid.CPUPlace()), fluid.Executor()
+    scope = fluid.Scope()
+    cpu_exe.run(startup, scope=scope)
+    names = [v.name for v in block.vars.values()
+             if v.persistable and scope.get(v.name) is not None]
+    start = {n: scope.get(n).clone() for n in names}
+    feeds = [deepfm.synthetic_batch(batch, cfg["num_fields"],
+                                    cfg["vocab_size"], seed=SEED + 400 + i)
+             for i in range(DFM_PARITY_STEPS)]
+
+    def step(exe, program, state, feed):
+        sc = fluid.Scope()
+        for n, t in state.items():
+            sc.set(n, t.clone())
+        got = exe.run(program, feed=feed, fetch_list=list(fetch.values()),
+                      scope=sc)
+        after = {n: sc.get(n).cpu() for n in names}
+        as64 = lambda t: np.asarray(fluid.executor.as_numpy(t))
+        return ({k: as64(v) for k, v in zip(fetch, got)},
+                {n: as64(t) for n, t in after.items()}), after
+
+    faulty = main.clone()
+    for op in faulty.global_block().ops:
+        if op.type == "adam" and op.input("GradRows"):
+            op.attrs["lazy_mode"] = True
+    state, readings, control, ok, control_ok = start, [], [], True, True
+    _zero(counters)
+    for i, feed in enumerate(feeds):
+        prev = {n: np.asarray(fluid.executor.as_numpy(t))
+                for n, t in state.items()}
+        ids = feed["feat_ids"].reshape(-1)
+        cpu, cpu_state = step(cpu_exe, main, state, feed)
+        card, _ = step(card_exe, main, state, feed)
+        r, step_ok = _deepfm_step_agreement(card, cpu, prev, ids,
+                                            cfg["vocab_size"])
+        wrong, wrong_ok = _deepfm_step_agreement(
+            step(card_exe, faulty, state, feed)[0], cpu, prev, ids,
+            cfg["vocab_size"])
+        r["repeated_ids"] = int(ids.size - np.unique(ids).size)
+        readings.append(r)
+        control.append(wrong)
+        ok, control_ok = ok and step_ok, control_ok and wrong_ok
+        state = cpu_state
+    launched = {k: v for k, v in _read(counters).items() if v}
+    emit(dict({"phase": "deepfm_parity", "ok": ok and not control_ok,
+               "batch": batch, "steps": DFM_PARITY_STEPS,
+               "lockstep": "each step from the CPU's state",
+               "rel_err": readings,
+               "limits": {"loss": DFM_LOSS_REL_MAX, "norm": DFM_NORM_MAX,
+                          "auc_abs": DFM_AUC_ABS_MAX},
+               "card_launches": launched,
+               "control": "the tables' adam ops in lazy mode",
+               "control_rel_err": control,
+               "control_rejected": not control_ok}, **cfg))
+    if not ok or control_ok:
+        raise AssertionError("deepfm_parity: card vs CPU %s, control %s"
+                             % (readings, control))
     torch.cuda.empty_cache()
 
 
@@ -1751,7 +2101,7 @@ def main():
         return 2
     try:
         import paddle_tpu_torch.fluid as fluid
-        from paddle_tpu_torch.models import transformer
+        from paddle_tpu_torch.models import bert, deepfm, transformer
         from paddle_tpu_torch.ops import attention as A
     except ImportError as e:
         print("chip_smoke: run from the root of a checkout (%s)" % e,
@@ -1808,6 +2158,34 @@ def main():
                        dict(wide, n_layer=1), WIDE_PARITY_GRADS,
                        PARITY_FLAGS[:1])
 
+    # bench.py's BERT-base leg: 12 encoder layers, each one one-pass
+    # attention forward and backward (T 128, D 64); Adam's 74 admitted
+    # parameters in 2 launches; with the flags, a LayerNorm backward for the
+    # embedding's and each layer's 2, and no CE kernel (V 30,522 and 2) or
+    # embedding-grad kernel ([30522, 768], [2, 768]): the gates refuse them
+    bcfg = bert.BERT_BASE_CFG
+    bert_train = dict(none, onepass=bcfg["n_layer"],
+                      onepass_bwd=bcfg["n_layer"], adam=2)
+    with fluid.unique_name.guard():
+        add(_bert_phase("bert_base", fluid, bert, counters, bcfg,
+                        bert.BERT_BASE_BATCH, TRAIN_STEPS, bert_train))
+    with fluid.unique_name.guard(), \
+            _env(FLAGS_emb_grad_kernel="scatter", **KERNEL_FLAGS):
+        add(_bert_phase("bert_base_kernels", fluid, bert, counters, bcfg,
+                        bert.BERT_BASE_BATCH, TRAIN_STEPS,
+                        dict(bert_train, ln_bwd=2 * bcfg["n_layer"] + 1)))
+    with fluid.unique_name.guard():
+        phase_bert_parity(fluid, bert, counters,
+                          dict(bcfg, n_layer=BERT_PARITY_LAYERS))
+    # bench.py's DeepFM leg: sparse tables, one Adam launch a step
+    with fluid.unique_name.guard():
+        add(_deepfm_phase(fluid, deepfm, counters, deepfm.DEEPFM_BENCH_CFG,
+                          deepfm.DEEPFM_BENCH_BATCH, DEEPFM_STEPS))
+    with fluid.unique_name.guard():
+        phase_deepfm_parity(fluid, deepfm, counters,
+                            deepfm.DEEPFM_BENCH_CFG,
+                            deepfm.DEEPFM_BENCH_BATCH)
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -1837,10 +2215,15 @@ def main():
             row["host_ms"] = summary[(name, path)]["host_ms"]
         kernels.append(row)
         # the attention rows also summarised over the D = 256 path's mix
-        # (train256_wide), where the kernel runs on it
-        wide = summary.get((name, "train256_wide"))
-        if wide:
-            kernels[-1]["d256"] = _path_numbers(wide, "train256_wide")
+        # (train256_wide), and rows 1, 3, 8 and 11 at BERT-base's shapes,
+        # where the kernel runs on those paths
+        for key, sub in (("d256", "train256_wide"), ("bert_base",
+                                                     "bert_base")):
+            extra = summary.get((name, sub))
+            if extra:
+                row[key] = _path_numbers(extra, sub)
+                if "host_ms" in extra:
+                    row[key]["host_ms"] = extra["host_ms"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

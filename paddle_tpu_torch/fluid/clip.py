@@ -1,11 +1,12 @@
 """Gradient clipping, rewriting grads with clip ops.
 
 The port's counterpart of ``paddle_tpu/fluid/clip.py``: the same clip
-attrs, ops and var names. Gradients are dense in the port, so there is no
-densify step.
+attrs, ops and var names. A clip needs the dense gradient, so a sparse
+(values, rows) pair is densified first.
 """
 from .framework import default_main_program
 from .core_types import OpRole
+from . import sparse_grads
 from . import unique_name
 
 __all__ = ["GradientClipByValue", "GradientClipByNorm",
@@ -111,6 +112,7 @@ def append_gradient_clip_ops(param_grads):
         if clip_attr is None:
             result.append((p, g))
             continue
+        g = sparse_grads.densify(p.block, p, g)
         clip_attr._process_context(context, p, g)
         if isinstance(clip_attr, GradientClipByGlobalNorm):
             global_norm_groups.setdefault(clip_attr.group_name, clip_attr)

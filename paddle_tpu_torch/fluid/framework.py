@@ -95,6 +95,19 @@ class Variable(object):
 
     __str__ = __repr__
 
+    # operator sugar: `a + b`, `1.0 - p` append elementwise ops
+    def _binary(self, other, op):
+        from .layers import math_op_patch
+        return math_op_patch.binary(self, other, op)
+
+    def __add__(self, o): return self._binary(o, "elementwise_add")
+    def __radd__(self, o): return self._binary(o, "elementwise_add")
+    def __sub__(self, o): return self._binary(o, "elementwise_sub")
+    def __rsub__(self, o): return self._binary(o, "elementwise_sub_r")
+    def __mul__(self, o): return self._binary(o, "elementwise_mul")
+    def __rmul__(self, o): return self._binary(o, "elementwise_mul")
+    def __truediv__(self, o): return self._binary(o, "elementwise_div")
+
 
 class Parameter(Variable):
     """A persistable, trainable Variable (reference: framework.py Parameter:3077)."""

@@ -118,6 +118,14 @@ class LayerHelper(object):
         return self.main_program.global_block().create_var(
             *args, persistable=persistable, **kwargs)
 
+    def set_variable_initializer(self, var, initializer):
+        """Mirror persistable ``var`` into the startup program with
+        ``initializer``'s op."""
+        sb = self.startup_program.global_block()
+        sb.create_var(name=var.name, shape=var.shape, dtype=var.dtype,
+                      persistable=True)
+        initializer(var, sb)
+
     # ---- op creation + shape inference ----
     def append_op(self, type, inputs=None, outputs=None, attrs=None):
         block = self.main_program.current_block()

@@ -1,6 +1,7 @@
 """Neural-network layers (the port's counterpart of
-``paddle_tpu/fluid/layers/nn.py``): the layer functions the Transformer
-calls, with the same signatures and the same ops, slots and attrs."""
+``paddle_tpu/fluid/layers/nn.py``): the layer functions the Transformer,
+BERT and DeepFM call, with the same signatures and the same ops, slots and
+attrs."""
 import numpy as np
 
 from ..layer_helper import LayerHelper
@@ -8,8 +9,10 @@ from ..initializer import Constant
 
 __all__ = [
     "fc", "embedding", "layer_norm", "dropout", "softmax",
-    "softmax_with_cross_entropy", "matmul", "transpose", "reshape", "mean",
-    "elementwise_add", "scale", "add_position_encoding",
+    "softmax_with_cross_entropy", "sigmoid_cross_entropy_with_logits",
+    "matmul", "transpose", "reshape", "flatten", "slice", "one_hot", "mean",
+    "reduce_sum", "elementwise_add", "elementwise_sub", "scale", "square",
+    "sigmoid", "add_position_encoding",
 ]
 
 
@@ -174,12 +177,79 @@ def mean(x, name=None):
     return _single_out(helper, "mean", {"X": [x]}, dtype=x.dtype)
 
 
-def elementwise_add(x, y, axis=-1, act=None, name=None):
-    helper = LayerHelper("elementwise_add", input=x, act=act, name=name)
+def _elementwise_layer(op_type):
+    def layer(x, y, axis=-1, act=None, name=None):
+        helper = LayerHelper(op_type, input=x, act=act, name=name)
+        out = helper.create_variable_for_type_inference(x.dtype)
+        helper.append_op(type=op_type, inputs={"X": [x], "Y": [y]},
+                         outputs={"Out": [out]}, attrs={"axis": axis})
+        return helper.append_activation(out)
+    layer.__name__ = op_type
+    return layer
+
+
+elementwise_add = _elementwise_layer("elementwise_add")
+elementwise_sub = _elementwise_layer("elementwise_sub")
+
+
+def _act_layer(op_type):
+    def layer(x, name=None):
+        helper = LayerHelper(op_type, input=x, name=name)
+        return _single_out(helper, op_type, {"X": [x]}, dtype=x.dtype)
+    layer.__name__ = op_type
+    return layer
+
+
+square = _act_layer("square")
+sigmoid = _act_layer("sigmoid")
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    """Sum over ``dim`` (an int or a list), or over everything when dim is
+    None."""
+    helper = LayerHelper("reduce_sum", input=input, name=name)
+    if dim is None:
+        attrs = {"reduce_all": True, "dim": [0], "keep_dim": keep_dim}
+    else:
+        dims = dim if isinstance(dim, (list, tuple)) else [dim]
+        attrs = {"reduce_all": False, "dim": list(dims),
+                 "keep_dim": keep_dim}
+    return _single_out(helper, "reduce_sum", {"X": [input]}, attrs,
+                       dtype=input.dtype)
+
+
+def flatten(x, axis=1, name=None):
+    helper = LayerHelper("flatten", input=x, name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
-    helper.append_op(type="elementwise_add", inputs={"X": [x], "Y": [y]},
-                     outputs={"Out": [out]}, attrs={"axis": axis})
-    return helper.append_activation(out)
+    xshape = helper.create_variable_for_type_inference(x.dtype,
+                                                       stop_gradient=True)
+    helper.append_op(type="flatten2", inputs={"X": [x]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"axis": axis})
+    return out
+
+
+def slice(input, axes, starts, ends):
+    helper = LayerHelper("slice", input=input)
+    return _single_out(helper, "slice", {"Input": [input]},
+                       {"axes": list(axes), "starts": list(starts),
+                        "ends": list(ends)}, dtype=input.dtype)
+
+
+def one_hot(input, depth):
+    helper = LayerHelper("one_hot", input=input)
+    return _single_out(helper, "one_hot", {"X": [input]}, {"depth": depth},
+                       dtype="float32")
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None,
+                                      normalize=False):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", input=x,
+                         name=name)
+    return _single_out(helper, "sigmoid_cross_entropy_with_logits",
+                       {"X": [x], "Label": [label]},
+                       {"ignore_index": ignore_index, "normalize": normalize},
+                       dtype=x.dtype)
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):

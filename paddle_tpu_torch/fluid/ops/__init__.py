@@ -10,6 +10,7 @@ from . import activation_ops  # noqa: F401
 from . import tensor_ops      # noqa: F401
 from . import reduce_ops      # noqa: F401
 from . import loss_ops        # noqa: F401
+from . import metric_ops      # noqa: F401
 from . import nn_ops          # noqa: F401
 from . import optimizer_ops   # noqa: F401
 from . import grad_ops        # noqa: F401

@@ -1,5 +1,6 @@
-"""Loss lowerings: softmax_with_cross_entropy and its grad (the port's
-counterpart of ``paddle_tpu/fluid/ops/loss_ops.py``). With FLAGS_ce_kernel
+"""Loss lowerings: softmax_with_cross_entropy and its grad, and
+sigmoid_cross_entropy_with_logits (the port's counterpart of
+``paddle_tpu/fluid/ops/loss_ops.py``). With FLAGS_ce_kernel
 (off by default, as in the JAX package) both directions take the CUDA
 cross-entropy kernels (ops/ce_kernel.py) on the card where the JAX gate
 admits the shape; otherwise they are plain PyTorch.
@@ -131,3 +132,20 @@ def _softmax_ce_grad(ctx, inputs, attrs):
     onehot = torch.arange(v, device=logits.device) == flat[..., None]
     dlogits = (torch.exp(lf - lse) - onehot.float()) * g
     return {"Logits@GRAD": [dlogits.to(logits.dtype)]}
+
+
+@register_lowering("sigmoid_cross_entropy_with_logits")
+def _sigmoid_ce(ctx, inputs, attrs):
+    """max(x, 0) - x*label + log1p(exp(-|x|)) elementwise in x's dtype;
+    an element whose label equals ignore_index gives 0, and ``normalize``
+    divides by the count of the others (at least 1). The gradient is
+    grad_of's."""
+    x, label = one(inputs, "X"), one(inputs, "Label")
+    ignore = attrs.get("ignore_index", -100)
+    loss = torch.clamp(x, min=0) - x * label + \
+        torch.log1p(torch.exp(-torch.abs(x)))
+    keep = label != ignore
+    loss = torch.where(keep, loss, torch.zeros_like(loss))
+    if attrs.get("normalize", False):
+        loss = loss / torch.clamp(torch.sum(keep.to(x.dtype)), min=1.0)
+    return {"Out": [loss]}

@@ -1,4 +1,4 @@
-"""Math op lowerings: mul/matmul, elementwise add/mul/div, scale, sum and
+"""Math op lowerings: mul/matmul, elementwise add/sub/mul/div, scale, sum and
 the gradient-clip helpers (the port's counterpart of
 ``paddle_tpu/fluid/ops/math_ops.py``). Large products stay
 ``torch.matmul``, as the JAX package leaves them to XLA."""
@@ -44,6 +44,7 @@ def _elementwise(fn):
 
 
 for _name, _fn in [("elementwise_add", torch.add),
+                   ("elementwise_sub", torch.sub),
                    ("elementwise_mul", torch.mul),
                    ("elementwise_div", torch.div)]:
     register_lowering(_name)(_elementwise(_fn))

@@ -1,5 +1,6 @@
-"""Optimizer-update lowerings: sgd and dense adam (the port's counterpart of
-``paddle_tpu/fluid/ops/optimizer_ops.py``). Both are no-grad.
+"""Optimizer-update lowerings: sgd and adam, dense and sparse (the port's
+counterpart of ``paddle_tpu/fluid/ops/optimizer_ops.py``). Both are
+no-grad.
 
 adam keeps the JAX package's dispatch: the fused CUDA kernel
 (ops/adam_kernel.py) when FLAGS_adam_kernel is on, the tensors are on the
@@ -15,13 +16,22 @@ The executor hands such a run to ``_adam_group`` at once (registry
 one multi-tensor kernel launch, and lr_t and the beta powers of the whole
 run come from ``torch._foreach_*`` ops over its lists, with the rounding of
 the per-op formula. The program stays op for op the JAX package's; only the
-launches change. A lone adam op is a run of one. The sparse (GradRows) and
-lazy paths come with the DeepFM slice.
+launches change. A lone adam op is a run of one.
+
+Sparse path (the JAX package's SelectedRows kernels): an op with a
+"GradRows" input takes Grad as [n, dim] row values and GradRows as their
+ids (the ``@ROWS`` pair of a sparse ``lookup_table_grad``). sgd scatters
+-lr * values into the touched rows; adam with ``lazy_mode`` merges
+duplicate ids and updates only the touched rows' moments and parameters,
+and without it (the default) scatters the pair into a dense f32 gradient
+and runs the dense update, since every row's moments decay each step. Such
+an op runs alone, never through the kernel, as in the JAX package.
 """
 import torch
 
 from .registry import register_group_lowering, register_lowering
 from .common import one
+from .tensor_ops import scatter_rows_, wrap_ids
 
 
 def _adam_kernel_ok(p):
@@ -32,23 +42,35 @@ def _adam_kernel_ok(p):
     return p.is_cuda and adam_ok(p.shape)
 
 
-def _no_rows(inputs, op_type):
-    if inputs.get("GradRows"):
-        raise NotImplementedError(
-            "%s with sparse GradRows is not ported yet" % op_type)
+def _merge_rows(rows, vals, height):
+    """Duplicate ids merged: (the distinct ids in [0, height), ascending,
+    and for each the f32 sum of its values, added in their order in the
+    batch), as the JAX package's ``_merge_rows`` sorts and segment-sums
+    them. A negative id wraps once by +height; one still out of range is
+    dropped, as the JAX scatters drop it."""
+    rows = wrap_ids(rows.reshape(-1).long(), height)
+    valid = (rows >= 0) & (rows < height)
+    uniq, inv = torch.unique(rows[valid], return_inverse=True)
+    merged = torch.zeros((uniq.shape[0],) + tuple(vals.shape[1:]),
+                         dtype=torch.float32, device=vals.device)
+    return uniq, merged.index_add_(0, inv, vals[valid].float())
 
 
 @register_lowering("sgd", no_grad=True)
 def _sgd(ctx, inputs, attrs):
-    _no_rows(inputs, "sgd")
     p, g = one(inputs, "Param"), one(inputs, "Grad")
     lr = one(inputs, "LearningRate").reshape(()).to(p.dtype)
+    rows = one(inputs, "GradRows")
+    if rows is not None:
+        # duplicate ids fold into the scatter-add itself
+        return {"ParamOut": [scatter_rows_(p.clone(), rows,
+                                           -lr * g.to(p.dtype))]}
     return {"ParamOut": [p - lr * g.to(p.dtype)]}
 
 
 def _adam_run_key(op):
     """Adam ops of one run share beta1, beta2 and epsilon and have no
-    GradRows; an op with GradRows runs alone (and raises)."""
+    GradRows; an op with GradRows runs alone (``_adam``)."""
     if op.inputs.get("GradRows"):
         return None
     return (op.attrs.get("beta1", 0.9), op.attrs.get("beta2", 0.999),
@@ -59,8 +81,6 @@ def _adam_run_key(op):
 def _adam_group(ctx, inputs, attrs):
     """A run of adam ops (lists of their inputs and attrs; the key above
     equal for all) at once. Returns each op's outputs."""
-    for ins in inputs:
-        _no_rows(ins, "adam")
     b1 = attrs[0].get("beta1", 0.9)
     b2 = attrs[0].get("beta2", 0.999)
     eps = attrs[0].get("epsilon", 1e-8)
@@ -112,4 +132,32 @@ def _adam_group(ctx, inputs, attrs):
 
 @register_lowering("adam", no_grad=True)
 def _adam(ctx, inputs, attrs):
-    return _adam_group(ctx, [inputs], [attrs])[0]
+    rows = one(inputs, "GradRows")
+    if rows is None:
+        return _adam_group(ctx, [inputs], [attrs])[0]
+    p, g = one(inputs, "Param"), one(inputs, "Grad")
+    m1, m2 = one(inputs, "Moment1"), one(inputs, "Moment2")
+    b1p, b2p = one(inputs, "Beta1Pow"), one(inputs, "Beta2Pow")
+    lr = one(inputs, "LearningRate").reshape(()).float()
+    b1 = attrs.get("beta1", 0.9)
+    b2 = attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-8)
+    lr_t = lr * torch.sqrt(1.0 - b2p.reshape(())) / (1.0 - b1p.reshape(()))
+    out = {"Beta1PowOut": [b1p * b1], "Beta2PowOut": [b2p * b2]}
+    if attrs.get("lazy_mode"):
+        # only the touched rows' moments decay and update
+        r, gv = _merge_rows(rows, g, p.shape[0])
+        m1_r = b1 * m1[r] + (1.0 - b1) * gv
+        m2_r = b2 * m2[r] + (1.0 - b2) * torch.square(gv)
+        step = (lr_t * m1_r / (torch.sqrt(m2_r) + eps)).to(p.dtype)
+        m1_out, m2_out = m1.clone(), m2.clone()
+        m1_out[r], m2_out[r] = m1_r, m2_r
+        return dict(out, ParamOut=[p.index_add(0, r, -step)],
+                    Moment1Out=[m1_out], Moment2Out=[m2_out])
+    gf = scatter_rows_(torch.zeros(p.shape, dtype=torch.float32,
+                                   device=p.device), rows, g)
+    m1_out = b1 * m1 + (1.0 - b1) * gf
+    m2_out = b2 * m2 + (1.0 - b2) * torch.square(gf)
+    p_out = p - (lr_t * m1_out / (torch.sqrt(m2_out) + eps)).to(p.dtype)
+    return dict(out, ParamOut=[p_out], Moment1Out=[m1_out],
+                Moment2Out=[m2_out])

@@ -1,8 +1,11 @@
 """Tensor creation / shape / indexing lowerings (the port's counterpart of
 ``paddle_tpu/fluid/ops/tensor_ops.py``). Random ops draw from the run's
 ``torch.Generator`` (ctx.next_rng) instead of stateless JAX keys."""
+import math
+
 import torch
 
+from .. import sparse_grads
 from ..core_types import to_torch_dtype
 from . import common
 from .registry import register_lowering, register_grad_maker
@@ -81,7 +84,36 @@ def _transpose2(ctx, inputs, attrs):
     return {"Out": [x.permute(*attrs["axis"])], "XShape": [_xshape(x)]}
 
 
-def _wrap_ids(flat, vocab):
+@register_lowering("flatten2")
+def _flatten2(ctx, inputs, attrs):
+    x = one(inputs, "X")
+    ax = attrs.get("axis", 1)
+    lead = math.prod(x.shape[:ax])
+    return {"Out": [x.reshape(lead, -1)], "XShape": [_xshape(x)]}
+
+
+@register_lowering("concat")
+def _concat(ctx, inputs, attrs):
+    return {"Out": [torch.cat(list(inputs.get("X") or []),
+                              dim=attrs.get("axis", 0))]}
+
+
+@register_lowering("slice")
+def _slice(ctx, inputs, attrs):
+    """Python slicing per axis; a negative start or end counts from the end
+    of the axis and both clamp to [0, dim], as the JAX lowering clamps
+    them. The gradient (grad_of) is zero outside the slice."""
+    x = one(inputs, "Input")
+    idx = [slice(None)] * x.ndim
+    for a, s, e in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
+        dim = x.shape[a]
+        s = max(s + dim, 0) if s < 0 else min(s, dim)
+        e = max(e + dim, 0) if e < 0 else min(e, dim)
+        idx[a] = slice(s, e)
+    return {"Out": [x[tuple(idx)]]}
+
+
+def wrap_ids(flat, vocab):
     """Ids as ``jnp.take`` and ``.at[].add`` index: a negative id wraps once
     by +vocab. An id still outside [0, vocab) stays out of range."""
     return torch.where(flat < 0, flat + vocab, flat)
@@ -96,7 +128,7 @@ def _lookup_table(ctx, inputs, attrs):
     # jnp.take's default fill mode: a negative id wraps once by +vocab, and
     # an id still outside [0, vocab) reads NaN. The clamp also keeps a bad
     # feed from tripping a device-side assert.
-    wrapped = _wrap_ids(flat, vocab)
+    wrapped = wrap_ids(flat, vocab)
     valid = (wrapped >= 0) & (wrapped < vocab)
     out = torch.index_select(w, 0, wrapped.clamp(0, vocab - 1))
     out = out.masked_fill(~valid[:, None], float("nan"))
@@ -110,22 +142,28 @@ def _lookup_table(ctx, inputs, attrs):
 
 @register_grad_maker("lookup_table")
 def _lookup_table_grad_maker(op, block, no_grad_set):
-    """Dense embedding grad: a scatter-add of the output grads into a
-    [vocab, dim] table. The sparse (rows, values) grad of the JAX package
-    comes with the DeepFM slice."""
+    """The embedding grad. Dense: a scatter-add of the output grads into a
+    [vocab, dim] table. Sparse (is_sparse=True, and this lookup the table's
+    only reader): the JAX package's SelectedRows analog, a pair of
+    ``W@GRAD`` (the [n, dim] values) and ``W@GRAD@ROWS`` (the [n] ids), never
+    a [vocab, dim] tensor. A table with another reader takes the dense grad:
+    backward's sum op needs every contribution dense."""
     w_name = op.input("W")[0]
     uses = sum(1 for o in block.ops if w_name in o.input_arg_names)
-    if op.attrs.get("is_sparse") and uses == 1:
-        raise NotImplementedError(
-            "lookup_table(is_sparse=True): sparse row gradients are not "
-            "ported yet; build the embedding with is_sparse=False")
+    sparse = bool(op.attrs.get("is_sparse")) and uses == 1
+    outputs = {"W@GRAD": [w_name + "@GRAD"]}
     attrs = dict(op.attrs)
-    attrs["is_sparse"] = False
+    attrs["is_sparse"] = sparse
+    if sparse:
+        rows_name = w_name + "@GRAD" + sparse_grads.ROWS_SUFFIX
+        outputs["W@GRAD@ROWS"] = [rows_name]
+        if not block._has_var_recursive(rows_name):
+            block.create_var(name=rows_name, shape=[-1], dtype="int64")
     grad_op = {
         "type": "lookup_table_grad",
         "inputs": {"W": op.input("W"), "Ids": op.input("Ids"),
                    "Out@GRAD": [op.output("Out")[0] + "@GRAD"]},
-        "outputs": {"W@GRAD": [w_name + "@GRAD"]},
+        "outputs": outputs,
         "attrs": attrs,
     }
     return [grad_op], {w_name + "@GRAD": w_name}
@@ -133,36 +171,68 @@ def _lookup_table_grad_maker(op, block, no_grad_set):
 
 @register_lowering("lookup_table_grad")
 def _lookup_table_grad(ctx, inputs, attrs):
-    """dW = zeros.index_add_(ids, dout) in the table dtype, as
-    ``zeros.at[ids].add`` in the JAX lowering: a negative id wraps once by
-    +vocab, and an id still outside [0, vocab) contributes nothing (its
-    forward row read NaN). FLAGS_emb_grad_kernel routes the sum to a CUDA
-    kernel (ops/emb_grad_kernel.py) where the gate admits the table; the
-    kernels skip out-of-range ids, so both routes give the same dW."""
+    """Sparse: the (values, ids) pair, the values in the table dtype, the
+    ids as looked up. Dense: dW = zeros.index_add_(ids, dout) in the table
+    dtype, as ``zeros.at[ids].add`` in the JAX lowering: a negative id wraps
+    once by +vocab, and an id still outside [0, vocab) contributes nothing
+    (its forward row read NaN). FLAGS_emb_grad_kernel routes the sum to a
+    CUDA kernel (ops/emb_grad_kernel.py) where the gate admits the table;
+    the kernels skip out-of-range ids, so both routes give the same dW."""
     from ...ops import emb_grad_kernel as eg
     from .. import flags
     w, ids = one(inputs, "W"), one(inputs, "Ids")
     dout = one(inputs, "Out@GRAD")
     vocab = w.shape[0]
-    flat = _wrap_ids(ids.reshape(-1).long(), vocab)
+    ids = ids.reshape(-1).long()
     if dout.ndim < 2:
-        lead = tuple(ids.shape[:-1] if ids.shape and ids.shape[-1] == 1
-                     else ids.shape)
+        lead = tuple(one(inputs, "Ids").shape)
+        lead = lead[:-1] if lead and lead[-1] == 1 else lead
         dout = torch.broadcast_to(dout, lead + (w.shape[1],))
-    dflat = dout.reshape(flat.shape[0], w.shape[1]).to(w.dtype)
+    dflat = dout.reshape(ids.shape[0], w.shape[1]).to(w.dtype)
+    if attrs.get("is_sparse"):
+        return {"W@GRAD": [dflat], "W@GRAD@ROWS": [ids]}
+    flat = wrap_ids(ids, vocab)
     impl = flags.get("emb_grad_kernel")
     if impl and common.on_card(w) and \
             eg.emb_grad_ok(w.shape, flat.shape[0], impl, dtype=w.dtype):
         return {"W@GRAD": [eg.emb_grad(w, flat, dflat, impl)]}
-    valid = (flat >= 0) & (flat < vocab)
-    dflat = torch.where(valid[:, None], dflat, torch.zeros_like(dflat))
-    flat = flat.clamp(0, vocab - 1)
     if flags.get("emb_grad_sorted"):
         # the JAX lowering's presorted scatter (indices_are_sorted=True)
         order = torch.argsort(flat, stable=True)
-        flat, dflat = flat[order], dflat[order]
-    dw = torch.zeros_like(w).index_add_(0, flat, dflat)
-    return {"W@GRAD": [dw]}
+        ids, dflat = ids[order], dflat[order]
+    return {"W@GRAD": [scatter_rows_(torch.zeros_like(w), ids, dflat)]}
+
+
+def scatter_rows_(dst, rows, vals):
+    """``dst.at[rows].add(vals)`` as the JAX package scatters a row
+    gradient, in place on dst, which it returns: a negative row wraps once
+    by +len(dst), a row still outside [0, len(dst)) is dropped, and vals
+    are cast to dst's dtype. Rows add in their order."""
+    n = dst.shape[0]
+    rows = wrap_ids(rows.reshape(-1).long(), n)
+    valid = (rows >= 0) & (rows < n)
+    vals = torch.where(valid[:, None], vals.to(dst.dtype),
+                       torch.zeros((), dtype=dst.dtype, device=dst.device))
+    return dst.index_add_(0, rows.clamp(0, n - 1), vals)
+
+
+@register_lowering("selected_rows_densify", no_grad=True)
+def _selected_rows_densify(ctx, inputs, attrs):
+    """(values, rows) sparse-grad pair -> the dense gradient of the table
+    ``Ref``: the values summed into zeros of its shape and dtype."""
+    ref = one(inputs, "Ref")
+    return {"Out": [scatter_rows_(torch.zeros_like(ref),
+                                  one(inputs, "Rows"), one(inputs, "X"))]}
+
+
+@register_lowering("one_hot", no_grad=True)
+def _one_hot(ctx, inputs, attrs):
+    """float32 [..., depth]; a trailing size-1 axis of the ids is squeezed,
+    and an id outside [0, depth) gives a row of zeros (``jax.nn.one_hot``)."""
+    x = one(inputs, "X")
+    flat = x.reshape(x.shape[:-1]) if x.ndim and x.shape[-1] == 1 else x
+    depth = torch.arange(attrs["depth"], device=x.device)
+    return {"Out": [(flat.long()[..., None] == depth).float()]}
 
 
 @register_lowering("causal_mask", no_grad=True)

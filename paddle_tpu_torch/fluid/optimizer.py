@@ -17,6 +17,7 @@ from .backward import append_backward
 from . import unique_name
 from .clip import append_gradient_clip_ops, error_clip_callback
 from .regularizer import append_regularization_ops
+from . import sparse_grads
 
 __all__ = ["SGD", "Adam", "SGDOptimizer", "AdamOptimizer"]
 
@@ -127,6 +128,12 @@ class Optimizer(object):
         for param_and_grad in parameters_and_grads:
             if param_and_grad[1] is None:
                 continue
+            if sparse_grads.sparse_rows_var(
+                    block, param_and_grad[1].name) is not None and \
+                    self.type not in sparse_grads.SPARSE_CAPABLE_OPTIMIZERS:
+                # no sparse update for this optimizer: densify the pair
+                param_and_grad = (param_and_grad[0], sparse_grads.densify(
+                    block, param_and_grad[0], param_and_grad[1]))
             op = self._append_optimize_op(block, param_and_grad)
             op.attrs[OpRole.KEY] = OpRole.Optimize
             op.attrs[OpRole.VAR_KEY] = [param_and_grad[0].name,
@@ -147,6 +154,16 @@ class Optimizer(object):
     def _append_optimize_op(self, block, param_and_grad):
         raise NotImplementedError()
 
+    @staticmethod
+    def _grad_inputs(block, grad):
+        """The update op's grad slots: Grad, and GradRows when the grad is
+        a sparse (values, rows) pair."""
+        inputs = {"Grad": [grad.name]}
+        rows = sparse_grads.sparse_rows_var(block, grad.name)
+        if rows is not None:
+            inputs["GradRows"] = [rows]
+        return inputs
+
 
 class SGDOptimizer(Optimizer):
     def __init__(self, learning_rate, regularization=None, name=None):
@@ -155,12 +172,11 @@ class SGDOptimizer(Optimizer):
 
     def _append_optimize_op(self, block, param_and_grad):
         p, g = param_and_grad
-        lr = self._create_param_lr(param_and_grad)
-        return block.append_op(
-            type="sgd",
-            inputs={"Param": [p.name], "LearningRate": [lr.name],
-                    "Grad": [g.name]},
-            outputs={"ParamOut": [p.name]})
+        inputs = {"Param": [p.name],
+                  "LearningRate": [self._create_param_lr(param_and_grad).name]}
+        inputs.update(self._grad_inputs(block, g))
+        return block.append_op(type="sgd", inputs=inputs,
+                               outputs={"ParamOut": [p.name]})
 
 
 class AdamOptimizer(Optimizer):
@@ -194,13 +210,13 @@ class AdamOptimizer(Optimizer):
         m2 = self._get_accumulator(self._moment2_acc_str, p)
         b1p = self._get_accumulator(self._beta1_pow_acc_str, p)
         b2p = self._get_accumulator(self._beta2_pow_acc_str, p)
-        lr = self._create_param_lr(param_and_grad)
+        inputs = {"Param": [p.name],
+                  "Moment1": [m1.name], "Moment2": [m2.name],
+                  "Beta1Pow": [b1p.name], "Beta2Pow": [b2p.name],
+                  "LearningRate": [self._create_param_lr(param_and_grad).name]}
+        inputs.update(self._grad_inputs(block, g))
         return block.append_op(
-            type="adam",
-            inputs={"Param": [p.name],
-                    "Moment1": [m1.name], "Moment2": [m2.name],
-                    "Beta1Pow": [b1p.name], "Beta2Pow": [b2p.name],
-                    "LearningRate": [lr.name], "Grad": [g.name]},
+            type="adam", inputs=inputs,
             outputs={"ParamOut": [p.name], "Moment1Out": [m1.name],
                      "Moment2Out": [m2.name], "Beta1PowOut": [b1p.name],
                      "Beta2PowOut": [b2p.name]},

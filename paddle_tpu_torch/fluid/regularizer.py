@@ -1,9 +1,10 @@
 """Weight-decay regularizers appended as ops on gradients.
 
 The port's counterpart of ``paddle_tpu/fluid/regularizer.py``: the same ops
-and var names. Gradients are dense in the port (sparse row grads come with
-the DeepFM slice), so there is no densify step.
+and var names. Decay applies to the whole table, so a sparse (values, rows)
+gradient pair is densified before the sum.
 """
+from . import sparse_grads
 from .core_types import OpRole
 
 __all__ = ["L1Decay", "L2Decay", "L1DecayRegularizer", "L2DecayRegularizer",
@@ -63,6 +64,7 @@ def append_regularization_ops(parameters_and_grads, regularization=None):
         if regularization_term is None:
             params_and_grads.append((param, grad))
             continue
+        grad = sparse_grads.densify(block, param, grad)
         new_grad = block.create_var(name=grad.name + "@REGULARIZED",
                                     shape=param.shape, dtype=param.dtype)
         block.append_op(type="sum",

@@ -1,4 +1,6 @@
 """Models ported from ``paddle_tpu/models``."""
+from . import bert
+from . import deepfm
 from . import transformer
 
-__all__ = ["transformer"]
+__all__ = ["bert", "deepfm", "transformer"]

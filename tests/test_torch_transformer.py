@@ -151,11 +151,14 @@ def test_build_rejects_sharding_strategy():
 
 
 def test_port_imports_no_jax():
-    """The port, its Transformer and its training modules load without JAX
-    or the JAX package (a subprocess: this test process has both
-    loaded)."""
+    """The port, its models and its training modules load without JAX or
+    the JAX package (a subprocess: this test process has both loaded)."""
     code = ("import sys, paddle_tpu_torch.fluid, "
             "paddle_tpu_torch.models.transformer, "
+            "paddle_tpu_torch.models.bert, "
+            "paddle_tpu_torch.models.deepfm, "
+            "paddle_tpu_torch.fluid.sparse_grads, "
+            "paddle_tpu_torch.fluid.ops.metric_ops, "
             "paddle_tpu_torch.fluid.backward, "
             "paddle_tpu_torch.fluid.optimizer, "
             "paddle_tpu_torch.fluid.regularizer, "
@@ -176,7 +179,8 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("script", ["chip_smoke.py",
                                     "tools/torch_profile_serve.py",
-                                    "tools/torch_train_steps.py"])
+                                    "tools/torch_train_steps.py",
+                                    "tools/torch_deepfm_lockstep.py"])
 def test_card_scripts_import_no_jax(script):
     """The scripts that run on the card (which has no JAX) import neither
     JAX nor the JAX package, at top level or inside a function."""

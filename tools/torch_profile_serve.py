@@ -9,9 +9,12 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 tools/torch_profile_serve.py --train --seq 256    # batch 256
     python3 tools/torch_profile_serve.py --train --seq 4096   # batch 8
     python3 tools/torch_profile_serve.py --train --wide       # batch 64
+    python3 tools/torch_profile_serve.py --train --model bert    # batch 256
+    python3 tools/torch_profile_serve.py --train --model deepfm  # batch 4096
 
 It builds the flagship model (bench.py's config; with --wide bench.py's wide
-Transformer, d_model 2048 and d_ff 8192, so D = 256) with random weights
+Transformer, d_model 2048 and d_ff 8192, so D = 256; with --model
+bench.py's BERT-base or DeepFM leg, training only) with random weights
 from the seed chip_smoke.py uses. Serving: two warm-up requests, then three
 traced with torch.profiler. Training (bench.py's training leg, as
 chip_smoke.py's train phases run it): one warm step, then two steps traced
@@ -40,7 +43,13 @@ def main():
     ap.add_argument("--wide", action="store_true",
                     help="bench.py's wide Transformer (d_model 2048, d_ff "
                     "8192; training batch 64)")
+    ap.add_argument("--model", choices=("transformer", "bert", "deepfm"),
+                    default="transformer",
+                    help="with --train: bench.py's BERT-base (batch 256, "
+                    "seq 128) or DeepFM (batch 4096) leg")
     args = ap.parse_args()
+    if args.model != "transformer" and not args.train:
+        ap.error("--model %s trains only: add --train" % args.model)
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -48,19 +57,34 @@ def main():
         print("no CUDA card", file=sys.stderr)
         return 2
     import paddle_tpu_torch.fluid as fluid
-    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.models import bert, deepfm, transformer
 
     cfg = dict(transformer.FLAGSHIP_CFG, seq_len=args.seq)
     if args.wide:       # bench.py's WIDE_CFG_OVERRIDES
         cfg.update(d_model=2048, d_ff=8192)
     exe, scope = fluid.Executor(), fluid.Scope()
     if args.train:
-        # bench.py's BATCH, LONGSEQ_BATCH and WIDE_BATCH
-        batch = 64 if args.wide else (256 if args.seq <= 512 else 8)
         n, warm, unit = 2, 1, "step"
-        main_prog, startup, loss = transformer.training_programs(SEED, **cfg)
-        one = transformer.synthetic_batch(batch, args.seq, cfg["tgt_vocab"],
-                                          SEED)
+        if args.model == "bert":
+            cfg, batch = dict(bert.BERT_BASE_CFG), bert.BERT_BASE_BATCH
+            args.seq = cfg["seq_len"]
+            main_prog, startup, loss = bert.training_programs(SEED, **cfg)
+            one = bert.synthetic_batch(batch, args.seq, cfg["vocab_size"],
+                                       seed=SEED)
+        elif args.model == "deepfm":
+            cfg = dict(deepfm.DEEPFM_BENCH_CFG, d_model=None)
+            batch, args.seq = deepfm.DEEPFM_BENCH_BATCH, None
+            main_prog, startup, loss, _ = deepfm.training_programs(
+                SEED, **deepfm.DEEPFM_BENCH_CFG)
+            one = deepfm.synthetic_batch(batch, cfg["num_fields"],
+                                         cfg["vocab_size"], seed=SEED)
+        else:
+            # bench.py's BATCH, LONGSEQ_BATCH and WIDE_BATCH
+            batch = 64 if args.wide else (256 if args.seq <= 512 else 8)
+            main_prog, startup, loss = transformer.training_programs(
+                SEED, **cfg)
+            one = transformer.synthetic_batch(batch, args.seq,
+                                              cfg["tgt_vocab"], SEED)
 
         def run(steps):
             exe.run_steps(main_prog, feed={k: v[None].repeat(steps, 0)
@@ -101,8 +125,8 @@ def main():
         kms, kcalls = by_kind.get(kind, (0.0, 0))
         by_kind[kind] = (kms + ms / n, kcalls + calls / n)
     print(json.dumps({
-        "mode": "train" if args.train else "serve", "seq_len": args.seq,
-        "d_model": cfg["d_model"],
+        "mode": "train" if args.train else "serve", "model": args.model,
+        "seq_len": args.seq, "d_model": cfg["d_model"],
         "batch": batch, unit + "s": n,
         "wall_ms_per_" + unit: wall_ms,
         "device_busy_ms_per_" + unit: busy_ms if kernels else None,
