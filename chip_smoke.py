@@ -109,6 +109,25 @@ non-zero exit):
               within the limits set out above DFM_LOSS_REL_MAX, and the
               rows no id touched to a few ulp, which the card's steps with
               the tables' adam ops in lazy mode must break.
+17. momentum_group - the 161 momentum ops of bench.py's ResNet-50 leg
+              through the executor's group lowering and op by op on the
+              same card tensors: every ParamOut and VelocityOut bit for
+              bit; the host time of each route.
+18. resnet50 - bench.py's ResNet-50 leg (3x224x224, 1000 classes, bf16,
+              Momentum(0.01, 0.9)) at batch 64: one warm step, then 8
+              steps through run_steps; images/s, step ms, peak memory,
+              model TFLOP/s from the conv and fc shapes (forward times 3),
+              and no launch of any of the port's kernels.
+19. resnet50_kernels - resnet50 with the three kernel flags, 2 steps: still
+              no launch (the CE gate refuses V = 1000).
+20. resnet_parity - bench.py's ResNet-50 program at batch 4 on 3x128x128
+              images, float32 and bfloat16 from the same weights, 3 steps
+              in lockstep from the CPU's state: every op of each step on
+              the card from the CPU's values of its inputs within
+              RESNET_OP_TOL of the CPU's outputs, and, in float32, the
+              whole step's loss and named gradients and states within
+              RESNET_STEP_LIMITS; controls (the unbiased running variance;
+              TF32 convolutions; the is_test program) must fail.
 
 The kernel cases also time rows 1, 3, 8 and 11 at BERT-base's shapes
 (attention at batch 256, 12 heads, seq 128, D 64; LayerNorm on [32768,
@@ -1629,7 +1648,7 @@ def _window(name, fluid, counters, programs, warm_feed, feed, steps,
     ...]) with every launch count zeroed just before and read just after.
     Every loss must be finite, the launches must be `want_per_step` times
     the steps, and the step's Adam call must have covered `adam_tensors`
-    parameters. Emits the phase's line (`info`, the window's times and
+    parameters (None: a path with no Adam launch). Emits the phase's line (`info`, the window's times and
     rates per unit of `work` = {unit: count a step}, peak memory) and
     returns the launches."""
     import numpy as np
@@ -1657,7 +1676,7 @@ def _window(name, fluid, counters, programs, warm_feed, feed, steps,
     tensors = counters["adam"].last_tensors
     ok = losses.shape == (steps,) and bool(np.isfinite(losses).all()) and \
         bool(np.isfinite(np.asarray(warm[0])).all()) and launched == want \
-        and tensors == adam_tensors
+        and (adam_tensors is None or tensors == adam_tensors)
     rec = dict({"phase": name, "ok": ok}, **info)
     rec.update({"flags": {k: v for k, v in os.environ.items()
                           if k.startswith("FLAGS_")},
@@ -1672,7 +1691,7 @@ def _window(name, fluid, counters, programs, warm_feed, feed, steps,
     emit(rec)
     if not ok:
         raise AssertionError("%s failed: launches %s, want %s, Adam "
-                             "tensors a step %d (want %d), losses %s"
+                             "tensors a step %s (want %s), losses %s"
                              % (name, launched, want, tensors, adam_tensors,
                                 losses))
     del exe, scope
@@ -2083,6 +2102,388 @@ def phase_deepfm_parity(fluid, deepfm, counters, cfg, batch):
     torch.cuda.empty_cache()
 
 
+# ResNet-50: bench.py's leg (resnet.training_programs: dataset "flowers",
+# 3x224x224, 1000 classes, bf16, Momentum(0.01, 0.9)) at batch 64, one warm
+# step then RESNET_STEPS through run_steps
+RESNET_STEPS = 8
+RESNET_IMAGE = [3, 224, 224]
+RESNET_CLASSES = 1000
+MOMENTUM_TIMING_ROUNDS = 9
+
+
+def resnet_flops_per_image(program):
+    """Forward multiply-adds, times 2, of the program's conv2d and mul ops
+    from their shapes (the bench leg's 3x224x224 input); a training step
+    does 3 times this (forward, grad of the input, grad of the weight)."""
+    block = program.global_block()
+    total = 0
+    for op in block.ops:
+        if op.type == "conv2d":
+            out = block.var(op.output("Output")[0]).shape
+            w = block.var(op.input("Filter")[0]).shape
+            total += 2 * out[1] * out[2] * out[3] * w[1] * w[2] * w[3]
+        elif op.type == "mul":
+            w = block.var(op.input("Y")[0]).shape
+            total += 2 * w[0] * w[1]
+    return total
+
+
+def _momentum_group_check(fluid, main):
+    """The executor's group lowering of the step's 161 momentum ops on the
+    card, against each op's own lowering on the same card tensors: every
+    ParamOut and VelocityOut bit for bit. Also the host time of each route:
+    the median of MOMENTUM_TIMING_ROUNDS calls, the routes in turns, each
+    call synchronized before and its launches only enqueued (one call
+    reads up to twice its median on this host)."""
+    import torch
+    from paddle_tpu_torch.fluid.core_types import to_torch_dtype
+    from paddle_tpu_torch.fluid.ops import optimizer_ops, registry
+    block = main.global_block()
+    ops = [op for op in block.ops if op.type == "momentum"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    lr = torch.full((1,), 0.01, device="cuda")
+    inputs = []
+    for op in ops:
+        p = block.var(op.input("Param")[0])
+        dtype = to_torch_dtype(p.dtype)
+        draw = lambda: torch.randn(p.shape, generator=gen, device="cuda")
+        inputs.append({"Param": [draw().to(dtype)], "Grad": [draw().to(dtype)],
+                       "Velocity": [draw()], "LearningRate": [lr]})
+    ctx = registry.LoweringContext("cuda")
+    attrs = [op.attrs for op in ops]
+    routes = {"group": lambda: optimizer_ops._momentum_group(
+                  ctx, inputs, attrs),
+              "op_by_op": lambda: [optimizer_ops._momentum(ctx, i, a)
+                                   for i, a in zip(inputs, attrs)]}
+    times, outs = {}, {}
+    for _ in range(MOMENTUM_TIMING_ROUNDS):
+        for route, call in routes.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[route] = call()
+            times.setdefault(route, []).append(
+                (time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    times = {route: sorted(ms)[len(ms) // 2] for route, ms in times.items()}
+    equal = all(torch.equal(g[s][0], a[s][0])
+                for g, a in zip(outs["group"], outs["op_by_op"])
+                for s in ("ParamOut", "VelocityOut"))
+    emit({"phase": "momentum_group", "ok": equal, "ops": len(ops),
+          "bf16_params": sum(i["Param"][0].dtype == torch.bfloat16
+                             for i in inputs),
+          "bit_for_bit": equal, "host_ms_group": times["group"],
+          "host_ms_op_by_op": times["op_by_op"]})
+    if not equal:
+        raise AssertionError("momentum group lowering differs from the "
+                             "op-by-op lowering on the card")
+
+
+def _resnet_phase(name, fluid, resnet, counters, batch, steps):
+    """bench.py's ResNet-50 leg through _window at `batch`: no kernel of
+    the port's on its path (no attention, Adam, LayerNorm or embedding; the
+    cross-entropy gate refuses V = 1000), so every launch count is 0."""
+    main, startup, loss, _ = resnet.training_programs(
+        SEED, dataset="flowers", dtype=resnet.RESNET_BENCH_DTYPE)
+    feed = lambda seed: resnet.synthetic_batch(batch, RESNET_IMAGE,
+                                               RESNET_CLASSES, seed=seed)
+    flops = resnet_flops_per_image(main)
+    return _window(
+        name, fluid, counters, (main, startup, loss),
+        _stacked(feed(SEED), 1), _stacked(feed(SEED + 1), steps), steps,
+        dict.fromkeys(counters, 0), None,
+        {"batch": batch, "image": RESNET_IMAGE, "classes": RESNET_CLASSES,
+         "dtype": resnet.RESNET_BENCH_DTYPE, "depth": 50,
+         "forward_gflop_per_image": flops / 1e9},
+        {"images": batch, "model_tflops": 3 * flops * batch / 1e12})
+
+
+# resnet_parity: bench.py's ResNet-50 program (depth 50, 1000 classes) at
+# batch 4 on 3x128x128 images (the last stage normalizes 4 * 4 * 4 = 64
+# values a channel; global pooling takes any image size), in float32 and in
+# bfloat16 from the same weights (the bf16 program reads the f32 startup
+# state rounded to its parameters' dtype) and batches, for 3 steps in
+# lockstep: each step starts on the card and on the CPU from the CPU's
+# state after the step before.
+#
+# Op by op: the CPU runs the step keeping every value; then every op of the
+# card's plan runs on the card from the CPU's values of its inputs, and each
+# output must lie within RESNET_OP_TOL of the CPU's, relative to its largest
+# magnitude, by the output's dtype. This holds each op where the whole step
+# cannot be held tightly: a random-init ResNet-50 amplifies rounding through
+# its fifty layers (a 1e-7 relative change of the input moves its gradients
+# by 3.8% in norm, and a ReLU preactivation within rounding of 0 can take
+# the other side on the other device). float32 1e-4: sums in other orders,
+# and batch_norm's E[x^2] - E[x]^2, which cancels where a channel's mean is
+# a few times its spread. bfloat16 2^-6, two bf16 ulps at the largest
+# value. Integer outputs (top_k's indices, accuracy's counts) exactly. The
+# loss, the gradients of conv1's weight, a middle bottleneck
+# conv, the last batch_norm scale and the fc weight, MeanOut and
+# VarianceOut of the first and the last batch_norm, and conv1's and the fc
+# weight's velocity and parameter after the update are among the outputs.
+# Controls, each on the card's first step only, must fail: the running
+# variance updated with the unbiased estimate (F.batch_norm's update),
+# and, in float32, cuDNN's convolutions allowed TF32.
+#
+# Sound readings (NVIDIA H100 80GB HBM3, 700 W; PERF.md): float32 1.8e-5,
+# bfloat16 0.0066 (and 2.7e-6 on its f32 outputs); the controls read 8.0e-4
+# (TF32, a weight gradient) and 8.0e-3 (a VarianceOut).
+#
+# Whole step: the card also runs each step whole from the CPU's state; the
+# loss and the named quantities are reported beside the op-by-op readings,
+# with limits RESNET_STEP_LIMITS in float32 (loss relative; the others by
+# ||card - cpu|| / ||cpu||), which the is_test program (running statistics
+# in place of the batch's) must fail. Sound readings: loss 3.4e-6 to
+# 6.7e-6, the others at most 0.025 (conv1's gradient, after fifty layers of
+# amplification); the control: loss 217, up to 2,090. In bfloat16 the
+# whole step is reported only: the amplified rounding leaves the gradients
+# below the last stage uncorrelated (conv1's 1.15 in norm).
+RESNET_PARITY_BATCH = 4
+RESNET_PARITY_IMAGE = [3, 128, 128]
+RESNET_PARITY_STEPS = 3
+RESNET_OP_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -6, "int64": 0.0,
+                 "int32": 0.0}
+RESNET_STEP_LIMITS = {"loss": 1e-4, "named": 0.1}
+# conv1, a middle bottleneck's 3x3 conv, the last batch_norm's scale and
+# the fc weight; the first and the last batch_norm's running statistics
+RESNET_PARITY_GRADS = ["conv2d_0.w_0", "conv2d_26.w_0", "batch_norm_52.w_0",
+                       "fc_0.w_0"]
+RESNET_PARITY_STATE = ["batch_norm_0.w_1", "batch_norm_0.w_2",
+                       "batch_norm_52.w_1", "batch_norm_52.w_2",
+                       "conv2d_0.w_0", "conv2d_0.w_0_velocity_acc_0",
+                       "fc_0.w_0", "fc_0.w_0_velocity_acc_0"]
+
+
+def _rel_max(got, want):
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / (np.abs(want).max() or 1.0))
+
+
+def _rel_norm(got, want):
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) /
+                 (np.linalg.norm(want) or 1.0))
+
+
+def _cpu_step(fluid, main, state, feed, names):
+    """The step on the CPU from `state`, every name in `names` kept:
+    (values by name, the state after)."""
+    scope = fluid.Scope()
+    for n, t in state.items():
+        scope.set(n, t.clone())
+    got = fluid.Executor(fluid.CPUPlace()).run(
+        main, feed=feed, fetch_list=names, scope=scope, return_numpy=False)
+    return dict(zip(names, got)), {n: scope.get(n) for n in state}
+
+
+def _replay_on_card(fluid, main, fetch, state, feed, vals, after):
+    """Every op of the card's plan of the step on the card, each from the
+    CPU step's values of its inputs (`state` before the step, `feed`,
+    `vals`); each output's max |card - cpu| / max |cpu| against the CPU's
+    value (`vals`, or `after` for a persistable). A name that two ops write
+    (a gradient and its sum with a later contribution) is checked at its
+    last writer and read from the card's own value before it. Returns
+    {name: (op type, dtype, error)}."""
+    import torch
+    from paddle_tpu_torch.fluid.core_types import to_torch_dtype
+    from paddle_tpu_torch.fluid.interop import tensor_from_numpy
+    from paddle_tpu_torch.fluid.ops import grad_ops, registry
+    block = main.global_block()
+    plan = fluid.executor._Plan(main, fetch)
+    last_writer = {n: k for k, (op, _) in enumerate(plan.steps)
+                   for n in op.output_arg_names}
+    own, final = {}, set()
+
+    def value(n):
+        if n in own and n not in final:
+            return own[n]
+        if n in feed:
+            t = tensor_from_numpy(feed[n])
+        else:
+            t = state[n] if n in state else vals[n]
+        return t.to(device="cuda", dtype=to_torch_dtype(block.var(n).dtype))
+
+    ctx = registry.LoweringContext("cuda")
+    tape, errs = {}, {}
+    with torch.no_grad():
+        for k, (op, _) in enumerate(plan.steps):
+            if k in plan.in_run:
+                continue
+            run = plan.runs.get(k, (k,))
+            ops = [plan.steps[j][0] for j in run]
+            env = {n: value(n) for o in ops for n in o.input_arg_names
+                   if n != "@EMPTY@"}
+            if len(run) > 1:
+                registry.lower_group(ops, env, ctx)
+            elif k in plan.taped:
+                tape[k] = grad_ops.record_forward(op, env, ctx,
+                                                  plan.taped[k])
+            else:
+                ctx.record = tape.pop(plan.grad_fwd[k]) \
+                    if k in plan.grad_fwd else None
+                registry.lower_op(op, env, ctx)
+                ctx.record = None
+            for j, o in zip(run, ops):
+                for n in o.output_arg_names:
+                    if n == "@EMPTY@" or n not in env:
+                        continue
+                    own[n] = env[n]
+                    if last_writer[n] != j:
+                        continue
+                    final.add(n)
+                    want = fluid.executor.as_numpy(
+                        after[n] if n in after else vals[n])
+                    got = fluid.executor.as_numpy(env[n]).reshape(
+                        want.shape)
+                    errs[n] = (o.type, str(env[n].dtype)[6:],
+                               _rel_max(got, want))
+    return errs
+
+
+def _op_verdict(errs):
+    """(ok, the worst output of each dtype) of a replay."""
+    worst = {}
+    for n, (t, dtype, e) in errs.items():
+        if dtype in RESNET_OP_TOL and e > worst.get(dtype, ("", "", -1))[2]:
+            worst[dtype] = (n, t, e)
+    ok = all(e <= RESNET_OP_TOL[d] for d, (_, _, e) in worst.items())
+    return ok, worst
+
+
+def _unbiased_running_variance():
+    """The batch_norm lowering with VarianceOut blended from the unbiased
+    batch variance, as F.batch_norm updates it (a control)."""
+    from paddle_tpu_torch.fluid.ops import nn_ops
+
+    def lowering(ctx, inputs, attrs):
+        outs = nn_ops._batch_norm(ctx, inputs, attrs)
+        x, var = inputs["X"][0], inputs["Variance"][0]
+        m = attrs.get("momentum", 0.9)
+        n = x.numel() // var.numel()
+        bvar = (outs["VarianceOut"][0] - var * m) / (1.0 - m)
+        outs["VarianceOut"] = [var * m + bvar * (n / (n - 1.0)) * (1.0 - m)]
+        return outs
+    return lowering
+
+
+def _card_step(fluid, exe, program, state, feed, fetch):
+    """The whole step on the card from `state`: (the fetches by name, the
+    RESNET_PARITY_STATE persistables after it as numpy)."""
+    scope = fluid.Scope()
+    for n, t in state.items():
+        scope.set(n, t.clone())
+    got = exe.run(program, feed=feed, fetch_list=fetch, scope=scope)
+    return dict(zip(fetch, got)), {n: fluid.executor.as_numpy(scope.get(n))
+                                   for n in RESNET_PARITY_STATE}
+
+
+def _step_readings(card, card_after, cpu, cpu_after, loss):
+    r = {"loss": abs(float(card[loss]) - float(cpu[loss])) /
+         abs(float(cpu[loss]))}
+    for n in RESNET_PARITY_GRADS:
+        r[n + "@GRAD"] = _rel_norm(card[n + "@GRAD"], cpu[n + "@GRAD"])
+    for n in RESNET_PARITY_STATE:
+        r[n] = _rel_norm(card_after[n], cpu_after[n])
+    return r
+
+
+def _step_ok(r):
+    return r["loss"] <= RESNET_STEP_LIMITS["loss"] and \
+        max(v for k, v in r.items() if k != "loss") <= \
+        RESNET_STEP_LIMITS["named"]
+
+
+def phase_resnet_parity(fluid, resnet, counters):
+    from unittest import mock
+    import torch
+    from paddle_tpu_torch.fluid.ops import nn_ops, registry
+    failures = []
+    programs = {}
+    for dtype in ("float32", "bfloat16"):
+        with fluid.unique_name.guard():
+            programs[dtype] = resnet.training_programs(
+                SEED, dataset="flowers", dtype=dtype)
+    with fluid.unique_name.guard():
+        is_test = resnet.training_programs(SEED, dataset="flowers",
+                                           is_test=True)
+    main, startup = programs["float32"][:2]
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope)
+    start = {v.name: scope.get(v.name)
+             for v in main.global_block().vars.values()
+             if v.persistable and scope.get(v.name) is not None}
+    feeds = [resnet.synthetic_batch(RESNET_PARITY_BATCH, RESNET_PARITY_IMAGE,
+                                    RESNET_CLASSES, seed=SEED + 600 + i)
+             for i in range(RESNET_PARITY_STEPS)]
+    card_exe = fluid.Executor()
+    _zero(counters)
+    for dtype, (main, _, loss, acc) in programs.items():
+        block = main.global_block()
+        names = sorted({n for op in block.ops for n in op.output_arg_names
+                        if n != "@EMPTY@" and not block.var(n).persistable})
+        fetch = [loss.name, acc.name]
+        grads = [loss.name] + [n + "@GRAD" for n in RESNET_PARITY_GRADS]
+        state, op_readings, step_readings, controls = start, [], [], {}
+        ok = True
+        for i, feed in enumerate(feeds):
+            vals, after = _cpu_step(fluid, main, state, feed, names)
+            errs = _replay_on_card(fluid, main, fetch, state, feed, vals,
+                                   after)
+            step_ok, worst = _op_verdict(errs)
+            named = {n: errs[n][2] for n in
+                     [loss.name] + [g + "@GRAD" for g in
+                                    RESNET_PARITY_GRADS] +
+                     RESNET_PARITY_STATE}
+            op_readings.append({"worst": worst, "named": named})
+            ok = ok and step_ok
+            cpu = {n: fluid.executor.as_numpy(vals[n]) for n in grads}
+            cpu_after = {n: fluid.executor.as_numpy(after[n])
+                         for n in RESNET_PARITY_STATE}
+            r = _step_readings(*_card_step(fluid, card_exe, main, state,
+                                           feed, grads),
+                               cpu, cpu_after, loss.name)
+            step_readings.append(r)
+            if dtype == "float32":
+                ok = ok and _step_ok(r)
+            if i == 0:
+                with mock.patch.dict(registry._LOWERINGS, batch_norm=(
+                        _unbiased_running_variance())):
+                    controls["unbiased_running_variance"] = _op_verdict(
+                        _replay_on_card(fluid, main, fetch, state, feed,
+                                        vals, after))
+                if dtype == "float32":
+                    with mock.patch.object(nn_ops, "CONV_FP32_PRECISION",
+                                           "tf32"):
+                        controls["tf32_convolutions"] = _op_verdict(
+                            _replay_on_card(fluid, main, fetch, state, feed,
+                                            vals, after))
+                    wrong = _step_readings(
+                        *_card_step(fluid, card_exe, is_test[0], state, feed,
+                                    grads),
+                        cpu, cpu_after, loss.name)
+                    controls["is_test_program"] = (_step_ok(wrong), wrong)
+            state = after
+        caught = not any(c[0] for c in controls.values())
+        emit({"phase": "resnet_parity", "dtype": dtype,
+              "ok": ok and caught, "batch": RESNET_PARITY_BATCH,
+              "image": RESNET_PARITY_IMAGE, "steps": RESNET_PARITY_STEPS,
+              "lockstep": "each step, and each op, from the CPU's state",
+              "op_tol": RESNET_OP_TOL, "step_limits": RESNET_STEP_LIMITS,
+              "op_by_op": op_readings, "whole_step": step_readings,
+              "controls": {k: {"passed": v[0], "readings": v[1]}
+                           for k, v in controls.items()},
+              "controls_rejected": caught})
+        if not (ok and caught):
+            failures.append(dtype)
+    launched = {k: v for k, v in _read(counters).items() if v}
+    if launched:
+        failures.append("launches %s" % launched)
+    if failures:
+        raise AssertionError("resnet_parity: %s" % failures)
+    torch.cuda.empty_cache()
+
+
 def _path_numbers(s, path):
     """A kernel's numbers over a path's mix of cases (weighted means)."""
     w = s["weight"]
@@ -2101,7 +2502,7 @@ def main():
         return 2
     try:
         import paddle_tpu_torch.fluid as fluid
-        from paddle_tpu_torch.models import bert, deepfm, transformer
+        from paddle_tpu_torch.models import bert, deepfm, resnet, transformer
         from paddle_tpu_torch.ops import attention as A
     except ImportError as e:
         print("chip_smoke: run from the root of a checkout (%s)" % e,
@@ -2185,6 +2586,22 @@ def main():
         phase_deepfm_parity(fluid, deepfm, counters,
                             deepfm.DEEPFM_BENCH_CFG,
                             deepfm.DEEPFM_BENCH_BATCH)
+
+    # bench.py's ResNet-50 leg: no kernel of the port's on its path, with
+    # the kernel flags on too (the CE gate refuses V = 1000)
+    with fluid.unique_name.guard():
+        main_prog = resnet.training_programs(
+            SEED, dataset="flowers", dtype=resnet.RESNET_BENCH_DTYPE)[0]
+        _momentum_group_check(fluid, main_prog)
+        del main_prog
+    with fluid.unique_name.guard():
+        add(_resnet_phase("resnet50", fluid, resnet, counters,
+                          resnet.RESNET_BENCH_BATCH, RESNET_STEPS))
+    with fluid.unique_name.guard(), \
+            _env(FLAGS_emb_grad_kernel="scatter", **KERNEL_FLAGS):
+        add(_resnet_phase("resnet50_kernels", fluid, resnet, counters,
+                          resnet.RESNET_BENCH_BATCH, 2))
+    phase_resnet_parity(fluid, resnet, counters)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -12,7 +12,8 @@ did for free is done here by a per-(program, fetch list) plan:
 - a training program's forward ops run once: each ``grad_of`` op is paired
   with its forward op, which runs under autograd and keeps its record until
   the grad op takes the gradient (XLA merged the JAX package's recomputed
-  forward with the real one; ops/grad_ops.py);
+  forward with the real one; ops/grad_ops.py); a grad op registered as
+  paired (batch_norm_grad) gets its forward op's outputs the same way;
 - a run of consecutive ops with a group lowering (the optimizer's adam ops,
   one per parameter) runs as one call, so its kernel launches once for the
   run (XLA fused the JAX package's per-op updates into one program).
@@ -36,7 +37,7 @@ from .framework import Variable, default_main_program
 from .interop import tensor_from_numpy
 from .ops.grad_ops import record_forward
 from .ops.registry import (LoweringContext, group_key, is_host_op,
-                           lower_group, lower_op)
+                           lower_group, lower_op, paired_forward)
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard", "as_numpy"]
 
@@ -138,26 +139,40 @@ def _attrs_key(attrs):
 
 
 def _pair_grad_ops(ops):
-    """{index of a grad_of op: index of its forward op}: the latest forward
-    op before it, not yet paired, of the same type, attrs and inputs."""
+    """{index of a grad op: index of its forward op}. A ``grad_of`` op's
+    forward op is the latest op before it, not yet paired, of its fwd_type,
+    attrs and inputs; a paired grad op's (registry.register_paired_grad)
+    the latest one, not yet paired, of its forward type with the same names
+    in the shared input slots."""
     pairs, taken, keys = {}, set(), {}
     for i, op in enumerate(ops):
-        if op.type != "grad_of":
+        if op.type == "grad_of":
+            fwd_type = op.attrs["fwd_type"]
+            fwd_in = {k[len("FWD_IN:"):]: list(v)
+                      for k, v in op.inputs.items()
+                      if k.startswith("FWD_IN:")}
+            key = _attrs_key(op.attrs["fwd_attrs"])
+            same = lambda f: dict(f.inputs) == fwd_in
+        elif paired_forward(op.type) is not None:
+            fwd_type, slots = paired_forward(op.type)
+            fwd_in = {s: list(op.inputs.get(s, ())) for s in slots}
+            key = None
+            same = lambda f: all(list(f.inputs.get(s, ())) == v
+                                 for s, v in fwd_in.items())
+        else:
             continue
-        fwd_in = {k[len("FWD_IN:"):]: list(v) for k, v in op.inputs.items()
-                  if k.startswith("FWD_IN:")}
-        key = _attrs_key(op.attrs["fwd_attrs"])
         for j in range(i - 1, -1, -1):
             f = ops[j]
-            if j in taken or f.type != op.attrs["fwd_type"] or \
-                    dict(f.inputs) != fwd_in:
+            if j in taken or f.type != fwd_type or not same(f):
                 continue
-            if j not in keys:
-                keys[j] = _attrs_key(f.attrs)
-            if keys[j] == key:
-                pairs[i] = j
-                taken.add(j)
-                break
+            if key is not None:
+                if j not in keys:
+                    keys[j] = _attrs_key(f.attrs)
+                if keys[j] != key:
+                    continue
+            pairs[i] = j
+            taken.add(j)
+            break
     return pairs
 
 
@@ -236,11 +251,12 @@ class _Plan(object):
                 slot for slot, names in op.outputs.items()
                 if any(n in keep or persistable(n) or
                        last_read.get(n, -1) > k for n in names)))
-        # step of a grad_of -> step of its forward op; step of a taped
-        # forward op -> the need_grad flags of its grad_of
+        # step of a grad op -> step of its forward op; step of a taped
+        # forward op -> the need_grad flags of its grad_of ({} for a paired
+        # grad op, which reads the forward op's outputs and no gradient)
         self.grad_fwd = {pos[i]: pos[pairs[i]] for i in kept_idx
                          if i in pairs}
-        self.taped = {pos[pairs[i]]: ops[i].attrs["need_grad"]
+        self.taped = {pos[pairs[i]]: ops[i].attrs.get("need_grad", {})
                       for i in kept_idx if i in pairs}
         self.runs = _runs(kept, self.taped)
         self.in_run = {j for run in self.runs.values() for j in run[1:]}
@@ -353,8 +369,8 @@ class Executor(object):
                     lower_group([plan.steps[j][0] for j in run], env, ctx)
                 elif k in plan.taped:
                     tape[k] = record_forward(op, env, ctx, plan.taped[k])
-                elif op.type == "grad_of":
-                    ctx.record = tape.pop(plan.grad_fwd.get(k), None)
+                elif k in plan.grad_fwd:
+                    ctx.record = tape.pop(plan.grad_fwd[k], None)
                     lower_op(op, env, ctx)
                     ctx.record = None
                 else:

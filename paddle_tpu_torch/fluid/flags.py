@@ -25,10 +25,11 @@ WHITELIST = {
                         "presort the dense embedding-grad scatter updates "
                         "(fluid/ops/tensor_ops.py; A/B experiment)"),
     "emb_grad_kernel": (str, "",
-                        "dense embedding-grad CUDA kernel: 'scatter' "
-                        "(atomic adds in the table dtype) or 'segsum' "
-                        "(argsort outside, one f32 sum per row rounded "
-                        "once); '' keeps the plain scatter-add "
+                        "dense embedding-grad CUDA kernel, one launch a "
+                        "call with no sort and no atomics: 'scatter' (each "
+                        "id's row added in the table dtype, in id order) or "
+                        "'segsum' (each row's sum in f32, in id order, "
+                        "rounded once); '' keeps the plain scatter-add "
                         "(ops/emb_grad_kernel.py, csrc/emb_grad.cu)"),
     "dropout_save_mask": (bool, False,
                           "materialize dropout masks for the backward pass "

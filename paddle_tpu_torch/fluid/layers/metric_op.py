@@ -1,9 +1,31 @@
 """Metric layers (the port's counterpart of
-``paddle_tpu/fluid/layers/metric_op.py``): auc."""
+``paddle_tpu/fluid/layers/metric_op.py``): accuracy and auc."""
 from ..initializer import Constant
 from ..layer_helper import LayerHelper
+from .nn import topk
 
-__all__ = ["auc"]
+__all__ = ["accuracy", "auc"]
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    """Top-k accuracy of ``input`` against ``label``: a top_k op, then an
+    accuracy op. Returns the float32 accuracy; Correct and Total are int32."""
+    helper = LayerHelper("accuracy", input=input)
+    topk_out, topk_indices = topk(input, k=k)
+    acc_out = helper.create_variable_for_type_inference("float32",
+                                                        stop_gradient=True)
+    if correct is None:
+        correct = helper.create_variable_for_type_inference(
+            "int32", stop_gradient=True)
+    if total is None:
+        total = helper.create_variable_for_type_inference(
+            "int32", stop_gradient=True)
+    helper.append_op(type="accuracy",
+                     inputs={"Out": [topk_out], "Indices": [topk_indices],
+                             "Label": [label]},
+                     outputs={"Accuracy": [acc_out], "Correct": [correct],
+                              "Total": [total]})
+    return acc_out
 
 
 def auc(input, label, curve="ROC", num_thresholds=4095, topk=1,

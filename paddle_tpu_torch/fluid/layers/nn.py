@@ -1,14 +1,16 @@
 """Neural-network layers (the port's counterpart of
 ``paddle_tpu/fluid/layers/nn.py``): the layer functions the Transformer,
-BERT and DeepFM call, with the same signatures and the same ops, slots and
-attrs."""
+BERT, DeepFM and ResNet call, with the same signatures and the same ops,
+slots and attrs."""
 import numpy as np
 
 from ..layer_helper import LayerHelper
-from ..initializer import Constant
+from ..initializer import Constant, Normal
+from ..param_attr import ParamAttr
 
 __all__ = [
-    "fc", "embedding", "layer_norm", "dropout", "softmax",
+    "fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
+    "dropout", "softmax", "topk",
     "softmax_with_cross_entropy", "sigmoid_cross_entropy_with_logits",
     "matmul", "transpose", "reshape", "flatten", "slice", "one_hot", "mean",
     "reduce_sum", "elementwise_add", "elementwise_sub", "scale", "square",
@@ -73,6 +75,101 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
                             "padding_idx": padding_idx,
                             "remote_prefetch": False})
     return tmp
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None):
+    """2-D convolution over NCHW input with an OIHW filter (default init
+    Normal(0, sqrt(2 / fan_in))), then the bias over channels and ``act``.
+    groups equal to the channels with num_filters a multiple of them makes
+    the reference's ``depthwise_conv2d`` op, which is not ported yet."""
+    helper = LayerHelper("conv2d", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = helper.input_dtype()
+    num_channels = input.shape[1]
+    groups = groups or 1
+    filter_size = [filter_size] * 2 if isinstance(filter_size, int) \
+        else list(filter_size)
+    stride = [stride] * 2 if isinstance(stride, int) else list(stride)
+    padding = [padding] * 2 if isinstance(padding, int) else list(padding)
+    dilation = [dilation] * 2 if isinstance(dilation, int) else list(dilation)
+    filter_shape = [num_filters, num_channels // groups] + filter_size
+    fan_in = num_channels * filter_size[0] * filter_size[1]
+    w = helper.create_parameter(
+        attr=helper.param_attr, shape=filter_shape, dtype=dtype,
+        default_initializer=Normal(0.0, (2.0 / fan_in) ** 0.5, 0))
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    op_type = "depthwise_conv2d" if (groups == num_channels and
+                                     num_filters % num_channels == 0) \
+        else "conv2d"
+    helper.append_op(type=op_type,
+                     inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [pre_bias]},
+                     attrs={"strides": stride, "paddings": padding,
+                            "dilations": dilation, "groups": groups})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1, pool_padding=0,
+           global_pooling=False, use_cudnn=True, ceil_mode=False, name=None,
+           exclusive=True):
+    helper = LayerHelper("pool2d", input=input, name=name)
+    pool_size = [pool_size] * 2 if isinstance(pool_size, int) \
+        else list(pool_size)
+    pool_stride = [pool_stride] * 2 if isinstance(pool_stride, int) \
+        else list(pool_stride)
+    pool_padding = [pool_padding] * 2 if isinstance(pool_padding, int) \
+        else list(pool_padding)
+    return _single_out(helper, "pool2d", {"X": [input]},
+                       {"pooling_type": pool_type, "ksize": pool_size,
+                        "strides": pool_stride, "paddings": pool_padding,
+                        "global_pooling": global_pooling,
+                        "ceil_mode": ceil_mode, "exclusive": exclusive})
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None, do_model_average_for_mean_and_var=False,
+               fuse_with_relu=False, use_global_stats=False):
+    """Batch normalization over the channel axis (1, or the last for NHWC):
+    f32 scale and bias (init 1 and 0) and non-trainable f32 running mean and
+    variance (init 0 and 1, named by moving_mean_name and
+    moving_variance_name), which the op updates in place; then ``act``."""
+    helper = LayerHelper("batch_norm", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = helper.input_dtype()
+    input_shape = input.shape
+    channel_num = input_shape[-1] if data_layout == "NHWC" else input_shape[1]
+    param_shape = [channel_num]
+    scale = helper.create_parameter(attr=helper.param_attr, shape=param_shape,
+                                    dtype="float32",
+                                    default_initializer=Constant(1.0))
+    bias = helper.create_parameter(attr=helper.bias_attr, shape=param_shape,
+                                   dtype="float32", is_bias=True)
+    mean = helper.create_parameter(
+        attr=ParamAttr(name=moving_mean_name, initializer=Constant(0.0),
+                       trainable=False), shape=param_shape, dtype="float32")
+    variance = helper.create_parameter(
+        attr=ParamAttr(name=moving_variance_name, initializer=Constant(1.0),
+                       trainable=False), shape=param_shape, dtype="float32")
+    saved_mean = helper.create_variable_for_type_inference("float32",
+                                                           stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference("float32",
+                                                          stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                "Mean": [mean], "Variance": [variance]},
+        outputs={"Y": [out], "MeanOut": [mean], "VarianceOut": [variance],
+                 "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "data_layout": data_layout,
+               "use_global_stats": use_global_stats})
+    return helper.append_activation(out)
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1, epsilon=1e-5,
@@ -148,6 +245,19 @@ def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
     return _single_out(helper, "matmul", {"X": [x], "Y": [y]},
                        {"transpose_X": transpose_x, "transpose_Y": transpose_y,
                         "alpha": float(alpha)}, dtype=x.dtype)
+
+
+def topk(input, k, name=None):
+    """(values, int64 indices) of the k largest entries of each row."""
+    helper = LayerHelper("top_k", input=input, name=name)
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference("int64",
+                                                        stop_gradient=True)
+    helper.append_op(type="top_k", inputs={"X": [input]},
+                     outputs={"Out": [values], "Indices": [indices]},
+                     attrs={"k": k})
+    values.stop_gradient = True
+    return values, indices
 
 
 def transpose(x, perm, name=None):

@@ -19,6 +19,8 @@ under autograd on detached leaves of the inputs that need a gradient
 (``record_forward``), and hands the record to the ``grad_of`` lowering,
 which calls ``torch.autograd.grad`` once and so frees the saved residuals.
 """
+import contextlib
+
 import torch
 
 from .registry import register_lowering, get_lowering, write_outputs
@@ -40,7 +42,9 @@ class ForwardRecord(object):
 def record_forward(op, env, ctx, need_grad):
     """Run forward op ``op`` under autograd, its inputs flagged in
     ``need_grad`` ({slot: [bool]}) replaced by detached leaves; write its
-    outputs into env and return the ForwardRecord."""
+    outputs into env and return the ForwardRecord. With no input flagged
+    (the forward op of a paired grad op) it runs without autograd and the
+    record keeps only its outputs."""
     inputs, leaves = {}, []
     for slot, names in op.inputs.items():
         flags = need_grad.get(slot, ())
@@ -52,7 +56,8 @@ def record_forward(op, env, ctx, need_grad):
                 leaves.append(((slot, i), v))
             vals.append(v)
         inputs[slot] = vals
-    with torch.enable_grad():
+    # no leaf (a paired grad op's forward): no graph, only the outputs
+    with torch.enable_grad() if leaves else contextlib.nullcontext():
         outs = get_lowering(op.type)(ctx, inputs, op.attrs)
     write_outputs(op, outs, env)
     return ForwardRecord(leaves, outs)

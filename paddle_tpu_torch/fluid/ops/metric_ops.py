@@ -1,9 +1,27 @@
-"""Metric lowerings: auc (the port's counterpart of
+"""Metric lowerings: accuracy and auc (the port's counterpart of
 ``paddle_tpu/fluid/ops/metric_ops.py``)."""
 import torch
 
 from .registry import register_lowering
 from .common import one
+
+
+@register_lowering("accuracy", no_grad=True)
+def _accuracy(ctx, inputs, attrs):
+    """Top-k accuracy from top_k's Indices [N, k] and Label [N, 1]: Correct,
+    the rows whose label is among their k indices, and Total, N, as int32
+    scalars, and Accuracy = Correct / Total as a float32 scalar. Every
+    output stays on the device: N is a fill, not a host copy, so the op
+    needs no synchronization."""
+    indices, label = one(inputs, "Indices"), one(inputs, "Label")
+    label = label.reshape(-1, 1).to(indices.dtype)
+    hit = (indices == label).any(dim=1)
+    correct = hit.sum(dtype=torch.int32)
+    total = indices.shape[0]
+    return {"Accuracy": [correct.float() / total],
+            "Correct": [correct],
+            "Total": [torch.full((), total, dtype=torch.int32,
+                                 device=indices.device)]}
 
 
 @register_lowering("auc", no_grad=True)

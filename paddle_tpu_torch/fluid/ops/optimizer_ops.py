@@ -1,6 +1,13 @@
-"""Optimizer-update lowerings: sgd and adam, dense and sparse (the port's
-counterpart of ``paddle_tpu/fluid/ops/optimizer_ops.py``). Both are
-no-grad.
+"""Optimizer-update lowerings: sgd, momentum and adam, sgd and adam dense
+and sparse (the port's counterpart of
+``paddle_tpu/fluid/ops/optimizer_ops.py``). All are no-grad.
+
+momentum updates in the velocity's dtype (f32 for a bf16 parameter) and
+rounds the step to the parameter's dtype once. A training program's
+momentum ops (one per parameter; ResNet-50 has 161) come one after
+another, and the executor hands such a run to ``_momentum_group``, which
+updates it with ``torch._foreach_*`` calls, bit for bit the per-op
+formula.
 
 adam keeps the JAX package's dispatch: the fused CUDA kernel
 (ops/adam_kernel.py) when FLAGS_adam_kernel is on, the tensors are on the
@@ -66,6 +73,75 @@ def _sgd(ctx, inputs, attrs):
         return {"ParamOut": [scatter_rows_(p.clone(), rows,
                                            -lr * g.to(p.dtype))]}
     return {"ParamOut": [p - lr * g.to(p.dtype)]}
+
+
+@register_lowering("momentum", no_grad=True)
+def _momentum(ctx, inputs, attrs):
+    """v_out = mu * v + g and p_out = p - (lr * v_out) rounded to p's dtype
+    (Nesterov: p - ((g + mu * v_out) * lr)), in the velocity's dtype."""
+    p, g = one(inputs, "Param"), one(inputs, "Grad")
+    v = one(inputs, "Velocity")
+    lr = one(inputs, "LearningRate").reshape(()).to(v.dtype)
+    gf = g.to(v.dtype)
+    mu = attrs["mu"]
+    v_out = mu * v + gf
+    if attrs.get("use_nesterov", False):
+        p_out = p - ((gf + mu * v_out) * lr).to(p.dtype)
+    else:
+        p_out = p - (lr * v_out).to(p.dtype)
+    return {"ParamOut": [p_out], "VelocityOut": [v_out]}
+
+
+def _momentum_run_key(op):
+    """Momentum ops of one run share mu, use_nesterov and the learning-rate
+    variable."""
+    return (op.attrs["mu"], op.attrs.get("use_nesterov", False),
+            tuple(op.inputs["LearningRate"]))
+
+
+def _flat_cast(tensors, dtype):
+    """The tensors cast to ``dtype`` in two launches (one concatenation, one
+    cast), as views of the cast buffer."""
+    flat = torch.cat([t.reshape(-1) for t in tensors]).to(dtype)
+    return [c.view(t.shape) for c, t in zip(
+        flat.split([t.numel() for t in tensors]), tensors)]
+
+
+@register_group_lowering("momentum", key=_momentum_run_key)
+def _momentum_group(ctx, inputs, attrs):
+    """A run of momentum ops at once, with ``_momentum``'s arithmetic: the
+    ops are split by the dtypes of Param, Grad and Velocity, and each part
+    updates with ``torch._foreach_*`` calls over its lists, the casts done
+    on one concatenated buffer. Returns each op's outputs."""
+    mu = attrs[0]["mu"]
+    nesterov = attrs[0].get("use_nesterov", False)
+    parts = {}
+    for k, ins in enumerate(inputs):
+        key = (ins["Param"][0].dtype, ins["Grad"][0].dtype,
+               ins["Velocity"][0].dtype)
+        parts.setdefault(key, []).append(k)
+    outs = [None] * len(inputs)
+    for (p_dtype, g_dtype, v_dtype), ks in parts.items():
+        ps = [inputs[k]["Param"][0] for k in ks]
+        gs = [inputs[k]["Grad"][0] for k in ks]
+        vs = [inputs[k]["Velocity"][0] for k in ks]
+        lr = inputs[ks[0]]["LearningRate"][0].reshape(()).to(v_dtype)
+        if g_dtype != v_dtype:
+            gs = _flat_cast(gs, v_dtype)
+        v_out = torch._foreach_mul(vs, mu)
+        torch._foreach_add_(v_out, gs)
+        if nesterov:
+            steps = torch._foreach_mul(v_out, mu)
+            torch._foreach_add_(steps, gs)
+            torch._foreach_mul_(steps, lr)
+        else:
+            steps = torch._foreach_mul(v_out, lr)
+        if p_dtype != v_dtype:
+            steps = _flat_cast(steps, p_dtype)
+        p_out = torch._foreach_sub(ps, steps)
+        for k, p, v in zip(ks, p_out, v_out):
+            outs[k] = {"ParamOut": [p], "VelocityOut": [v]}
+    return outs
 
 
 def _adam_run_key(op):

@@ -12,7 +12,10 @@ Gradients follow the JAX package's protocol: most ops get the generic
 ``grad_of`` op (ops/grad_ops.py); ops whose grad needs other plumbing
 (dropout's mask, lookup_table's scatter, the cross-entropy's fused grad)
 register a grad maker ``fn(op, block, no_grad_set) -> (descs,
-grad_to_var)``.
+grad_to_var)``. A grad op of such a maker may read what its forward op
+computed (``register_paired_grad``): the executor pairs the two as it
+pairs ``grad_of`` with its forward op and hands the grad op the forward
+op's outputs (batch_norm_grad reads batch_norm's batch statistics).
 
 Randomness: where the JAX package folds a step key into per-op
 ``jax.random`` keys, the ``LoweringContext`` carries one
@@ -24,7 +27,8 @@ __all__ = [
     "register_lowering", "get_lowering", "has_lowering",
     "register_group_lowering", "group_key", "lower_group",
     "register_grad_maker", "get_grad_maker", "has_grad_maker",
-    "maker_wants_og", "mark_no_grad", "is_no_grad", "is_host_op",
+    "maker_wants_og", "register_paired_grad", "paired_forward",
+    "mark_no_grad", "is_no_grad", "is_host_op",
     "LoweringContext", "infer_outputs", "lower_op",
 ]
 
@@ -34,13 +38,15 @@ _OG_MAKERS = set()       # makers that take the og_avail 4th argument
 _NO_GRAD_OPS = set()     # ops with no gradient
 _HOST_OPS = set()        # ops run on the host outside the device step
 _GROUP_LOWERINGS = {}    # op type -> (group lowering, run key)
+_PAIRED_GRADS = {}       # grad op type -> (forward op type, shared slots)
 
 
 class LoweringContext(object):
     """Per-step context handed to lowerings: the device to create tensors
     on, the run's random generator, the test-mode flag, the dropout
     generator snapshots of this step (rng_tag -> generator state, read back
-    by dropout_grad), the forward record a ``grad_of`` op consumes, and the
+    by dropout_grad), the forward record a ``grad_of`` op or a paired grad
+    op consumes (ops/grad_ops.py ``ForwardRecord``), and the
     output slots of the running op that a later op or a fetch reads or that
     are persistable (``live_outputs``; None = all). The executor sets the
     last two just before each op."""
@@ -144,6 +150,19 @@ def maker_wants_og(op_type):
 
 def has_grad_maker(op_type):
     return op_type in _GRAD_MAKERS
+
+
+def register_paired_grad(grad_type, fwd_type, slots):
+    """Grad ops of ``grad_type`` read the outputs of their forward op: the
+    latest op of ``fwd_type`` before them, not yet paired, whose input
+    ``slots`` hold the same names as theirs. The executor runs that forward
+    op once and hands its outputs to the grad op as ``ctx.record``."""
+    _PAIRED_GRADS[grad_type] = (fwd_type, tuple(slots))
+
+
+def paired_forward(op_type):
+    """(forward op type, shared slots) of a paired grad op type, or None."""
+    return _PAIRED_GRADS.get(op_type)
 
 
 def mark_no_grad(op_type):

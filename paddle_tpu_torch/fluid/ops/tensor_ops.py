@@ -260,3 +260,17 @@ def _add_position_encoding(ctx, inputs, attrs):
                                           device=x.device) / half)
     enc = torch.cat([torch.sin(pos / div), torch.cos(pos / div)], dim=1)
     return {"Out": [alpha * x + beta * enc[None, :, :].to(x.dtype)]}
+
+
+# ---------- top-k ----------
+
+@register_lowering("top_k", no_grad=True)
+def _top_k(ctx, inputs, attrs):
+    """The k largest values of each row of X's last axis and their int64
+    indices, largest first. Equal values come out lower index first, as
+    ``jax.lax.top_k`` orders them: a stable descending sort, where
+    ``torch.topk`` promises no order among ties."""
+    x = one(inputs, "X")
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    k = attrs["k"]
+    return {"Out": [vals[..., :k]], "Indices": [idx[..., :k]]}

@@ -19,7 +19,8 @@ from .clip import append_gradient_clip_ops, error_clip_callback
 from .regularizer import append_regularization_ops
 from . import sparse_grads
 
-__all__ = ["SGD", "Adam", "SGDOptimizer", "AdamOptimizer"]
+__all__ = ["SGD", "Momentum", "Adam", "SGDOptimizer", "MomentumOptimizer",
+           "AdamOptimizer"]
 
 
 class Optimizer(object):
@@ -179,6 +180,35 @@ class SGDOptimizer(Optimizer):
                                outputs={"ParamOut": [p.name]})
 
 
+class MomentumOptimizer(Optimizer):
+    _velocity_acc_str = "velocity"
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 regularization=None, name=None):
+        super(MomentumOptimizer, self).__init__(learning_rate, regularization,
+                                                name)
+        self.type = "momentum"
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            # f32 velocity whatever the param dtype
+            self._add_accumulator(self._velocity_acc_str, p,
+                                  dtype="float32")
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        v = self._get_accumulator(self._velocity_acc_str, p)
+        return block.append_op(
+            type="momentum",
+            inputs={"Param": [p.name], "Grad": [g.name], "Velocity": [v.name],
+                    "LearningRate": [
+                        self._create_param_lr(param_and_grad).name]},
+            outputs={"ParamOut": [p.name], "VelocityOut": [v.name]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov})
+
+
 class AdamOptimizer(Optimizer):
     _moment1_acc_str = "moment1"
     _moment2_acc_str = "moment2"
@@ -225,4 +255,5 @@ class AdamOptimizer(Optimizer):
 
 
 SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer
