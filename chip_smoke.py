@@ -128,6 +128,29 @@ non-zero exit):
               whole step's loss and named gradients and states within
               RESNET_STEP_LIMITS; controls (the unbiased running variance;
               TF32 convolutions; the is_test program) must fail.
+21. inference_serve - serve256's program (batch 8, seq 256, bf16, weights
+              from SEED) saved by fluid.io.save_inference_model, loaded by
+              load_inference_model into a fresh Scope and by
+              fluid.inference.create_paddle_predictor: the same 4 requests
+              through the in-memory, loaded and predictor routes give the
+              same logits bit for bit, each request 12 one-pass launches;
+              save, load and request times and the artifact's bytes. Control:
+              one element of proj.w changed in a copy of the artifact must
+              change the logits.
+22. inference_resnet50 - ResNet-50 (flowers, f32, is_test) at batch 64,
+              running statistics drawn from a seeded generator, saved,
+              loaded, and folded by InferenceTranspiler: all 53 batch_norm
+              ops gone, the folded logits within FOLD_REL_MAX of the
+              unfolded ones (top-1 agreement printed); ms and device
+              kernels a batch of each (the kernels counted in a fresh
+              process's torch.profiler trace). Control: fused biases that
+              leave the running mean out must miss the bound.
+23. checkpoint - the flagship training program (dropout 0.1) at batch 32:
+              2 steps, save_checkpoint, 2 more (run A); load_checkpoint
+              into a fresh Scope restores every persistable and generator
+              state bit for bit, and the same 2 steps (run B) give A's
+              losses within CKPT_LOSS_REL_MAX. Control: the resume without
+              the generator states must miss.
 
 The kernel cases also time rows 1, 3, 8 and 11 at BERT-base's shapes
 (attention at batch 256, 12 heads, seq 128, D 64; LayerNorm on [32768,
@@ -2484,6 +2507,373 @@ def phase_resnet_parity(fluid, resnet, counters):
     torch.cuda.empty_cache()
 
 
+# ---- persistence and inference: fluid.io, the predictor, the transpiler ----
+
+# The artifacts and checkpoints are written under the checkout's build/
+# directory (gitignored) and removed after each phase.
+IO_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                      "chip_smoke_io")
+RESNET_INFER_BATCH = 64
+# fold vs no fold: max |folded - unfolded| / max |unfolded| logits (f32
+# sums in another order only; relative to the largest logit, so free of
+# the random model's scale)
+FOLD_REL_MAX = 1e-4
+FOLD_TIMING_ROUNDS = 5
+CKPT_BATCH = 32
+CKPT_STEPS = 2
+CKPT_LOSS_REL_MAX = 1e-5
+
+
+def _artifact_bytes(dirname):
+    return sum(os.path.getsize(os.path.join(root, n))
+               for root, _, names in os.walk(dirname) for n in names)
+
+
+def _timed_ms(fn):
+    """(result, ms) of fn() on the card, synchronized on both sides."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_inference_serve(fluid, transformer, counters):
+    """serve256's program saved by save_inference_model, loaded by
+    load_inference_model into a fresh Scope and by create_paddle_predictor,
+    and the same REQUESTS requests through the in-memory, loaded and
+    predictor routes in turns: the logits bit for bit the in-memory
+    program's, 12 one-pass launches a request on each route. Control: one
+    element of proj.w changed in a copy of the artifact changes the
+    logits. Returns the phase's launches."""
+    import shutil
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.fluid.inference import (AnalysisConfig,
+                                                  create_paddle_predictor)
+    cfg = transformer.FLAGSHIP_CFG
+    attn = 3 * cfg["n_layer"]
+    serve, startup, logits = transformer.serving_programs(SEED, **cfg)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    target = serve.global_block().var(logits)
+    os.makedirs(IO_DIR, exist_ok=True)
+    root = os.path.join(IO_DIR, "serve")
+    shutil.rmtree(root, ignore_errors=True)
+    model_dir = os.path.join(root, "model")
+    with fluid.scope_guard(scope):
+        _, save_ms = _timed_ms(lambda: fluid.io.save_inference_model(
+            model_dir, ["src_ids", "tgt_ids"], [target], exe,
+            main_program=serve))
+    loaded_scope = fluid.Scope()
+    with fluid.scope_guard(loaded_scope):
+        (loaded, feeds, fetches), load_ms = _timed_ms(
+            lambda: fluid.io.load_inference_model(model_dir, exe))
+    predictor, predictor_ms = _timed_ms(
+        lambda: create_paddle_predictor(AnalysisConfig(model_dir)))
+    routes = {
+        "in_memory": lambda f: exe.run(serve, feed=f, fetch_list=[logits],
+                                       scope=scope, return_numpy=False)[0],
+        "loaded": lambda f: exe.run(loaded, feed=f, scope=loaded_scope,
+                                    return_numpy=False)[0],
+        "predictor": lambda f: predictor.run(f, return_numpy=False)[0]}
+    requests = [_request(transformer, BATCH, 256, SEED + i)
+                for i in range(REQUESTS)]
+    for fn in routes.values():
+        fn(requests[0])                       # warm: allocator growth
+    outs = {route: [] for route in routes}
+    request_ms = {route: [] for route in routes}
+    launched = {route: dict.fromkeys(counters, 0) for route in routes}
+    total = dict.fromkeys(counters, 0)
+    for feed in requests:                     # the routes in turns
+        for route, fn in routes.items():
+            _zero(counters)
+            out, ms = _timed_ms(lambda: fn(feed))
+            for k, n in _read(counters).items():
+                launched[route][k] += n
+                total[k] += n
+            outs[route].append(out)
+            request_ms[route].append(ms)
+    want = dict.fromkeys(counters, 0)
+    want["onepass"] = attn * REQUESTS
+    same = {route: all(torch.equal(a, b) for a, b in
+                       zip(outs[route], outs["in_memory"]))
+            for route in ("loaded", "predictor")}
+    shapes_ok = all(tuple(o.shape) == (BATCH, 256, cfg["tgt_vocab"]) and
+                    bool(torch.isfinite(o.float()).all())
+                    for route in outs for o in outs[route])
+
+    # control: one element of proj.w changed in a copy of the artifact
+    faulty_dir = os.path.join(root, "faulty")
+    shutil.copytree(model_dir, faulty_dir)
+    w_file = os.path.join(faulty_dir, "proj.w.bf16.npy")
+    w = np.load(w_file)
+    w[0, 0] += 1.0
+    np.save(w_file, w)
+    faulty_scope = fluid.Scope()
+    with fluid.scope_guard(faulty_scope):
+        faulty, _, _ = fluid.io.load_inference_model(faulty_dir, exe)
+    faulty_out = exe.run(faulty, feed=requests[0], scope=faulty_scope,
+                         return_numpy=False)[0]
+    caught = not torch.equal(faulty_out, outs["in_memory"][0])
+    nbytes = _artifact_bytes(model_dir)
+    shutil.rmtree(root, ignore_errors=True)
+    ok = all(same.values()) and shapes_ok and caught and \
+        all(launched[r] == want for r in routes) and \
+        feeds == ["src_ids", "tgt_ids"] and \
+        [v.name for v in fetches] == [logits]
+    emit({"phase": "inference_serve", "ok": ok, "requests": REQUESTS,
+          "batch": BATCH, "seq_len": 256, "dtype": cfg["dtype"],
+          "save_seconds": save_ms / 1e3, "artifact_bytes": nbytes,
+          "load_seconds": load_ms / 1e3,
+          "predictor_load_seconds": predictor_ms / 1e3,
+          "request_ms": request_ms,
+          "bit_for_bit_with_in_memory": same,
+          "launches": launched, "launches_want": want,
+          "control": {"fault": "proj.w[0, 0] + 1 in a copy of the artifact",
+                      "logits_differ": caught}})
+    if not ok:
+        raise AssertionError("inference_serve failed: same %s, launches %s "
+                             "(want %s), control caught %s"
+                             % (same, launched, want, caught))
+    del exe, scope, loaded_scope, predictor, faulty_scope, outs
+    torch.cuda.empty_cache()
+    return total
+
+
+# Counts the device kernels of one request of each saved model (argv[1]:
+# {label: artifact dir}; argv[2]: the feed's .npy) in a torch.profiler
+# trace, in a fresh process as _COUNT_KERNELS does; prints {label: count}.
+_COUNT_REQUEST_KERNELS = r"""
+import json, sys
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+from paddle_tpu_torch.fluid.inference import (AnalysisConfig,
+                                              create_paddle_predictor)
+feed = {"img": np.load(sys.argv[2])}
+out = {}
+for label, model_dir in json.loads(sys.argv[1]).items():
+    predictor = create_paddle_predictor(AnalysisConfig(model_dir))
+    predictor.run(feed, return_numpy=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        predictor.run(feed, return_numpy=False)
+        torch.cuda.synchronize()
+    out[label] = sum(1 for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+print(json.dumps(out))
+"""
+
+
+def _fold_control(fluid, scope, bn_bias):
+    """The folded program on a scope whose fused biases hold the batch
+    norm's bias alone (the running mean left out)."""
+    faulty = fluid.Scope()
+    faulty._vars = dict(scope._vars)
+    for fused, bias in bn_bias.items():
+        faulty.set(fused, scope.get(fused).new_tensor(bias))
+    return faulty
+
+
+def phase_inference_resnet50(fluid, resnet, counters):
+    """ResNet-50 (flowers, f32, is_test) with running statistics drawn from
+    a seeded numpy generator, saved, loaded, and loaded again and folded by
+    InferenceTranspiler: no batch_norm op left, the folded logits within
+    FOLD_REL_MAX of the unfolded ones; control: the fused biases without
+    the running mean must miss. ms and device kernels a batch of each
+    program. Returns the phase's launches."""
+    import shutil
+    import numpy as np
+    import torch
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _, loss, _ = resnet.build(dataset="flowers", is_test=True)
+    block = main.global_block()
+    logits = block.var([op for op in block.ops
+                        if op.type == "softmax_with_cross_entropy"][0]
+                       .input("Logits")[0])
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    # as tests/test_inference_transpiler.py draws them: means N(0, 0.3^2),
+    # variances U(0.5, 2)
+    rng = np.random.RandomState(SEED)
+    bn_ops = [op for op in block.ops if op.type == "batch_norm"]
+    for op in bn_ops:
+        n = block.var(op.input("Mean")[0]).shape[0]
+        scope.set(op.input("Mean")[0], torch.from_numpy(
+            (rng.randn(n) * 0.3).astype("float32")).cuda())
+        scope.set(op.input("Variance")[0], torch.from_numpy(
+            rng.uniform(0.5, 2.0, n).astype("float32")).cuda())
+    os.makedirs(IO_DIR, exist_ok=True)
+    root = os.path.join(IO_DIR, "resnet50")
+    shutil.rmtree(root, ignore_errors=True)
+    dirs = {"unfolded": os.path.join(root, "unfolded"),
+            "folded": os.path.join(root, "folded")}
+    with fluid.scope_guard(scope):
+        _, save_ms = _timed_ms(lambda: fluid.io.save_inference_model(
+            dirs["unfolded"], ["img"], [logits], exe, main_program=main))
+    del scope
+    scopes, programs = {}, {}
+    for label in ("unfolded", "folded"):
+        scopes[label] = fluid.Scope()
+        with fluid.scope_guard(scopes[label]):
+            (programs[label], _, fetches), load_ms = _timed_ms(
+                lambda: fluid.io.load_inference_model(dirs["unfolded"], exe))
+    fused_bias = {op.output("Y")[0] + ".fused_bn_bias":
+                  scopes["folded"].get(op.input("Bias")[0]).cpu().numpy()
+                  for op in bn_ops}
+    fluid.transpiler.InferenceTranspiler().transpile(
+        programs["folded"], fluid.CUDAPlace(0), scope=scopes["folded"])
+    n_bn = {label: sum(op.type == "batch_norm"
+                       for op in p.global_block().ops)
+            for label, p in programs.items()}
+    with fluid.scope_guard(scopes["folded"]):
+        fluid.io.save_inference_model(
+            dirs["folded"], ["img"], fetches, exe,
+            main_program=programs["folded"])
+    img = resnet.synthetic_batch(RESNET_INFER_BATCH, RESNET_IMAGE,
+                                 RESNET_CLASSES, seed=SEED)["img"]
+    feed = {"img": img}
+    run = lambda label, s=None: exe.run(
+        programs[label], feed=feed, scope=s or scopes[label],
+        return_numpy=False)[0].float()
+    total = dict.fromkeys(counters, 0)
+    out, ms = {}, {label: [] for label in programs}
+    for label in programs:
+        run(label)                            # warm
+    _zero(counters)
+    for _ in range(FOLD_TIMING_ROUNDS):       # in turns
+        for label in programs:
+            out[label], t = _timed_ms(lambda: run(label))
+            ms[label].append(t)
+    launched = _read(counters)
+    for k, n in launched.items():
+        total[k] += n
+    ref = out["unfolded"]
+    scale = float(ref.abs().max())
+    rel_err = float((out["folded"] - ref).abs().max()) / scale
+    top1 = float((out["folded"].argmax(-1) == ref.argmax(-1)).float().mean())
+    faulty = _fold_control(fluid, scopes["folded"], fused_bias)
+    control_err = float((run("folded", faulty) - ref).abs().max()) / scale
+
+    np.save(os.path.join(root, "img.npy"), img)
+    counted = subprocess.run(
+        [sys.executable, "-c", _COUNT_REQUEST_KERNELS, json.dumps(dirs),
+         os.path.join(root, "img.npy")], capture_output=True, text=True,
+        timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if counted.returncode:
+        raise RuntimeError("counting the ResNet-50 kernels failed:\n%s"
+                           % counted.stderr[-3000:])
+    kernels = json.loads(counted.stdout.strip().splitlines()[-1])
+    nbytes = _artifact_bytes(dirs["unfolded"])
+    shutil.rmtree(root, ignore_errors=True)
+    ok = n_bn == {"unfolded": 53, "folded": 0} and rel_err <= FOLD_REL_MAX \
+        and control_err > FOLD_REL_MAX and bool(torch.isfinite(ref).all()) \
+        and launched == dict.fromkeys(counters, 0)
+    emit({"phase": "inference_resnet50", "ok": ok,
+          "batch": RESNET_INFER_BATCH, "image": RESNET_IMAGE,
+          "dtype": "float32", "save_seconds": save_ms / 1e3,
+          "artifact_bytes": nbytes, "load_seconds": load_ms / 1e3,
+          "batch_norm_ops": n_bn, "folded_rel_err": rel_err,
+          "rel_err_max": FOLD_REL_MAX, "top1_agreement": top1,
+          "ms_per_batch": ms, "device_kernels_per_batch": kernels,
+          "port_kernel_launches": launched,
+          "control": {"fault": "fused bias = bn bias (running mean left "
+                               "out)", "rel_err": control_err}})
+    if not ok:
+        raise AssertionError("inference_resnet50 failed: batch norms %s, "
+                             "rel err %g, control %g, launches %s"
+                             % (n_bn, rel_err, control_err, launched))
+    del scopes, programs, faulty
+    torch.cuda.empty_cache()
+    return total
+
+
+def _rel(a, b):
+    import numpy as np
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def phase_checkpoint(fluid, transformer, counters):
+    """The flagship training program (dropout 0.1) at CKPT_BATCH: run A
+    takes CKPT_STEPS steps, save_checkpoint, CKPT_STEPS more; run B
+    load_checkpoint's into a fresh Scope (every persistable and generator
+    state bit for bit the saved one) and takes the same steps, its losses
+    within CKPT_LOSS_REL_MAX of A's. Control: a resume without the
+    generator states, whose dropout masks differ, must miss. Returns the
+    phase's launches."""
+    import shutil
+    import torch
+    cfg = transformer.FLAGSHIP_CFG
+    main, startup, loss = transformer.training_programs(SEED, **cfg)
+    batch = lambda seed: _stacked(transformer.synthetic_batch(
+        CKPT_BATCH, cfg["seq_len"], cfg["tgt_vocab"], seed), CKPT_STEPS)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    _zero(counters)
+    steps = lambda s: exe.run_steps(main, feed=batch(SEED + 1),
+                                    n_steps=CKPT_STEPS, fetch_list=[loss],
+                                    scope=s)[0]
+    exe.run_steps(main, feed=batch(SEED), n_steps=CKPT_STEPS,
+                  fetch_list=[loss], scope=scope)
+    os.makedirs(IO_DIR, exist_ok=True)
+    ckpt = os.path.join(IO_DIR, "ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    with fluid.scope_guard(scope):
+        _, save_ms = _timed_ms(lambda: fluid.io.save_checkpoint(
+            exe, ckpt, main, step=CKPT_STEPS))
+    names = [v.name for v in main.list_vars() if v.persistable and
+             scope.get(v.name) is not None]
+    saved = {n: scope.get(n).clone() for n in names}
+    gens = {k: g.get_state() for k, g in scope._generators.items()}
+    run_a = steps(scope)
+    nbytes = _artifact_bytes(ckpt)
+    resumed = fluid.Scope()
+    with fluid.scope_guard(resumed):
+        meta, load_ms = _timed_ms(
+            lambda: fluid.io.load_checkpoint(exe, ckpt, main))
+    state_equal = all(torch.equal(resumed.get(n), saved[n]) for n in names)
+    gens_equal = set(resumed._generators) == set(gens) and all(
+        torch.equal(resumed._generators[k].get_state(), s)
+        for k, s in gens.items())
+    devices = sorted({str(resumed.get(n).device) for n in names})
+    run_b = steps(resumed)
+    control = fluid.Scope()
+    with fluid.scope_guard(control):
+        fluid.io.load_checkpoint(exe, ckpt, main)
+    control._generators.clear()
+    run_c = steps(control)
+    launched = _read(counters)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    rel_b, rel_c = _rel(run_b, run_a), _rel(run_c, run_a)
+    ok = state_equal and gens_equal and meta.get("step") == CKPT_STEPS and \
+        rel_b <= CKPT_LOSS_REL_MAX and rel_c > CKPT_LOSS_REL_MAX and \
+        devices == [str(exe.device)]
+    emit({"phase": "checkpoint", "ok": ok, "batch": CKPT_BATCH,
+          "seq_len": cfg["seq_len"], "dropout_rate": cfg["dropout_rate"],
+          "persistables": len(names), "generators": len(gens),
+          "checkpoint_bytes": nbytes, "save_seconds": save_ms / 1e3,
+          "load_seconds": load_ms / 1e3, "state_bit_for_bit": state_equal,
+          "generators_bit_for_bit": gens_equal, "loaded_on": devices,
+          "losses_a": run_a.tolist(), "losses_b": run_b.tolist(),
+          "loss_rel_err": rel_b, "rel_err_max": CKPT_LOSS_REL_MAX,
+          "control": {"fault": "resume without the generator states",
+                      "losses": run_c.tolist(), "loss_rel_err": rel_c},
+          "launches": launched})
+    if not ok:
+        raise AssertionError("checkpoint failed: state %s, generators %s, "
+                             "loss rel %g, control %g, devices %s"
+                             % (state_equal, gens_equal, rel_b, rel_c,
+                                devices))
+    del exe, scope, resumed, control, saved
+    torch.cuda.empty_cache()
+    return launched
+
+
 def _path_numbers(s, path):
     """A kernel's numbers over a path's mix of cases (weighted means)."""
     w = s["weight"]
@@ -2602,6 +2992,12 @@ def main():
         add(_resnet_phase("resnet50_kernels", fluid, resnet, counters,
                           resnet.RESNET_BENCH_BATCH, 2))
     phase_resnet_parity(fluid, resnet, counters)
+
+    # a trained or built model saved, loaded, resumed and served
+    add(phase_inference_serve(fluid, transformer, counters))
+    with fluid.unique_name.guard():
+        add(phase_inference_resnet50(fluid, resnet, counters))
+    add(phase_checkpoint(fluid, transformer, counters))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

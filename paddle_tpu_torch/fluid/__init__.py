@@ -1,6 +1,7 @@
 """paddle_tpu_torch.fluid — the Fluid front-end on PyTorch: Program IR built by
 fluid.layers, trained through append_backward and fluid.optimizer, run by an
-Executor on one torch.device (the card by default)."""
+Executor on one torch.device (the card by default), saved, loaded and served
+through fluid.io, fluid.transpiler and fluid.inference."""
 from . import core_types
 from . import unique_name
 from . import framework
@@ -24,6 +25,12 @@ from .clip import (GradientClipByValue, GradientClipByNorm,
                    GradientClipByGlobalNorm, set_gradient_clip)
 from .executor import Executor, Scope, global_scope, scope_guard
 from .interop import params_from_numpy
+from . import io
+from .io import save_vars, save_params, save_persistables, load_vars, \
+    load_params, load_persistables, save_inference_model, load_inference_model
+from . import transpiler
+from .transpiler import memory_optimize, release_memory
+from . import inference
 
 __all__ = framework.__all__ + [
     "ops", "initializer", "ParamAttr", "layers", "LayerHelper", "backward",
@@ -31,4 +38,8 @@ __all__ = framework.__all__ + [
     "GradientClipByValue", "GradientClipByNorm", "GradientClipByGlobalNorm",
     "set_gradient_clip",
     "Executor", "Scope", "global_scope", "scope_guard", "params_from_numpy",
+    "io", "save_vars", "save_params", "save_persistables", "load_vars",
+    "load_params", "load_persistables", "save_inference_model",
+    "load_inference_model", "transpiler", "memory_optimize",
+    "release_memory", "inference",
 ]

@@ -21,6 +21,10 @@ did for free is done here by a per-(program, fetch list) plan:
 ``run_steps`` runs a training program over stacked feeds, one eager step
 after another.
 
+Host ops (``feed`` and ``fetch`` here; ``save`` and ``load`` in io.py) run
+on the host through ``register_host_handler``, always, in their place in
+the block, as the JAX executor runs them between its device segments.
+
 ``Executor()`` runs on ``CUDAPlace(0)`` and raises when there is no card;
 the CPU is used only when the caller passes ``CPUPlace()``.
 """
@@ -37,9 +41,11 @@ from .framework import Variable, default_main_program
 from .interop import tensor_from_numpy
 from .ops.grad_ops import record_forward
 from .ops.registry import (LoweringContext, group_key, is_host_op,
-                           lower_group, lower_op, paired_forward)
+                           lower_group, lower_op, mark_host_op,
+                           paired_forward)
 
-__all__ = ["Executor", "Scope", "global_scope", "scope_guard", "as_numpy"]
+__all__ = ["Executor", "Scope", "global_scope", "scope_guard", "as_numpy",
+           "register_host_handler"]
 
 
 class Scope(object):
@@ -119,6 +125,43 @@ def as_numpy(value):
     if value.dtype == torch.bfloat16:
         value = value.float()
     return value.numpy()
+
+
+# host-side op handlers: op type -> fn(executor, op, state), where state is
+# the run's _RunState
+_HOST_HANDLERS = {}
+
+
+def register_host_handler(op_type):
+    def deco(fn):
+        _HOST_HANDLERS[op_type] = fn
+        mark_host_op(op_type)
+        return fn
+    return deco
+
+
+class _RunState(object):
+    """What a host op of one run() sees: the run's values (env), its feed
+    dict, scope and program, and the values its fetch ops collected."""
+
+    def __init__(self, env, feed, scope, program):
+        self.env = env
+        self.feed = feed
+        self.scope = scope
+        self.program = program
+        self.fetch_results = []
+
+
+@register_host_handler("feed")
+def _handle_feed(exe, op, st):
+    out = op.output("Out")[0]
+    if out not in st.feed:
+        raise ValueError("feed op output %r missing from feed dict" % out)
+
+
+@register_host_handler("fetch")
+def _handle_fetch(exe, op, st):
+    st.fetch_results.append(exe._fetch(st.env, st.scope, op.input("X")[0]))
 
 
 def _fetch_names(fetch_list):
@@ -206,14 +249,16 @@ def _runs(ops, taped):
 
 
 class _Plan(object):
-    """The ops a run must execute, for each op the output slots that a later
-    op or a fetch reads or that are persistable (a lowering may skip the
-    others), and after each op the names no later op or fetch reads. Each
+    """The ops a run must execute (every host op among them), for each op
+    the output slots that a later op or a fetch reads or that are
+    persistable (a lowering may skip the others), and after each op the
+    names no later op or fetch reads. A plan for run_steps (``steps``)
+    leaves the feed and fetch ops out and refuses any other host op. Each
     ``grad_of`` op is paired with its forward op, which the run tapes
     (ops/grad_ops.py): a kept grad op keeps its forward op. Runs of ops with
     a group lowering (``runs``: first step -> its steps) run as one call."""
 
-    def __init__(self, program, fetch_names):
+    def __init__(self, program, fetch_names, steps=False):
         block = program.global_block()
         self.rng_fp = _program_rng_fp(program)
 
@@ -222,13 +267,20 @@ class _Plan(object):
             return meta is not None and meta.persistable
 
         ops = block.ops
+        if steps:
+            ops = [op for op in ops if op.type not in ("feed", "fetch")]
+            host = sorted({op.type for op in ops if is_host_op(op.type)})
+            if host:
+                raise NotImplementedError(
+                    "run_steps cannot cross host op(s) %s; use run()" % host)
         pairs = _pair_grad_ops(ops)
         needed = set(fetch_names)
         forced, kept_idx = set(), []
         for i in range(len(ops) - 1, -1, -1):
             op = ops[i]
-            if i in forced or any(o in needed or persistable(o)
-                                  for o in op.output_arg_names):
+            if i in forced or is_host_op(op.type) or \
+                    any(o in needed or persistable(o)
+                        for o in op.output_arg_names):
                 kept_idx.append(i)
                 needed.update(n for n in op.input_arg_names if n != "@EMPTY@")
                 if i in pairs:
@@ -262,8 +314,7 @@ class _Plan(object):
         self.in_run = {j for run in self.runs.values() for j in run[1:]}
         self.persistable = {n for op in kept for n in op.output_arg_names
                             if persistable(n)}
-        self.host_ops = sorted({op.type for op in kept
-                                if is_host_op(op.type)})
+        self.host = {k for k, op in enumerate(kept) if is_host_op(op.type)}
 
 
 class Executor(object):
@@ -279,16 +330,19 @@ class Executor(object):
         self.device = self.place.torch_device()
         self._plans = {}
 
-    def _plan(self, program, fetch_names):
-        key = (program.id, program.version, tuple(fetch_names))
+    def _plan(self, program, fetch_names, steps=False):
+        key = (program.id, program.version, tuple(fetch_names), steps)
         plan = self._plans.get(key)
         if plan is None:
-            plan = self._plans[key] = _Plan(program, fetch_names)
+            plan = self._plans[key] = _Plan(program, fetch_names, steps)
         return plan
 
     def run(self, program=None, feed=None, fetch_list=None,
             feed_var_name="feed", fetch_var_name="fetch", scope=None,
             return_numpy=True, use_program_cache=True):
+        """Run ``program`` once. Returns the values of its fetch ops (a
+        program loaded by io.load_inference_model has them) followed by
+        those of ``fetch_list``, as the JAX executor does."""
         if program is None:
             program = default_main_program()
         scope = scope if scope is not None else global_scope()
@@ -298,8 +352,10 @@ class Executor(object):
         env = {n: self._to_device(v, block.vars.get(n))
                for n, v in (feed or {}).items()}
         gen = self._generator(scope, program, plan.rng_fp)
-        self._run_step(plan, env, scope, block, gen, program._is_test)
-        results = [self._fetch(env, scope, n) for n in fetch_names]
+        st = _RunState(env, feed or {}, scope, program)
+        self._run_step(plan, env, scope, block, gen, program._is_test, st)
+        results = st.fetch_results + [self._fetch(env, scope, n)
+                                      for n in fetch_names]
         if return_numpy:
             results = [as_numpy(r) for r in results]
         return results
@@ -312,17 +368,14 @@ class Executor(object):
         from the run's generator, and the parameters, moments and beta
         powers in the scope are updated after every step. Fetches come
         back stacked the same way. The step loop runs eagerly on the host.
-        Host ops cannot run inside the loop: use run()."""
+        A program's feed and fetch ops are skipped; any other host op
+        cannot run inside the loop: use run()."""
         if program is None:
             program = default_main_program()
         scope = scope if scope is not None else global_scope()
         fetch_names = _fetch_names(fetch_list)
         block = program.global_block()
-        plan = self._plan(program, fetch_names)
-        if plan.host_ops:
-            raise NotImplementedError(
-                "run_steps cannot cross host op(s) %s; use run()"
-                % plan.host_ops)
+        plan = self._plan(program, fetch_names, steps=True)
         stacked = {}
         for name, value in (feed or {}).items():
             shape = tuple(value.shape) if hasattr(value, "shape") \
@@ -348,10 +401,11 @@ class Executor(object):
             results = [as_numpy(r) for r in results]
         return results
 
-    def _run_step(self, plan, env, scope, block, gen, is_test):
+    def _run_step(self, plan, env, scope, block, gen, is_test, st=None):
         """Run the plan once on env; taped forward ops keep their autograd
-        record until their grad_of consumes it, and each run of grouped ops
-        goes through its group lowering in one call."""
+        record until their grad_of consumes it, each run of grouped ops
+        goes through its group lowering in one call, and each host op
+        through its handler on the run's state ``st``."""
         ctx = LoweringContext(self.device, gen, is_test=is_test)
         tape = {}
         with torch.no_grad():
@@ -359,6 +413,15 @@ class Executor(object):
                 if k in plan.in_run:
                     continue
                 run = plan.runs.get(k, (k,))
+                if k in plan.host:
+                    handler = _HOST_HANDLERS.get(op.type)
+                    if handler is None:
+                        raise NotImplementedError(
+                            "host op %r has no handler" % op.type)
+                    handler(self, op, st)
+                    for n in drop:
+                        env.pop(n, None)
+                    continue
                 for j in run:
                     for n in plan.steps[j][0].input_arg_names:
                         if n not in env and n != "@EMPTY@":

@@ -4,10 +4,15 @@ The port's copy of ``paddle_tpu/fluid/flags.py``: the same ``FLAGS_*``
 names, types and defaults for the flags the ported modules read, so one
 environment configures both packages alike. Flags of modules not yet
 ported join the table with those modules.
+
+Also hosts ``warn_noop(...)``: a one-time warning when a knob kept for the
+reference's scripts (memory_optimize, release_memory) does nothing in the
+port, with the same message form as the JAX package's.
 """
 import os
+import warnings
 
-__all__ = ["get", "WHITELIST"]
+__all__ = ["get", "warn_noop", "WHITELIST"]
 
 # name (without FLAGS_ prefix) -> (type, default, help)
 WHITELIST = {
@@ -57,3 +62,16 @@ def get(name, default=None):
     if typ is bool:
         return raw.lower() not in ("", "0", "false", "no")
     return typ(raw)
+
+
+_warned = set()
+
+
+def warn_noop(feature, why):
+    """One-time warning that a configured knob is a documented no-op."""
+    if feature in _warned:
+        return
+    _warned.add(feature)
+    warnings.warn(
+        "%s is a no-op in the PyTorch build: %s" % (feature, why),
+        stacklevel=3)

@@ -300,6 +300,19 @@ class Block(object):
         self.program._bump_version()
         return op
 
+    def prepend_op(self, type, inputs=None, outputs=None, attrs=None):
+        return self.insert_op(0, type, inputs, outputs, attrs)
+
+    def insert_op(self, index, type, inputs=None, outputs=None, attrs=None):
+        op = Operator(self, type=type, inputs=inputs, outputs=outputs, attrs=attrs)
+        self.ops.insert(index, op)
+        self.program._bump_version()
+        return op
+
+    def remove_op(self, index):
+        self.ops.pop(index)
+        self.program._bump_version()
+
     def to_dict(self):
         return {"idx": self.idx, "parent_idx": self.parent_idx,
                 "forward_block_idx": self.forward_block_idx,
@@ -344,6 +357,11 @@ class Program(object):
 
     def block(self, index):
         return self.blocks[index]
+
+    def list_vars(self):
+        for b in self.blocks:
+            for v in b.vars.values():
+                yield v
 
     def all_parameters(self):
         return self.global_block().all_parameters()
@@ -428,10 +446,45 @@ class Program(object):
         p.current_block_idx = 0
         return p
 
+    def serialize_to_string(self):
+        """framework.proto wire bytes, the reference's model-file format
+        (proto/program_desc.py), byte for byte what the JAX package writes
+        for the same Program."""
+        from .proto import program_to_bytes
+        return program_to_bytes(self)
+
+    def serialize_to_json(self):
+        """The JSON debug form (to_dict), which parse_from_string reads."""
+        return json.dumps(self.to_dict(), default=_json_default).encode("utf-8")
+
+    @staticmethod
+    def parse_from_string(binary_str):
+        """Accepts framework.proto bytes (the model-file format) or the JSON
+        debug form (auto-detected: a ProgramDesc never starts with '{' — tag
+        0x7b would be field 15 group-start, absent from the schema). The
+        proto form carries no Parameter flag: its vars come back as
+        Variables, as in the JAX package."""
+        if isinstance(binary_str, str):
+            binary_str = binary_str.encode("utf-8")
+        if binary_str[:1] == b"{":
+            return Program.from_dict(json.loads(binary_str.decode("utf-8")))
+        from .proto import program_from_bytes
+        return program_from_bytes(binary_str)
+
     def __repr__(self):
         return "\n".join(repr(b) for b in self.blocks)
 
     __str__ = __repr__
+
+
+def _json_default(o):
+    if isinstance(o, np.ndarray):
+        return {"__ndarray__": o.tolist(), "dtype": str(o.dtype)}
+    if isinstance(o, np.integer):
+        return int(o)
+    if isinstance(o, np.floating):
+        return float(o)
+    raise TypeError("not JSON-serializable: %r" % (o,))
 
 
 # ---- default programs ----

@@ -1,10 +1,11 @@
 """Data layers (the port's counterpart of ``paddle_tpu/fluid/layers/io.py``):
-``data`` declares a feed variable. Ragged (lod_level > 0) inputs come with
-a later slice."""
+``data`` declares a feed variable, ``load`` emits a load host op (run by
+fluid/io.py's handler). Ragged (lod_level > 0) inputs come with a later
+slice."""
 from ..core_types import VarType, convert_dtype
 from ..layer_helper import LayerHelper
 
-__all__ = ["data"]
+__all__ = ["data", "load"]
 
 
 def data(name, shape, append_batch_size=True, dtype="float32", lod_level=0,
@@ -20,3 +21,13 @@ def data(name, shape, append_batch_size=True, dtype="float32", lod_level=0,
         name=name, shape=shape, dtype=convert_dtype(dtype),
         type=type, stop_gradient=stop_gradient, lod_level=lod_level,
         is_data=True)
+
+
+def load(out, file_path, load_as_fp16=None):
+    """Emit a load op filling `out` from file_path (reference load_op.cc)."""
+    from ..framework import default_main_program
+    default_main_program().global_block().append_op(
+        type="load", inputs={}, outputs={"Out": [out]},
+        attrs={"file_path": file_path,
+               "load_as_fp16": bool(load_as_fp16)})
+    return out

@@ -28,7 +28,7 @@ __all__ = [
     "register_group_lowering", "group_key", "lower_group",
     "register_grad_maker", "get_grad_maker", "has_grad_maker",
     "maker_wants_og", "register_paired_grad", "paired_forward",
-    "mark_no_grad", "is_no_grad", "is_host_op",
+    "mark_no_grad", "is_no_grad", "mark_host_op", "is_host_op",
     "LoweringContext", "infer_outputs", "lower_op",
 ]
 
@@ -171,6 +171,10 @@ def mark_no_grad(op_type):
 
 def is_no_grad(op_type):
     return op_type in _NO_GRAD_OPS
+
+
+def mark_host_op(op_type):
+    _HOST_OPS.add(op_type)
 
 
 def is_host_op(op_type):

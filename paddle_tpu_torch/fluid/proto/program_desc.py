@@ -1,0 +1,321 @@
+"""ProgramDesc <-> framework.proto wire bytes.
+
+The port's copy of ``paddle_tpu/fluid/proto/program_desc.py``: the same
+schema tables, enums, sentinels and conversions, so a Program built by the
+port serializes to the same bytes as the JAX package's. Schema tables mirror
+framework.proto (same field numbers as the reference's
+paddle/fluid/framework/framework.proto:43-188 — that IS the interchange
+contract); conversion maps our Python IR (framework.Program) onto
+the proto structures. JSON (Program.to_dict) remains the debug form; this is
+the model-file form written by save_inference_model (`__model__`).
+"""
+import base64
+import io as _io
+import json
+
+import numpy as np
+
+from .wire import Schema, encode, decode
+
+# ---- AttrType enum ----
+INT, FLOAT, STRING, INTS, FLOATS, STRINGS = 0, 1, 2, 3, 4, 5
+BOOLEAN, BOOLEANS, BLOCK, LONG, BLOCKS, LONGS = 6, 7, 8, 9, 10, 11
+
+# ---- VarType.Type enum ----
+_DTYPE_TO_ENUM = {
+    "bool": 0, "int16": 1, "int32": 2, "int64": 3, "float16": 4,
+    "float32": 5, "float64": 6, "uint8": 20, "int8": 21, "bfloat16": 22,
+}
+_ENUM_TO_DTYPE = {v: k for k, v in _DTYPE_TO_ENUM.items()}
+
+_VARTYPE_TO_ENUM = {
+    "lod_tensor": 7, "selected_rows": 8, "feed_minibatch": 9,
+    "fetch_list": 10, "step_scopes": 11, "lod_rank_table": 12,
+    "lod_tensor_array": 13, "reader": 15, "raw": 17,
+}
+_ENUM_TO_VARTYPE = {v: k for k, v in _VARTYPE_TO_ENUM.items()}
+
+# ---- schemas (field numbers = reference framework.proto) ----
+VERSION = Schema("Version", [(1, "version", "opt", "int64")])
+
+OP_ATTR = Schema("OpDesc.Attr", [
+    (1, "name", "req", "string"),
+    (2, "type", "req", "enum"),
+    (3, "i", "opt", "int32"),
+    (4, "f", "opt", "float"),
+    (5, "s", "opt", "string"),
+    (6, "ints", "rep", "int32"),
+    (7, "floats", "rep", "float"),
+    (8, "strings", "rep", "string"),
+    (10, "b", "opt", "bool"),
+    (11, "bools", "rep", "bool"),
+    (12, "block_idx", "opt", "int32"),
+    (13, "l", "opt", "int64"),
+    (14, "blocks_idx", "rep", "int32"),
+    (15, "longs", "rep", "int64"),
+])
+
+OP_VAR = Schema("OpDesc.Var", [
+    (1, "parameter", "req", "string"),
+    (2, "arguments", "rep", "string"),
+])
+
+OP_DESC = Schema("OpDesc", [
+    (1, "inputs", "rep", OP_VAR),
+    (2, "outputs", "rep", OP_VAR),
+    (3, "type", "req", "string"),
+    (4, "attrs", "rep", OP_ATTR),
+    (5, "is_target", "opt", "bool"),
+])
+
+TENSOR_DESC = Schema("VarType.TensorDesc", [
+    (1, "data_type", "req", "enum"),
+    (2, "dims", "rep", "int64"),
+])
+
+LOD_TENSOR_DESC = Schema("VarType.LoDTensorDesc", [
+    (1, "tensor", "req", TENSOR_DESC),
+    (2, "lod_level", "opt", "int32"),
+])
+
+READER_DESC = Schema("VarType.ReaderDesc", [
+    (1, "lod_tensor", "rep", LOD_TENSOR_DESC),
+])
+
+VAR_TYPE = Schema("VarType", [
+    (1, "type", "req", "enum"),
+    (2, "selected_rows", "opt", TENSOR_DESC),
+    (3, "lod_tensor", "opt", LOD_TENSOR_DESC),
+    (4, "tensor_array", "opt", LOD_TENSOR_DESC),
+    (5, "reader", "opt", READER_DESC),
+])
+
+VAR_DESC = Schema("VarDesc", [
+    (1, "name", "req", "string"),
+    (2, "type", "req", VAR_TYPE),
+    (3, "persistable", "opt", "bool"),
+])
+
+BLOCK_DESC = Schema("BlockDesc", [
+    (1, "idx", "req", "int32"),
+    (2, "parent_idx", "req", "int32"),
+    (3, "vars", "rep", VAR_DESC),
+    (4, "ops", "rep", OP_DESC),
+    (5, "forward_block_idx", "opt", "int32"),
+])
+
+PROGRAM_DESC = Schema("ProgramDesc", [
+    (1, "blocks", "rep", BLOCK_DESC),
+    (2, "version", "opt", VERSION),
+])
+
+_NDARRAY_PREFIX = "__ndarray__:"
+_JSON_PREFIX = "__json__:"
+_INT32_MAX = (1 << 31) - 1
+_INT32_MIN = -(1 << 31)
+
+
+# ---- attr conversion ------------------------------------------------------
+
+def _is_torch_value(v):
+    return type(v).__module__.split(".")[0] == "torch"
+
+
+def _attr_to_pb(name, v):
+    """One attr as an OpDesc.Attr dict. The type follows the value exactly
+    as in the JAX package (INT or LONG by value, BOOLEAN before INT, FLOATS
+    for a mixed int and float list), so a torch value must never get here:
+    a 0-d tensor would land in the JSON fallback and change the bytes. The
+    port's layers store Python and numpy values only (shapes inferred on
+    meta tensors become ints in layer_helper.infer_shapes_for_op)."""
+    from .. import framework
+    if _is_torch_value(v) or (isinstance(v, (list, tuple)) and
+                              any(_is_torch_value(x) for x in v)):
+        raise TypeError("attr %r holds a torch value %r; store Python or "
+                        "numpy values in op attrs" % (name, v))
+    a = {"name": name}
+    if isinstance(v, framework.Block):
+        a["type"] = BLOCK
+        a["block_idx"] = v.idx
+    elif isinstance(v, bool) or isinstance(v, np.bool_):
+        a["type"] = BOOLEAN
+        a["b"] = bool(v)
+    elif isinstance(v, (int, np.integer)):
+        v = int(v)
+        if _INT32_MIN <= v <= _INT32_MAX:
+            a["type"] = INT
+            a["i"] = v
+        else:
+            a["type"] = LONG
+            a["l"] = v
+    elif isinstance(v, (float, np.floating)):
+        a["type"] = FLOAT
+        a["f"] = float(v)
+    elif isinstance(v, str):
+        a["type"] = STRING
+        a["s"] = v
+    elif isinstance(v, np.ndarray):
+        # our extension (reference-era attrs never carry tensors): npy bytes
+        # behind a sentinel STRING so foreign readers see a plain attr
+        buf = _io.BytesIO()
+        np.save(buf, v, allow_pickle=False)
+        a["type"] = STRING
+        a["s"] = _NDARRAY_PREFIX + base64.b64encode(buf.getvalue()).decode()
+    elif isinstance(v, (list, tuple)):
+        vs = list(v)
+        if all(isinstance(x, bool) for x in vs):
+            a["type"] = BOOLEANS
+            a["bools"] = vs
+        elif all(isinstance(x, (int, np.integer)) for x in vs):
+            vs = [int(x) for x in vs]
+            if all(_INT32_MIN <= x <= _INT32_MAX for x in vs):
+                a["type"] = INTS
+                a["ints"] = vs
+            else:
+                a["type"] = LONGS
+                a["longs"] = vs
+        elif all(isinstance(x, str) for x in vs):
+            a["type"] = STRINGS
+            a["strings"] = vs
+        elif all(isinstance(x, (int, float, np.integer, np.floating))
+                 for x in vs):
+            a["type"] = FLOATS
+            a["floats"] = [float(x) for x in vs]
+        else:
+            a["type"] = STRING
+            a["s"] = _JSON_PREFIX + json.dumps(vs, default=str)
+    else:
+        # last resort: JSON behind a sentinel (e.g. dicts from contrib code)
+        a["type"] = STRING
+        a["s"] = _JSON_PREFIX + json.dumps(v, default=str)
+    return a
+
+
+def _attr_from_pb(a):
+    t = a["type"]
+    if t == INT:
+        return a.get("i", 0)
+    if t == LONG:
+        return a.get("l", 0)
+    if t == FLOAT:
+        return a.get("f", 0.0)
+    if t == BOOLEAN:
+        return a.get("b", False)
+    if t == STRING:
+        s = a.get("s", "")
+        if s.startswith(_NDARRAY_PREFIX):
+            raw = base64.b64decode(s[len(_NDARRAY_PREFIX):])
+            return np.load(_io.BytesIO(raw), allow_pickle=False)
+        if s.startswith(_JSON_PREFIX):
+            return json.loads(s[len(_JSON_PREFIX):])
+        return s
+    if t == INTS:
+        return list(a.get("ints", []))
+    if t == LONGS:
+        return list(a.get("longs", []))
+    if t == FLOATS:
+        return list(a.get("floats", []))
+    if t == STRINGS:
+        return list(a.get("strings", []))
+    if t == BOOLEANS:
+        return list(a.get("bools", []))
+    if t == BLOCK:
+        return a.get("block_idx", -1)  # resolved lazily by Operator users
+    if t == BLOCKS:
+        return list(a.get("blocks_idx", []))
+    raise ValueError("unsupported attr type %d for %r" % (t, a.get("name")))
+
+
+# ---- var conversion -------------------------------------------------------
+
+def _var_to_pb(v):
+    from ..core_types import VarType as VT
+    d = {"name": v.name, "persistable": bool(v.persistable)}
+    vt_enum = _VARTYPE_TO_ENUM.get(v.type, 7)
+    vt = {"type": vt_enum}
+    if v.shape is not None or v.dtype is not None:
+        tensor = {"data_type": _DTYPE_TO_ENUM.get(v.dtype, 5),
+                  "dims": [int(s) for s in (v.shape or ())]}
+        desc = {"tensor": tensor, "lod_level": int(v.lod_level or 0)}
+        if v.type == VT.LOD_TENSOR_ARRAY:
+            vt["tensor_array"] = desc
+        elif v.type == VT.SELECTED_ROWS:
+            vt["selected_rows"] = tensor
+        elif v.type not in (VT.READER, VT.RAW, VT.STEP_SCOPES,
+                            VT.LOD_RANK_TABLE):
+            vt["lod_tensor"] = desc
+    d["type"] = vt
+    return d
+
+
+def _var_from_pb(d):
+    vt = d.get("type", {})
+    enum = vt.get("type", 7)
+    out = {"name": d["name"], "persistable": d.get("persistable", False),
+           "type": _ENUM_TO_VARTYPE.get(enum, "lod_tensor"),
+           "shape": None, "dtype": None, "lod_level": 0}
+    desc = vt.get("lod_tensor") or vt.get("tensor_array")
+    tensor = desc["tensor"] if desc else vt.get("selected_rows")
+    if tensor is not None:
+        out["shape"] = [int(x) for x in tensor.get("dims", [])]
+        out["dtype"] = _ENUM_TO_DTYPE.get(tensor.get("data_type", 5))
+        if desc:
+            out["lod_level"] = desc.get("lod_level", 0)
+    return out
+
+
+# ---- program conversion ---------------------------------------------------
+
+def program_to_bytes(program):
+    from .. import framework
+    blocks = []
+    for b in program.blocks:
+        ops = []
+        for op in b.ops:
+            attrs = [_attr_to_pb(k, v) for k, v in op.attrs.items()
+                     if v is not None]
+            ops.append({
+                "type": op.type,
+                "inputs": [{"parameter": slot, "arguments": list(names)}
+                           for slot, names in op.inputs.items()],
+                "outputs": [{"parameter": slot, "arguments": list(names)}
+                            for slot, names in op.outputs.items()],
+                "attrs": attrs,
+            })
+        blocks.append({
+            "idx": b.idx,
+            "parent_idx": b.parent_idx,
+            "forward_block_idx": b.forward_block_idx,
+            "vars": [_var_to_pb(v) for v in b.vars.values()],
+            "ops": ops,
+        })
+    return encode(PROGRAM_DESC, {"blocks": blocks,
+                                 "version": {"version": 0}})
+
+
+def program_from_bytes(data):
+    from .. import framework
+    pb = decode(PROGRAM_DESC, data)
+    p = framework.Program()
+    p.blocks = []
+    for bd in pb.get("blocks", []):
+        b = framework.Block(p, bd["idx"], bd.get("parent_idx", -1))
+        fwd = bd.get("forward_block_idx")
+        b.forward_block_idx = -1 if fwd is None else fwd
+        for vd in bd.get("vars", []):
+            v = framework.Variable.from_dict(b, _var_from_pb(vd))
+            b.vars[v.name] = v
+        p.blocks.append(b)
+    for b, bd in zip(p.blocks, pb.get("blocks", [])):
+        for od in bd.get("ops", []):
+            attrs = {a["name"]: _attr_from_pb(a) for a in od.get("attrs", [])}
+            inputs = {v["parameter"]: list(v.get("arguments", []))
+                      for v in od.get("inputs", [])}
+            outputs = {v["parameter"]: list(v.get("arguments", []))
+                       for v in od.get("outputs", [])}
+            b.ops.append(framework.Operator(b, od["type"], inputs, outputs,
+                                            attrs))
+    if not p.blocks:
+        p.blocks = [framework.Block(p, 0)]
+    p.current_block_idx = 0
+    return p
