@@ -81,6 +81,23 @@ non-zero exit):
               and 1 Adam kernel (67 parameters).
 11. train_parity_wide - train_parity's check (flags off) at the wide width,
               1+1 layers, batch 2, dropout 0.
+11b. train256_recipe - train256 under the Fluid Transformer's recipe
+              (PaddlePaddle/models transformer config.py), built through
+              the public API: transformer.build(label_smooth_eps=0.1), then
+              Adam(noam_decay(512, 8000) * 2.0, beta1 0.9, beta2 0.997,
+              epsilon 1e-9).minimize; bench.py's config and batch, nothing
+              cut, one warm step then 4 through run_steps. Each step must
+              launch 12 one-pass forward, 12 one-pass backward and 1 Adam
+              kernel (67 parameters) and no cross-entropy kernel (soft
+              labels); the learning rate fetched at each step must lie
+              within 1e-6 of 2 * 512^-0.5 * min(s^-0.5, s * 8000^-1.5),
+              @LR_DECAY_COUNTER@ after the window must equal the steps run,
+              and one more step may wait for the card only in the
+              executor (torch.cuda.set_sync_debug_mode's report).
+11c. recipe_parity - the recipe at 1 + 1 layers, full width, dropout 0,
+              batch 2: one step on the card and on the CPU within
+              train_parity's limits; control: label_smooth's epsilon 0 (the
+              raw one-hot) on the card.
 12. bert_base - bench.py's BERT-base leg (vocab 30,522, 12 layers, 12
               heads, d_model 768, d_ff 3072, seq 128, dropout 0.1, bf16,
               Adam(1e-4)) at batch 256: one warm step, then 4 steps
@@ -176,23 +193,38 @@ non-zero exit):
               the kernel cases hold against the plain version.
               Then the mnist MLP for 3 steps on the card and on the CPU
               from the same parameters: losses within 1e-5 relative.
+27. optimizers - every other Fluid optimizer (LarsMomentum, Adagrad dense
+              and sparse on an is_sparse embedding, Adamax, DecayedAdagrad,
+              Adadelta, RMSProp plain and centered with momentum, Ftrl at
+              lr_power -0.5 and -0.7), ModelAverage (5 steps, apply and
+              restore) and append_LARS with Momentum on the mnist MLP in
+              float32, 3 steps in lockstep with the CPU (as resnet_parity):
+              each step's loss within 1e-5 relative, and each op replayed
+              on the card from the CPU's inputs within RESNET_OP_TOL;
+              control: RMSProp's decay changed on the card. Then each
+              learning-rate schedule for 12 steps on the card against its
+              closed form (within 1e-6 of its largest rate) and its step
+              counter.
 
 The kernel cases also time rows 1, 3, 8 and 11 at BERT-base's shapes
 (attention at batch 256, 12 heads, seq 128, D 64; LayerNorm on [32768,
 768]; Adam over its 74 parameters in 2 launches), row 11 at
-SE-ResNeXt-50's (its 19 parameters in one launch), and each kernel the zoo
+SE-ResNeXt-50's (its 19 parameters in one launch) and at the recipe's
+constants (RECIPE_ADAM_CASES: the flagship's 67 parameters at beta2 0.997,
+epsilon 1e-9 and an lr_t near 1e-7, bit for bit), and each kernel the zoo
 phase runs at its float32 shapes: rows 1 and 3 at the tool's transformer's
 (batch 64, 8 heads, seq 128, D 64), row 11 over the parameters each zoo
 model's step gives the kernel (ZOO_ADAM_CASES). Then it prints the card's
 name and power limit (nvidia-smi), one JSON line with every kernel's
 numbers (with a "bert_base" entry where a kernel runs at BERT-base's
-shapes, a "se_resnext50" one for Adam, and a "zoo_<model>" one where a
-kernel runs in that zoo model), and last {"ok": true, "device": {...}}. It imports nothing of JAX or of the JAX package
+shapes, "se_resnext50" and "train256_recipe" ones for Adam, and a
+"zoo_<model>" one where a kernel runs in that zoo model), and last {"ok": true, "device": {...}}. It imports nothing of JAX or of the JAX package
 paddle_tpu.
 """
 import contextlib
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -484,6 +516,15 @@ ZOO_ADAM_CASES = {
 ADAM_MOMENT_TOL = (1e-5, 1e-7)
 ADAM_P_RTOL = {"bfloat16": 2.0 ** -7, "float32": 2.0 ** -23}
 ADAM_HPARAMS = (0.9, 0.999, 1e-8)
+# the Fluid Transformer recipe's Adam (PaddlePaddle/models transformer
+# config.py: beta2 0.997, epsilon 1e-9) over the flagship's 67 admitted
+# parameters, at an lr_t of the Noam rate's magnitude at d_model 512 and
+# warmup 8000 (2 * 512^-0.5 * 8000^-1.5 * s * sqrt(1 - b2^s) / (1 - b1^s)
+# is about 7e-8 a step early on): the kernel folds 1 - beta in double, so
+# these constants are held bit for bit as ADAM_CASES are
+RECIPE_ADAM_CASES = [case for case in ADAM_CASES if case[2]]
+RECIPE_ADAM_HPARAMS = (0.9, 0.997, 1e-9)
+RECIPE_LR_T = 1e-7
 # shapes each kernel must refuse with an exception: (kernel, T_k, D,
 # dtype): T_k past the one-pass kernels' 512, D not a multiple of 8
 REJECT_CASES = [("onepass", 513, 64, "bfloat16"),
@@ -1040,16 +1081,17 @@ def _adam_cases(K, gen, max_err, failed):
 
 
 def _adam_multi_case(K, gen, summary, max_err, failed, cases=ADAM_CASES,
-                     path="train"):
+                     path="train", hparams=ADAM_HPARAMS, lr_t=0.003):
     """A training step's update: one adam_update_multi call over the
     admitted parameter shapes of `cases` (the flagship's 67 by default, one
-    launch; BERT-base's 74, two launches of up to 72), each with its own
-    lr_t, bit for bit the plain version's p, m1 and m2, and a wrong beta2
+    launch; BERT-base's 74, two launches of up to 72) at `hparams` (beta1,
+    beta2, epsilon), each with its own lr_t (from `lr_t` up to twice it),
+    bit for bit the plain version's p, m1 and m2, and a wrong beta2 (0.99)
     rejected. Timed: the call on the card (CUDA events), the wrapper's host
     time a call (the card's queue never full), the plain version, and one
     torch._fused_adam_ call on the same tensors as float32 lists."""
     import torch
-    b1, b2, eps = ADAM_HPARAMS
+    b1, b2, eps = hparams
     shapes = [(shape, dtype) for shape, dtype, n in cases
               for _ in range(n)]
     rnd = lambda shape: torch.randn(shape, generator=gen, device="cuda")
@@ -1057,7 +1099,7 @@ def _adam_multi_case(K, gen, summary, max_err, failed, cases=ADAM_CASES,
     gs = [rnd(p.shape).to(p.dtype) for p in ps]
     m1s = [rnd(p.shape) * 0.1 for p in ps]
     m2s = [rnd(p.shape).abs() * 0.1 for p in ps]
-    lr_ts = [torch.full((1,), 0.003 * (1 + i / len(ps)), device="cuda")
+    lr_ts = [torch.full((1,), lr_t * (1 + i / len(ps)), device="cuda")
              for i in range(len(ps))]
     want = K.adam_update_multi_plain(ps, gs, m1s, m2s, lr_ts, b1, b2, eps)
     got = [[t.clone() for t in ts] for ts in (ps, m1s, m2s)]
@@ -1066,6 +1108,7 @@ def _adam_multi_case(K, gen, summary, max_err, failed, cases=ADAM_CASES,
     torch.cuda.synchronize()
     rec = {"phase": "kernels", "kernel": "adam_multi", "tensors": len(ps),
            "elements": sum(p.numel() for p in ps), "path": path,
+           "beta1": b1, "beta2": b2, "epsilon": eps, "lr_t": lr_t,
            "launches": K.adam_update_multi.launches - before,
            "last_tensors": K.adam_update_multi.last_tensors}
     for i, name in enumerate(("p", "m1", "m2")):
@@ -1105,7 +1148,7 @@ def _adam_multi_case(K, gen, summary, max_err, failed, cases=ADAM_CASES,
         library="one torch._fused_adam_ call on the %d tensors as float32 "
         "lists" % len(ps),
         library_ms=time_ms(lambda: torch._fused_adam_(
-            *f32, [], steps, lr=1e-4, beta1=b1, beta2=b2, weight_decay=0.0,
+            *f32, [], steps, lr=lr_t, beta1=b1, beta2=b2, weight_decay=0.0,
             eps=eps, amsgrad=False, maximize=False)),
         bound_ms=bound, bound_by=by)
     _summary_add(summary, "adam", path, 1, rec, by)
@@ -1505,6 +1548,8 @@ def phase_kernels():
     for model, cases in ZOO_ADAM_CASES.items():
         _adam_multi_case(K, gen, summary, max_err, failed, cases,
                          "zoo_" + model)
+    _adam_multi_case(K, gen, summary, max_err, failed, RECIPE_ADAM_CASES,
+                     "train256_recipe", RECIPE_ADAM_HPARAMS, RECIPE_LR_T)
     _ce_cases(CE, gen, summary, max_err, failed)
     _ln_cases(LN, gen, summary, max_err, failed)
     _emb_cases(EG, gen, summary, max_err, failed)
@@ -1729,15 +1774,17 @@ ADAM_TENSORS = sum(n for _, _, n in ADAM_CASES)
 
 
 def _window(name, fluid, counters, programs, warm_feed, feed, steps,
-            want_per_step, adam_tensors, info, work):
+            want_per_step, adam_tensors, info, work, check=None):
     """Startup on the card, one warm step on `warm_feed` (stacked [1,
     ...]), then `steps` steps through run_steps on `feed` (stacked [steps,
     ...]) with every launch count zeroed just before and read just after.
     Every loss must be finite, the launches must be `want_per_step` times
     the steps, and the step's Adam call must have covered `adam_tensors`
-    parameters (None: a path with no Adam launch). Emits the phase's line (`info`, the window's times and
-    rates per unit of `work` = {unit: count a step}, peak memory) and
-    returns the launches."""
+    parameters (None: a path with no Adam launch). `check` = (variables
+    fetched beside the loss, fn(scope, their stacked values) -> (readings,
+    ok)) adds a check of the window's own. Emits the phase's line (`info`,
+    the window's times and rates per unit of `work` = {unit: count a
+    step}, peak memory) and returns the launches."""
     import numpy as np
     import torch
     t_start = time.perf_counter()
@@ -1751,21 +1798,24 @@ def _window(name, fluid, counters, programs, warm_feed, feed, steps,
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    extra_fetch, check_fn = check or ([], None)
     _zero(counters)
     t0 = time.perf_counter()
-    losses, = exe.run_steps(main, feed=feed, n_steps=steps,
-                            fetch_list=[loss], scope=scope,
-                            return_numpy=False)
+    losses, *extra = exe.run_steps(main, feed=feed, n_steps=steps,
+                                   fetch_list=[loss] + list(extra_fetch),
+                                   scope=scope, return_numpy=False)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launched = _read(counters)
     losses = losses.float().cpu().numpy()
     want = {k: v * steps for k, v in want_per_step.items()}
     tensors = counters["adam"].last_tensors if launched["adam"] else None
+    readings, check_ok = check_fn(scope, extra) if check_fn else ({}, True)
     ok = losses.shape == (steps,) and bool(np.isfinite(losses).all()) and \
         bool(np.isfinite(np.asarray(warm[0])).all()) and launched == want \
-        and (adam_tensors is None or tensors == adam_tensors)
+        and (adam_tensors is None or tensors == adam_tensors) and check_ok
     rec = dict({"phase": name, "ok": ok}, **info)
+    rec.update(readings)
     rec.update({"flags": {k: v for k, v in os.environ.items()
                           if k.startswith("FLAGS_")},
                 "steps": steps, "losses": losses.tolist(),
@@ -1780,9 +1830,9 @@ def _window(name, fluid, counters, programs, warm_feed, feed, steps,
     emit(rec)
     if not ok:
         raise AssertionError("%s failed: launches %s, want %s, Adam "
-                             "tensors a step %s (want %s), losses %s"
-                             % (name, launched, want, tensors, adam_tensors,
-                                losses))
+                             "tensors a step %s (want %s), losses %s, "
+                             "check %s" % (name, launched, want, tensors,
+                                           adam_tensors, losses, readings))
     del exe, scope
     torch.cuda.empty_cache()
     return launched
@@ -1931,6 +1981,138 @@ def phase_train_parity(fluid, transformer, counters, name="train_parity",
                  {"batch": 2, "d_model": cfg["d_model"],
                   "n_head": cfg["n_head"], "n_layer": cfg["n_layer"],
                   "seq_len": cfg["seq_len"], "dropout_rate": 0.0})
+
+
+# ---- the Fluid Transformer's training recipe ----
+
+# PaddlePaddle/models transformer/config.py TrainTaskConfig: label smoothing
+# 0.1, Adam(beta1 0.9, beta2 0.997, epsilon 1e-9) (RECIPE_ADAM_HPARAMS) at
+# the learning rate noam_decay(d_model, 8000) * 2.0. The rate fetched at
+# each step must lie within RECIPE_LR_REL_MAX of its closed form in float64
+# (the float32 pow and products on the step are a few ulps off it).
+RECIPE_EPS = 0.1
+RECIPE_WARMUP = 8000
+RECIPE_LR_SCALE = 2.0
+RECIPE_LR_REL_MAX = 1e-6
+LR_COUNTER = "@LR_DECAY_COUNTER@"
+
+
+def recipe_programs(fluid, transformer, cfg):
+    """The recipe built as a user builds it, through the public API, in
+    fresh programs (the startup program seeded with SEED). Returns (main,
+    startup, avg_loss, the learning-rate variable)."""
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED
+    with fluid.program_guard(main, startup):
+        _, loss = transformer.build(label_smooth_eps=RECIPE_EPS, **cfg)
+        lr = fluid.layers.noam_decay(cfg["d_model"], RECIPE_WARMUP) * \
+            RECIPE_LR_SCALE
+        b1, b2, eps = RECIPE_ADAM_HPARAMS
+        fluid.optimizer.Adam(learning_rate=lr, beta1=b1, beta2=b2,
+                             epsilon=eps).minimize(loss)
+    return main, startup, loss, lr
+
+
+def noam_rate(step, d_model):
+    """The recipe's learning rate at `step` (counted from 1), in float64."""
+    return RECIPE_LR_SCALE * d_model ** -0.5 * \
+        min(step ** -0.5, step * RECIPE_WARMUP ** -1.5)
+
+
+def _host_syncs(fluid, main, feed, loss, scope):
+    """The places ("file:line") where one more step of `main` through
+    run_steps (`feed` stacked [1, ...]) waits for the card, as
+    torch.cuda.set_sync_debug_mode("warn") reports them (it sees the
+    synchronizing calls PyTorch flags, not every one)."""
+    import warnings
+    import torch
+    exe = fluid.Executor()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            exe.run_steps(main, feed=feed, n_steps=1, fetch_list=[loss],
+                          scope=scope, return_numpy=False)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return ["%s:%d" % (os.path.relpath(w.filename), w.lineno)
+            for w in caught if "synchroniz" in str(w.message)]
+
+
+def phase_train256_recipe(fluid, transformer, counters, cfg, want_per_step):
+    """train256 under the recipe (nothing cut: bench.py's CFG, batch
+    TRAIN_BATCH, seq 256) through _window: besides train256's launches
+    (the cross-entropy kernels' gate refuses soft labels, as the JAX
+    gate), the rate fetched at each step against its closed form, the
+    step counter after the window against the steps run (warm step
+    included), and one more step's host syncs, none of which may lie in
+    the port's lowerings or kernels (only the executor's feed copies)."""
+    import numpy as np
+    main, startup, loss, lr = recipe_programs(fluid, transformer, cfg)
+    vocab, seq, steps = cfg["tgt_vocab"], cfg["seq_len"], TRAIN_STEPS
+    one_step = _stacked(transformer.synthetic_batch(TRAIN_BATCH, seq, vocab,
+                                                    SEED + 2), 1)
+
+    def check(scope, fetched):
+        counter = int(scope.get(LR_COUNTER).reshape(-1)[0])
+        syncs = _host_syncs(fluid, main, one_step, loss, scope)
+        in_lowerings = [w for w in syncs if "paddle_tpu_torch/" in w and
+                        "/executor.py" not in w]
+        rates = fetched[0].double().cpu().numpy().reshape(-1)
+        # the warm step was step 1: the window runs steps 2 .. steps + 1
+        want = np.array([noam_rate(k, cfg["d_model"])
+                         for k in range(2, steps + 2)])
+        rel = np.abs(rates - want) / want
+        return ({"lr": rates.tolist(), "lr_closed_form": want.tolist(),
+                 "lr_rel_err_max": float(rel.max()),
+                 "lr_rel_max": RECIPE_LR_REL_MAX,
+                 "lr_counter": counter, "steps_run": steps + 1,
+                 "host_syncs_one_step": syncs},
+                bool(rel.max() <= RECIPE_LR_REL_MAX) and
+                counter == steps + 1 and not in_lowerings)
+    tokens = TRAIN_BATCH * seq
+    b1, b2, eps = RECIPE_ADAM_HPARAMS
+    return _window(
+        "train256_recipe", fluid, counters, (main, startup, loss),
+        _stacked(transformer.synthetic_batch(TRAIN_BATCH, seq, vocab, SEED),
+                 1),
+        _stacked(transformer.synthetic_batch(TRAIN_BATCH, seq, vocab,
+                                             SEED + 1), steps), steps,
+        want_per_step, ADAM_TENSORS,
+        {"batch": TRAIN_BATCH, "seq_len": seq,
+         "dropout_rate": cfg["dropout_rate"], "label_smooth_eps": RECIPE_EPS,
+         "learning_rate": "noam_decay(%d, %d) * %s" % (
+             cfg["d_model"], RECIPE_WARMUP, RECIPE_LR_SCALE),
+         "adam": {"beta1": b1, "beta2": b2, "epsilon": eps}},
+        {"tokens": tokens, "model_tflops": tokens *
+         train_flops_per_token(cfg) / 1e12},
+        check=([lr], check))
+
+
+def phase_recipe_parity(fluid, transformer, counters):
+    """The recipe at n_layer 1, dropout 0, batch 2: one step on the card and
+    one on the CPU from the same weights, at train_parity's limits, on the
+    gradients of WIDE_PARITY_GRADS (train_parity's, in one layer); the
+    control is the card's step with label_smooth's epsilon set to 0 (the
+    raw one-hot in place of the smoothed labels)."""
+    cfg = dict(transformer.FLAGSHIP_CFG, n_layer=1, dropout_rate=0.0)
+    main, startup, loss, _ = recipe_programs(fluid, transformer, cfg)
+    feed = transformer.synthetic_batch(2, cfg["seq_len"], cfg["tgt_vocab"],
+                                       SEED + 300)
+    faulty = main.clone()
+    changed = 0
+    for op in faulty.global_block().ops:
+        if op.type == "label_smooth":
+            op.attrs["epsilon"] = 0.0
+            changed += 1
+    _card_vs_cpu("recipe_parity", fluid, counters, (main, startup, loss),
+                 feed, WIDE_PARITY_GRADS, PARITY_FLAGS[:1],
+                 ("label_smooth epsilon 0 on the card: the raw one-hot "
+                  "(%d op changed)" % changed, faulty, feed),
+                 {"batch": 2, "d_model": cfg["d_model"],
+                  "n_head": cfg["n_head"], "n_layer": 1,
+                  "seq_len": cfg["seq_len"], "dropout_rate": 0.0,
+                  "label_smooth_eps": RECIPE_EPS})
 
 
 def bert_flops_per_step(cfg, batch, max_predictions=20):
@@ -2385,8 +2567,10 @@ def _replay_on_card(fluid, main, fetch, state, feed, vals, after):
     `vals`); each output's max |card - cpu| / max |cpu| against the CPU's
     value (`vals`, or `after` for a persistable). A name that two ops write
     (a gradient and its sum with a later contribution) is checked at its
-    last writer and read from the card's own value before it. Returns
-    {name: (op type, dtype, error)}."""
+    last writer and read from the card's own value before it; after it, a
+    reader gets the CPU's value (a persistable's from `after`: ModelAverage
+    sums the parameters the optimizer just updated). Returns {name: (op
+    type, dtype, error)}."""
     import torch
     from paddle_tpu_torch.fluid.core_types import to_torch_dtype
     from paddle_tpu_torch.fluid.interop import tensor_from_numpy
@@ -2402,8 +2586,10 @@ def _replay_on_card(fluid, main, fetch, state, feed, vals, after):
             return own[n]
         if n in feed:
             t = tensor_from_numpy(feed[n])
+        elif n in state:
+            t = after[n] if n in final else state[n]
         else:
-            t = state[n] if n in state else vals[n]
+            t = vals[n]
         return t.to(device="cuda", dtype=to_torch_dtype(block.var(n).dtype))
 
     # a generator for dropout's snapshot, which its grad op reads back
@@ -2886,6 +3072,298 @@ def phase_zoo(fluid, counters):
     return total
 
 
+# ---- every Fluid optimizer and learning-rate schedule ----
+
+# The zoo's mnist MLP (and, for sparse Adagrad, the same head over an
+# is_sparse embedding) in float32 at fluid_benchmark.py's learning rate,
+# OPT_STEPS steps in lockstep, as resnet_parity runs: each step once through
+# run_steps on the card and once on the CPU from the CPU's state before it,
+# the loss within OPT_LOSS_REL_MAX relative (zoo_mnist_card_vs_cpu's
+# limit), and every op of the step replayed on the card from the CPU's
+# values of its inputs within RESNET_OP_TOL of the CPU's outputs. A
+# free-running run cannot be held so: Adagrad, Adamax and FTRL divide by
+# the root (FTRL at lr_power -0.7 a power) of a gradient's square, so an
+# element whose gradient sums to near 0 turns a 1e-7 difference in
+# summation order into a step that differs by a share of the learning
+# rate, and the next steps carry it on.
+OPT_STEPS = 3
+OPT_BATCH = 64
+OPT_LR = 0.001
+OPT_LOSS_REL_MAX = 1e-5
+MODEL_AVERAGE_STEPS = 5
+SCHEDULE_STEPS = 12
+SPARSE_VOCAB, SPARSE_IDS = 1000, 16
+OPTIMIZER_CASES = {
+    "lars_momentum": lambda fl: fl.optimizer.LarsMomentum(OPT_LR, 0.9),
+    "adagrad": lambda fl: fl.optimizer.Adagrad(OPT_LR),
+    "adagrad_sparse": lambda fl: fl.optimizer.Adagrad(OPT_LR),
+    "adamax": lambda fl: fl.optimizer.Adamax(OPT_LR),
+    "decayed_adagrad": lambda fl: fl.optimizer.DecayedAdagrad(OPT_LR),
+    "adadelta": lambda fl: fl.optimizer.Adadelta(OPT_LR),
+    "rmsprop": lambda fl: fl.optimizer.RMSProp(OPT_LR),
+    "rmsprop_centered": lambda fl: fl.optimizer.RMSProp(
+        OPT_LR, momentum=0.9, centered=True),
+    "ftrl": lambda fl: fl.optimizer.Ftrl(OPT_LR, l1=1e-4, l2=1e-4),
+    "ftrl_power": lambda fl: fl.optimizer.Ftrl(OPT_LR, lr_power=-0.7),
+}
+
+
+def _poly_rate(s, cycle=False):
+    """polynomial_decay(0.1, 5, 0.001, power=2.0) at step s; cycled, step 0
+    divides by ceil(0) * 5 = 0, which is NaN in both packages."""
+    if cycle:
+        decay = math.ceil(s / 5) * 5
+        if not decay:
+            return float("nan")
+        return (0.1 - 0.001) * (1.0 - s / decay) ** 2.0 + 0.001
+    return (0.1 - 0.001) * (1.0 - min(s / 5, 1.0)) ** 2.0 + 0.001
+
+
+# name -> (the schedule built on fluid.layers, its closed form at step s,
+# the counter's first value); as tests/test_torch_lr_schedules.py
+SCHEDULES = {
+    "noam": (lambda L: L.noam_decay(64, 4) * 2.0,
+             lambda s: 2.0 * 64 ** -0.5 * min(s ** -0.5, s * 4 ** -1.5), 1),
+    "exponential": (lambda L: L.exponential_decay(0.1, 3, 0.5),
+                    lambda s: 0.1 * 0.5 ** (s / 3), 0),
+    "exponential_staircase": (
+        lambda L: L.exponential_decay(0.1, 3, 0.5, staircase=True),
+        lambda s: 0.1 * 0.5 ** (s // 3), 0),
+    "natural_exp": (lambda L: L.natural_exp_decay(0.1, 3, 0.5),
+                    lambda s: 0.1 * math.exp(-0.5 * s / 3), 0),
+    "inverse_time": (lambda L: L.inverse_time_decay(0.1, 3, 0.5,
+                                                    staircase=True),
+                     lambda s: 0.1 / (1.0 + 0.5 * (s // 3)), 0),
+    "polynomial": (lambda L: L.polynomial_decay(0.1, 5, 0.001, power=2.0),
+                   _poly_rate, 0),
+    "polynomial_cycle": (lambda L: L.polynomial_decay(0.1, 5, 0.001,
+                                                      power=2.0, cycle=True),
+                         lambda s: _poly_rate(s, cycle=True), 0),
+    "piecewise": (lambda L: L.piecewise_decay([3, 6, 9],
+                                              [0.1, 0.05, 0.01, 0.005]),
+                  lambda s: [0.1, 0.05, 0.01, 0.005][
+                      sum(s >= b for b in (3, 6, 9))], 0),
+    "cosine": (lambda L: L.cosine_decay(0.1, 2, 6),
+               lambda s: 0.05 * (math.cos((s // 2) * math.pi / 6) + 1.0),
+               0),
+    "linear_warmup": (lambda L: L.linear_lr_warmup(0.1, 5, 0.01, 0.1),
+                      lambda s: 0.01 + 0.09 * s / 5 if s < 5 else 0.1, 0),
+}
+
+
+def _mnist_programs(fluid, mlp, optimize, sparse=False):
+    """The mnist MLP (mlp.build) in fresh programs, its startup seeded with
+    SEED, and ``optimize(fluid, loss)``; with `sparse`, the MLP's input is
+    the sum of SPARSE_IDS rows of an is_sparse [SPARSE_VOCAB, 784]
+    embedding. Returns (main, startup, loss, what optimize returned)."""
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        if sparse:
+            ids = fluid.layers.data(name="ids", shape=[SPARSE_IDS, 1],
+                                    dtype="int64")
+            label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+            h = fluid.layers.reduce_sum(fluid.layers.embedding(
+                ids, size=[SPARSE_VOCAB, 784], is_sparse=True), dim=1)
+            for _ in range(2):
+                h = fluid.layers.fc(input=h, size=mlp.HID, act="relu")
+            loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+                fluid.layers.fc(input=h, size=10), label))
+        else:
+            _, loss, _ = mlp.build()
+        extra = optimize(fluid, loss)
+    return main, startup, loss, extra
+
+
+def _mnist_feeds(mlp, steps, sparse=False):
+    """`steps` batches (with `sparse`, repeated ids among them)."""
+    import numpy as np
+    if sparse:
+        rng = np.random.RandomState(SEED)
+        return [{"ids": rng.randint(0, SPARSE_VOCAB,
+                                    (OPT_BATCH, SPARSE_IDS, 1)),
+                 "label": rng.randint(0, 10, (OPT_BATCH, 1))}
+                for _ in range(steps)]
+    return [mlp.synthetic_batch(OPT_BATCH, seed=SEED + k)
+            for k in range(steps)]
+
+
+def _lockstep(fluid, programs, feeds, card_main=None):
+    """Each feed of `feeds` one step of `programs` (main, startup, loss) in
+    lockstep, card against CPU, from the CPU's state before it (the startup
+    run on the CPU): the step through run_steps on the card, its loss
+    within OPT_LOSS_REL_MAX of the CPU's, and every op of it replayed on
+    the card from the CPU's values (_replay_on_card) within RESNET_OP_TOL;
+    `card_main` (a control) runs on the card in main's place. Returns (the
+    last step's card scope, readings, ok)."""
+    main, startup, loss = programs[:3]
+    card_main = card_main or main
+    block = main.global_block()
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope)
+    state = {n: scope.get(n) for n, v in block.vars.items()
+             if v.persistable and scope.get(n) is not None}
+    names = sorted({n for op in block.ops for n in op.output_arg_names
+                    if n != "@EMPTY@" and not block.var(n).persistable})
+    card_exe = fluid.Executor()
+    loss_rel, worst, ok = [], [], True
+    for feed in feeds:
+        vals, after = _cpu_step(fluid, main, state, feed, names)
+        card_scope = fluid.Scope()
+        for n, t in state.items():
+            card_scope.set(n, t.to("cuda", copy=True))
+        card, = card_exe.run_steps(card_main, feed={
+            n: v[None] for n, v in feed.items()}, n_steps=1,
+            fetch_list=[loss], scope=card_scope)
+        cpu = float(vals[loss.name])
+        loss_rel.append(abs(float(card[0]) - cpu) / abs(cpu))
+        step_ok, step_worst = _op_verdict(_replay_on_card(
+            fluid, card_main, [loss.name], state, feed, vals, after))
+        worst.append(step_worst)
+        ok = ok and step_ok
+        state = after
+    ok = ok and max(loss_rel) <= OPT_LOSS_REL_MAX
+    return card_scope, {"loss_rel_err": loss_rel,
+                        "loss_rel_max": OPT_LOSS_REL_MAX,
+                        "op_tol": RESNET_OP_TOL, "worst_op": worst}, ok
+
+
+def _model_average_check(fluid, mlp):
+    """SGD with ModelAverage (window 2 to 3 steps) for MODEL_AVERAGE_STEPS
+    lockstep steps (the accumulate ops replayed with the rest); then apply() on the card must put in each parameter's place
+    its sums over its counts in float64, rounded once, bit for bit, and
+    restore() the very tensors apply() took."""
+    def optimize(fl, loss):
+        fl.optimizer.SGD(OPT_LR).minimize(loss)
+        ma = fl.optimizer.ModelAverage(0.15, min_average_window=2,
+                                       max_average_window=3)
+        ma.build()
+        return ma
+    programs = _mnist_programs(fluid, mlp, optimize)
+    ma = programs[3]
+    card_scope, rec, ok = _lockstep(
+        fluid, programs, _mnist_feeds(mlp, MODEL_AVERAGE_STEPS))
+    params = [p.name for p in programs[0].all_parameters()]
+    trained = {n: card_scope.get(n) for n in params}
+    with fluid.scope_guard(card_scope):
+        ma.apply()
+    exact = True
+    for n in params:
+        sums = sum(card_scope.get("%s_sum_%d_acc_0" % (n, k)).double().cpu()
+                   for k in (1, 2, 3))
+        count = int(card_scope.get(n + "_num_accumulates_acc_0").cpu()[0] +
+                    card_scope.get(n + "_old_num_accumulates_acc_0")
+                    .cpu()[0])
+        exact = exact and bool(((sums / count).float() ==
+                                card_scope.get(n).cpu()).all())
+    with fluid.scope_guard(card_scope):
+        ma.restore()
+    restored = all(card_scope.get(n) is trained[n] for n in params)
+    rec.update({"steps": MODEL_AVERAGE_STEPS,
+                "applied_equals_sums_over_counts": exact,
+                "restore_gives_back_the_trained_tensors": restored})
+    return rec, ok and exact and restored
+
+
+def _lars_check(fluid, mlp):
+    """Momentum with append_LARS (each parameter its own rate Variable),
+    OPT_STEPS lockstep steps."""
+    def optimize(fl, loss):
+        opt = fl.optimizer.Momentum(learning_rate=OPT_LR, momentum=0.9)
+        p_g = opt.backward(loss)
+        fl.layers.append_LARS(p_g, learning_rate=OPT_LR, weight_decay=0.01)
+        opt.apply_gradients(p_g)
+    programs = _mnist_programs(fluid, mlp, optimize)
+    _, rec, ok = _lockstep(fluid, programs, _mnist_feeds(mlp, OPT_STEPS))
+    rates = {tuple(op.input("LearningRate"))
+             for op in programs[0].global_block().ops
+             if op.type == "momentum"}
+    rec["rate_variables"] = len(rates)
+    return rec, ok and len(rates) == len(programs[0].all_parameters())
+
+
+def _schedule_check(fluid, name):
+    """One schedule for SCHEDULE_STEPS steps on the card (x [4] -> fc 1 ->
+    mean, SGD at the schedule's rate): each fetched rate within
+    RECIPE_LR_REL_MAX of the largest of its closed form's rates (a float32
+    schedule may cancel: cosine_decay's cos + 1 near cos = -1), NaN where
+    that is NaN, and the counter after the steps at its first value +
+    SCHEDULE_STEPS - 1."""
+    import numpy as np
+    schedule, closed, first = SCHEDULES[name]
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[4], dtype="float32")
+        loss = fluid.layers.mean(fluid.layers.fc(input=x, size=1))
+        lr = schedule(fluid.layers)
+        fluid.optimizer.SGD(learning_rate=lr).minimize(loss)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = {"x": np.random.RandomState(SEED).randn(
+        SCHEDULE_STEPS, 2, 4).astype("float32")}
+    rates, = exe.run_steps(main, feed=feed, n_steps=SCHEDULE_STEPS,
+                           fetch_list=[lr], scope=scope)
+    rates = rates.astype(np.float64).reshape(-1)
+    want = np.array([closed(first + k) for k in range(SCHEDULE_STEPS)])
+    finite = np.isfinite(want)
+    rel = np.abs(rates[finite] - want[finite]) / want[finite].max()
+    counter = int(scope.get(LR_COUNTER).reshape(-1)[0])
+    return ({"lr_rel_err_max": float(rel.max()), "counter": counter},
+            bool(rel.max() <= RECIPE_LR_REL_MAX) and
+            bool((np.isnan(rates) == ~finite).all()) and
+            counter == first + SCHEDULE_STEPS - 1)
+
+
+def phase_optimizers(fluid, counters):
+    """Every optimizer this slice adds (OPTIMIZER_CASES), ModelAverage and
+    append_LARS with Momentum in lockstep with the CPU, and every schedule
+    (SCHEDULES) on the card against its closed form. No kernel of the
+    port's launches: none of these has one."""
+    from paddle_tpu_torch.models import mlp
+    t_start = time.perf_counter()
+    _zero(counters)
+    results, failed = {}, []
+    for name, make in OPTIMIZER_CASES.items():
+        sparse = name.endswith("_sparse")
+        programs = _mnist_programs(
+            fluid, mlp, lambda fl, loss, make=make: make(fl).minimize(loss),
+            sparse)
+        _, rec, ok = _lockstep(fluid, programs,
+                               _mnist_feeds(mlp, OPT_STEPS, sparse))
+        results[name] = dict(rec, ok=ok)
+    for name, fn in (("model_average", _model_average_check),
+                     ("append_lars_momentum", _lars_check)):
+        rec, ok = fn(fluid, mlp)
+        results[name] = dict(rec, ok=ok)
+    # control: RMSProp's decay 0.9 in place of 0.95 on the card only must
+    # fail the replay
+    programs = _mnist_programs(
+        fluid, mlp, lambda fl, loss: OPTIMIZER_CASES["rmsprop"](fl).minimize(
+            loss))
+    faulty = programs[0].clone()
+    for op in faulty.global_block().ops:
+        if op.type == "rmsprop":
+            op.attrs["decay"] = 0.9
+    _, rec, control_passed = _lockstep(fluid, programs,
+                                       _mnist_feeds(mlp, OPT_STEPS),
+                                       card_main=faulty)
+    results["control_rmsprop_decay_0.9_on_the_card"] = dict(
+        rec, ok=not control_passed)
+    for name in SCHEDULES:
+        rec, ok = _schedule_check(fluid, name)
+        results["schedule_" + name] = dict(rec, ok=ok)
+    launched = {k: v for k, v in _read(counters).items() if v}
+    failed = [k for k, r in results.items() if not r["ok"]]
+    emit({"phase": "optimizers", "ok": not failed and not launched,
+          "steps": OPT_STEPS, "batch": OPT_BATCH, "learning_rate": OPT_LR,
+          "results": results, "launches": launched,
+          "phase_seconds": time.perf_counter() - t_start})
+    if failed or launched:
+        raise AssertionError("optimizers: %s failed, launches %s"
+                             % (failed, launched))
+
+
 # ---- persistence and inference: fluid.io, the predictor, the transpiler ----
 
 # The artifacts and checkpoints are written under the checkout's build/
@@ -3328,6 +3806,11 @@ def main():
     phase_train_parity(fluid, transformer, counters, "train_parity_wide",
                        dict(wide, n_layer=1), WIDE_PARITY_GRADS,
                        PARITY_FLAGS[:1])
+    # the Fluid Transformer's recipe (label smoothing, Noam rate, Adam at
+    # beta2 0.997 and epsilon 1e-9) at bench.py's width: train256's
+    # launches a step, no cross-entropy kernel (soft labels)
+    add(phase_train256_recipe(fluid, transformer, counters, cfg, train))
+    phase_recipe_parity(fluid, transformer, counters)
 
     # bench.py's BERT-base leg: 12 encoder layers, each one one-pass
     # attention forward and backward (T 128, D 64); Adam's 74 admitted
@@ -3386,6 +3869,9 @@ def main():
         add(phase_se_resnext50(fluid, se_resnext, counters))
     phase_se_resnext_parity(fluid, se_resnext, counters)
     add(phase_zoo(fluid, counters))
+    # every other Fluid optimizer, ModelAverage, append_LARS and the
+    # learning-rate schedules
+    phase_optimizers(fluid, counters)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3417,11 +3903,13 @@ def main():
         kernels.append(row)
         # the attention rows also summarised over the D = 256 path's mix
         # (train256_wide), rows 1, 3, 8 and 11 at BERT-base's shapes, row
-        # 11 at SE-ResNeXt-50's, and rows 1, 3 and 11 at the zoo models'
-        # float32 shapes, where the kernel runs on those paths
+        # 11 at SE-ResNeXt-50's and at the recipe's constants, and rows 1,
+        # 3 and 11 at the zoo models' float32 shapes, where the kernel runs
+        # on those paths
         for key, sub in [("d256", "train256_wide"),
                          ("bert_base", "bert_base"),
-                         ("se_resnext50", "se_resnext50")] + \
+                         ("se_resnext50", "se_resnext50"),
+                         ("train256_recipe", "train256_recipe")] + \
                 [("zoo_" + m,) * 2 for m in ZOO_ADAM_CASES]:
             extra = summary.get((name, sub))
             if extra:

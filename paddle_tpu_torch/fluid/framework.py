@@ -95,7 +95,10 @@ class Variable(object):
 
     __str__ = __repr__
 
-    # operator sugar: `a + b`, `1.0 - p` append elementwise ops
+    # operator sugar: `a + b`, `1.0 - p`, `step ** -0.5`, `a < b` append
+    # elementwise and compare ops whose output takes the left Variable's
+    # dtype (layers/math_op_patch.py); there is no __eq__, as in the JAX
+    # package, so Variables stay hashable and compare by identity
     def _binary(self, other, op):
         from .layers import math_op_patch
         return math_op_patch.binary(self, other, op)
@@ -106,7 +109,17 @@ class Variable(object):
     def __rsub__(self, o): return self._binary(o, "elementwise_sub_r")
     def __mul__(self, o): return self._binary(o, "elementwise_mul")
     def __rmul__(self, o): return self._binary(o, "elementwise_mul")
+    def __div__(self, o): return self._binary(o, "elementwise_div")
     def __truediv__(self, o): return self._binary(o, "elementwise_div")
+    def __rdiv__(self, o): return self._binary(o, "elementwise_div_r")
+    def __rtruediv__(self, o): return self._binary(o, "elementwise_div_r")
+    def __pow__(self, o): return self._binary(o, "elementwise_pow")
+    def __rpow__(self, o): return self._binary(o, "elementwise_pow_r")
+    def __neg__(self): return self._binary(-1.0, "elementwise_mul")
+    def __lt__(self, o): return self._binary(o, "less_than")
+    def __le__(self, o): return self._binary(o, "less_equal")
+    def __gt__(self, o): return self._binary(o, "greater_than")
+    def __ge__(self, o): return self._binary(o, "greater_equal")
 
 
 class Parameter(Variable):

@@ -1,7 +1,9 @@
 """Operator sugar for compile-time Variables (the port's counterpart of
-``paddle_tpu/fluid/layers/math_op_patch.py``): ``a + b``, ``1.0 - p`` and
-the like append elementwise ops, a Python scalar first becoming a [1]
-``fill_constant``."""
+``paddle_tpu/fluid/layers/math_op_patch.py``): ``a + b``, ``1.0 - p``,
+``2.0 ** v``, ``a < b`` and the like append elementwise or compare ops, a
+Python scalar first becoming a [1] ``fill_constant`` of x's dtype. The
+output is declared with x's dtype, a compare's too (the comparison layers
+of layers/control_flow.py declare bool)."""
 from .. import unique_name
 from ..framework import Variable
 from ..layer_helper import LayerHelper

@@ -1,7 +1,9 @@
 """Neural-network layers (the port's counterpart of
 ``paddle_tpu/fluid/layers/nn.py``): the layer functions the Transformer,
-BERT, DeepFM, ResNet, VGG, SE-ResNeXt and the MNIST MLP call, with the same
-signatures and the same ops, slots and attrs."""
+BERT, DeepFM, ResNet, VGG, SE-ResNeXt and the MNIST MLP call, the
+elementwise, logical, activation and reduction layers, clipping, label
+smoothing, cos_sim and the global step counter of the learning-rate
+schedules, with the same signatures and the same ops, slots and attrs."""
 import numpy as np
 
 from ..layer_helper import LayerHelper
@@ -13,9 +15,15 @@ __all__ = [
     "dropout", "softmax", "topk",
     "softmax_with_cross_entropy", "sigmoid_cross_entropy_with_logits",
     "matmul", "transpose", "reshape", "flatten", "slice", "one_hot", "mean",
-    "reduce_sum", "elementwise_add", "elementwise_sub", "elementwise_mul",
-    "scale", "square",
-    "sigmoid", "add_position_encoding",
+    "elementwise_add", "elementwise_sub", "elementwise_mul",
+    "elementwise_div", "elementwise_max", "elementwise_min",
+    "elementwise_pow", "elementwise_mod", "elementwise_floordiv",
+    "logical_and", "logical_or", "logical_xor", "logical_not",
+    "clip", "clip_by_norm", "maxout", "prelu", "relu", "relu6", "leaky_relu",
+    "elu", "log", "pow", "brelu", "soft_relu", "swish", "hard_sigmoid",
+    "selu", "sigmoid", "square", "reduce_sum", "reduce_mean", "reduce_max",
+    "reduce_min", "reduce_prod", "scale", "label_smooth", "cos_sim",
+    "autoincreased_step_counter", "add_position_encoding",
 ]
 
 
@@ -288,6 +296,29 @@ def mean(x, name=None):
     return _single_out(helper, "mean", {"X": [x]}, dtype=x.dtype)
 
 
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """The global step counter: a persistable int64 [1] var (default
+    ``@STEP_COUNTER@``) that the startup program fills with begin - step
+    and an ``increment`` op at the head of the main program advances by
+    ``step`` every run, so its first run reads ``begin``."""
+    helper = LayerHelper("global_step_counter")
+    counter_name = counter_name or "@STEP_COUNTER@"
+    counter = helper.main_program.global_block().create_var(
+        name=counter_name, dtype="int64", shape=(1,), persistable=True)
+    if not helper.startup_program.global_block().has_var(counter_name):
+        sb = helper.startup_program.global_block()
+        sb.create_var(name=counter_name, dtype="int64", shape=(1,),
+                      persistable=True)
+        sb.append_op(type="fill_constant", outputs={"Out": [counter_name]},
+                     attrs={"shape": [1], "value": float(begin - step),
+                            "dtype": "int64"})
+    helper.main_program.global_block().prepend_op(
+        type="increment", inputs={"X": [counter_name]},
+        outputs={"Out": [counter_name]}, attrs={"step": float(step)})
+    counter.stop_gradient = True
+    return counter
+
+
 def _elementwise_layer(op_type):
     def layer(x, y, axis=-1, act=None, name=None):
         helper = LayerHelper(op_type, input=x, act=act, name=name)
@@ -302,32 +333,149 @@ def _elementwise_layer(op_type):
 elementwise_add = _elementwise_layer("elementwise_add")
 elementwise_sub = _elementwise_layer("elementwise_sub")
 elementwise_mul = _elementwise_layer("elementwise_mul")
+elementwise_div = _elementwise_layer("elementwise_div")
+elementwise_max = _elementwise_layer("elementwise_max")
+elementwise_min = _elementwise_layer("elementwise_min")
+elementwise_pow = _elementwise_layer("elementwise_pow")
+elementwise_mod = _elementwise_layer("elementwise_mod")
+elementwise_floordiv = _elementwise_layer("elementwise_floordiv")
 
 
-def _act_layer(op_type):
-    def layer(x, name=None):
+def _logical_layer(op_type, binary=True):
+    def layer(x, y=None, out=None, name=None):
         helper = LayerHelper(op_type, input=x, name=name)
-        return _single_out(helper, op_type, {"X": [x]}, dtype=x.dtype)
+        if out is None:
+            out = helper.create_variable_for_type_inference("bool")
+        inputs = {"X": [x]}
+        if binary:
+            inputs["Y"] = [y]
+        helper.append_op(type=op_type, inputs=inputs, outputs={"Out": [out]})
+        return out
     layer.__name__ = op_type
     return layer
 
 
-square = _act_layer("square")
+logical_and = _logical_layer("logical_and")
+logical_or = _logical_layer("logical_or")
+logical_xor = _logical_layer("logical_xor")
+logical_not = _logical_layer("logical_not", binary=False)
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", input=x, name=name)
+    return _single_out(helper, "clip", {"X": [x]},
+                       {"min": float(min), "max": float(max)}, dtype=x.dtype)
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", input=x, name=name)
+    return _single_out(helper, "clip_by_norm", {"X": [x]},
+                       {"max_norm": float(max_norm)}, dtype=x.dtype)
+
+
+def maxout(x, groups, name=None):
+    helper = LayerHelper("maxout", input=x, name=name)
+    return _single_out(helper, "maxout", {"X": [x]}, {"groups": groups},
+                       dtype=x.dtype)
+
+
+def prelu(x, mode, param_attr=None, name=None):
+    """where(x > 0, x, alpha * x) with a float32 alpha parameter (init
+    0.25): one value ("all"), one a channel ("channel") or one an element
+    of a sample ("element")."""
+    helper = LayerHelper("prelu", input=x, param_attr=param_attr, name=name)
+    if mode not in ("all", "channel", "element"):
+        raise ValueError("mode should be one of all, channel, element")
+    alpha_shape = [1]
+    if mode == "channel":
+        alpha_shape = [1, x.shape[1], 1, 1]
+    elif mode == "element":
+        alpha_shape = list(x.shape)
+        alpha_shape[0] = 1
+    alpha = helper.create_parameter(attr=helper.param_attr, shape=alpha_shape,
+                                    dtype="float32",
+                                    default_initializer=Constant(0.25))
+    return _single_out(helper, "prelu", {"X": [x], "Alpha": [alpha]},
+                       {"mode": mode}, dtype=x.dtype)
+
+
+def _act_layer(op_type, attr_names=()):
+    """An activation layer whose attrs (``attr_names``) come positionally
+    or by keyword."""
+    def layer(x, *args, **kwargs):
+        name = kwargs.pop("name", None)
+        helper = LayerHelper(op_type, input=x, name=name)
+        attrs = {}
+        for i, a in enumerate(attr_names):
+            if i < len(args):
+                attrs[a] = args[i]
+            elif a in kwargs:
+                attrs[a] = kwargs[a]
+        return _single_out(helper, op_type, {"X": [x]}, attrs, dtype=x.dtype)
+    layer.__name__ = op_type
+    return layer
+
+
+relu = _act_layer("relu")
+relu6 = _act_layer("relu6", ("threshold",))
+leaky_relu = _act_layer("leaky_relu", ("alpha",))
+elu = _act_layer("elu", ("alpha",))
+log = _act_layer("log")
+pow = _act_layer("pow", ("factor",))
+brelu = _act_layer("brelu", ("t_min", "t_max"))
+soft_relu = _act_layer("soft_relu", ("threshold",))
+swish = _act_layer("swish", ("beta",))
+hard_sigmoid = _act_layer("hard_sigmoid", ("slope", "offset"))
+selu = _act_layer("selu", ("scale", "alpha"))
 sigmoid = _act_layer("sigmoid")
+square = _act_layer("square")
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    """Sum over ``dim`` (an int or a list), or over everything when dim is
-    None."""
-    helper = LayerHelper("reduce_sum", input=input, name=name)
-    if dim is None:
-        attrs = {"reduce_all": True, "dim": [0], "keep_dim": keep_dim}
-    else:
-        dims = dim if isinstance(dim, (list, tuple)) else [dim]
-        attrs = {"reduce_all": False, "dim": list(dims),
-                 "keep_dim": keep_dim}
-    return _single_out(helper, "reduce_sum", {"X": [input]}, attrs,
-                       dtype=input.dtype)
+def _reduce_layer(op_type):
+    def layer(input, dim=None, keep_dim=False, name=None):
+        """Over ``dim`` (an int or a list), or over everything when dim is
+        None."""
+        helper = LayerHelper(op_type, input=input, name=name)
+        if dim is None:
+            attrs = {"reduce_all": True, "dim": [0], "keep_dim": keep_dim}
+        else:
+            dims = dim if isinstance(dim, (list, tuple)) else [dim]
+            attrs = {"reduce_all": False, "dim": list(dims),
+                     "keep_dim": keep_dim}
+        return _single_out(helper, op_type, {"X": [input]}, attrs,
+                           dtype=input.dtype)
+    layer.__name__ = op_type
+    return layer
+
+
+reduce_sum = _reduce_layer("reduce_sum")
+reduce_mean = _reduce_layer("reduce_mean")
+reduce_max = _reduce_layer("reduce_max")
+reduce_min = _reduce_layer("reduce_min")
+reduce_prod = _reduce_layer("reduce_prod")
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    helper = LayerHelper("label_smooth", input=label, name=name)
+    inputs = {"X": [label]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist]
+    return _single_out(helper, "label_smooth", inputs,
+                       {"epsilon": float(epsilon)}, dtype=dtype)
+
+
+def cos_sim(X, Y):
+    helper = LayerHelper("cos_sim", input=X)
+    out = helper.create_variable_for_type_inference(X.dtype)
+    xnorm = helper.create_variable_for_type_inference(X.dtype,
+                                                      stop_gradient=True)
+    ynorm = helper.create_variable_for_type_inference(X.dtype,
+                                                      stop_gradient=True)
+    helper.append_op(type="cos_sim", inputs={"X": [X], "Y": [Y]},
+                     outputs={"Out": [out], "XNorm": [xnorm],
+                              "YNorm": [ynorm]})
+    return out
 
 
 def flatten(x, axis=1, name=None):

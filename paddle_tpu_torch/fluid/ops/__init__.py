@@ -7,6 +7,7 @@ from .registry import (register_lowering, get_lowering, has_lowering,
 
 from . import math_ops        # noqa: F401
 from . import activation_ops  # noqa: F401
+from . import compare_ops     # noqa: F401
 from . import tensor_ops      # noqa: F401
 from . import reduce_ops      # noqa: F401
 from . import loss_ops        # noqa: F401

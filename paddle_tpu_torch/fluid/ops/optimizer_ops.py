@@ -1,6 +1,17 @@
-"""Optimizer-update lowerings: sgd, momentum and adam, sgd and adam dense
-and sparse (the port's counterpart of
+"""Optimizer-update lowerings: sgd, momentum, lars_momentum, adam, adamax,
+adagrad, decayed_adagrad, adadelta, rmsprop, ftrl, proximal_gd,
+proximal_adagrad and ModelAverage's average_accumulates; sgd, adagrad and
+adam dense and sparse (the port's counterpart of
 ``paddle_tpu/fluid/ops/optimizer_ops.py``). All are no-grad.
+
+The optimizers after adam follow the JAX lowerings' arithmetic, including
+its type promotion: where a bfloat16 parameter or accumulator meets the
+float32 learning rate, JAX computes in float32, and so does the port (a
+0-d float32 tensor would not promote a bfloat16 one in PyTorch). JAX then
+hands back a float32 ParamOut (and, for rmsprop's Moment and ftrl's
+LinearAccumulator, a float32 accumulator) for a bfloat16 variable; the
+port rounds each output to its variable's dtype, so the program's
+declared dtypes hold from step to step (ROADMAP Queue 3).
 
 momentum updates in the velocity's dtype (f32 for a bf16 parameter) and
 rounds the step to the parameter's dtype once. A training program's
@@ -28,8 +39,9 @@ launches change. A lone adam op is a run of one.
 Sparse path (the JAX package's SelectedRows kernels): an op with a
 "GradRows" input takes Grad as [n, dim] row values and GradRows as their
 ids (the ``@ROWS`` pair of a sparse ``lookup_table_grad``). sgd scatters
--lr * values into the touched rows; adam with ``lazy_mode`` merges
-duplicate ids and updates only the touched rows' moments and parameters,
+-lr * values into the touched rows; adagrad merges duplicate ids and
+updates only the touched rows' moments and parameters, and so does adam
+with ``lazy_mode``,
 and without it (the default) scatters the pair into a dense f32 gradient
 and runs the dense update, since every row's moments decay each step. Such
 an op runs alone, never through the kernel, as in the JAX package.
@@ -237,3 +249,230 @@ def _adam(ctx, inputs, attrs):
     p_out = p - (lr_t * m1_out / (torch.sqrt(m2_out) + eps)).to(p.dtype)
     return dict(out, ParamOut=[p_out], Moment1Out=[m1_out],
                 Moment2Out=[m2_out])
+
+
+def _lr(inputs):
+    return one(inputs, "LearningRate").reshape(())
+
+
+def _promoted(lr, *tensors):
+    """The dtype JAX computes ``lr * t`` in: float32 for a bfloat16 t and
+    the float32 learning rate."""
+    dtype = lr.dtype
+    for t in tensors:
+        dtype = torch.promote_types(dtype, t.dtype)
+    return dtype
+
+
+@register_lowering("lars_momentum", no_grad=True)
+def _lars_momentum(ctx, inputs, attrs):
+    """v_out = mu * v + local_lr * (g + decay * p), p_out = p - v_out, with
+    local_lr = lr * coeff * |p| / max(|g| + decay * |p|, 1e-12), all in
+    p's dtype (the learning rate cast to it)."""
+    p, g = one(inputs, "Param"), one(inputs, "Grad")
+    v = one(inputs, "Velocity")
+    lr = _lr(inputs).to(p.dtype)
+    mu = attrs["mu"]
+    coeff = attrs.get("lars_coeff", 0.001)
+    decay = attrs.get("lars_weight_decay", 0.0005)
+    pn = torch.sqrt(torch.sum(torch.square(p)))
+    gn = torch.sqrt(torch.sum(torch.square(g)))
+    local_lr = lr * coeff * pn / torch.clamp(gn + decay * pn, min=1e-12)
+    v_out = mu * v + local_lr * (g + decay * p)
+    return {"ParamOut": [p - v_out], "VelocityOut": [v_out]}
+
+
+@register_lowering("adamax", no_grad=True)
+def _adamax(ctx, inputs, attrs):
+    """m_out = b1 * m + (1 - b1) * g, inf_out = max(b2 * inf, |g|) (a tie
+    keeps the value either way), p_out = p - lr / (1 - b1^t) * m_out /
+    (inf_out + eps). Beta1Pow advances by the optimizer's scale op."""
+    p, g = one(inputs, "Param"), one(inputs, "Grad")
+    m, inf = one(inputs, "Moment"), one(inputs, "InfNorm")
+    b1p = one(inputs, "Beta1Pow")
+    lr = _lr(inputs)
+    b1 = attrs.get("beta1", 0.9)
+    b2 = attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-8)
+    m_out = b1 * m + (1.0 - b1) * g
+    inf_out = torch.maximum(b2 * inf, torch.abs(g))
+    lr_t = lr / (1.0 - b1p.reshape(()))
+    ft = _promoted(lr_t, p, m_out)
+    step = lr_t * m_out.to(ft) / (inf_out + eps).to(ft)
+    return {"ParamOut": [(p.to(ft) - step).to(p.dtype)],
+            "MomentOut": [m_out], "InfNormOut": [inf_out]}
+
+
+@register_lowering("adagrad", no_grad=True)
+def _adagrad(ctx, inputs, attrs):
+    """m_out = m + g^2, p_out = p - lr * g / (sqrt(m_out) + eps). Sparse
+    (GradRows): duplicate ids merged, only the touched rows' moments and
+    parameters change."""
+    p, g, m = one(inputs, "Param"), one(inputs, "Grad"), one(inputs, "Moment")
+    lr = _lr(inputs)
+    eps = attrs.get("epsilon", 1e-6)
+    rows = one(inputs, "GradRows")
+    if rows is not None:
+        r, gv = _merge_rows(rows, g, p.shape[0])
+        m_r = m[r].to(gv.dtype) + torch.square(gv)
+        step = (lr * gv / (torch.sqrt(m_r) + eps)).to(p.dtype)
+        m_out = m.clone()
+        m_out[r] = m_r.to(m.dtype)
+        return {"ParamOut": [p.index_add(0, r, -step)],
+                "MomentOut": [m_out]}
+    m_out = m + torch.square(g)
+    ft = _promoted(lr, p, g)
+    step = lr * g.to(ft) / (torch.sqrt(m_out) + eps).to(ft)
+    return {"ParamOut": [(p.to(ft) - step).to(p.dtype)],
+            "MomentOut": [m_out]}
+
+
+@register_lowering("decayed_adagrad", no_grad=True)
+def _decayed_adagrad(ctx, inputs, attrs):
+    p, g, m = one(inputs, "Param"), one(inputs, "Grad"), one(inputs, "Moment")
+    lr = _lr(inputs)
+    decay = attrs.get("decay", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    m_out = decay * m + (1.0 - decay) * torch.square(g)
+    ft = _promoted(lr, p, g)
+    step = lr * g.to(ft) / (torch.sqrt(m_out) + eps).to(ft)
+    return {"ParamOut": [(p.to(ft) - step).to(p.dtype)],
+            "MomentOut": [m_out]}
+
+
+@register_lowering("adadelta", no_grad=True)
+def _adadelta(ctx, inputs, attrs):
+    """No learning rate: update = -sqrt((E[u^2] + eps) / (E[g^2] + eps)) *
+    g, in the variables' dtype."""
+    p, g = one(inputs, "Param"), one(inputs, "Grad")
+    avg_sq_g = one(inputs, "AvgSquaredGrad")
+    avg_sq_u = one(inputs, "AvgSquaredUpdate")
+    rho = attrs.get("rho", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    asg_out = rho * avg_sq_g + (1.0 - rho) * torch.square(g)
+    update = -torch.sqrt((avg_sq_u + eps) / (asg_out + eps)) * g
+    asu_out = rho * avg_sq_u + (1.0 - rho) * torch.square(update)
+    return {"ParamOut": [p + update], "AvgSquaredGradOut": [asg_out],
+            "AvgSquaredUpdateOut": [asu_out]}
+
+
+@register_lowering("rmsprop", no_grad=True)
+def _rmsprop(ctx, inputs, attrs):
+    """ms_out = rho * ms + (1 - rho) * g^2; centered, also mg_out = rho *
+    mg + (1 - rho) * g and the denominator ms_out - mg_out^2 + eps (else
+    ms_out + eps); mom_out = momentum * mom + lr * g / sqrt(denominator),
+    p_out = p - mom_out."""
+    p, g = one(inputs, "Param"), one(inputs, "Grad")
+    ms, mom = one(inputs, "MeanSquare"), one(inputs, "Moment")
+    mg = one(inputs, "MeanGrad")
+    lr = _lr(inputs)
+    rho = attrs.get("decay", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    momentum = attrs.get("momentum", 0.0)
+    ms_out = rho * ms + (1.0 - rho) * torch.square(g)
+    if attrs.get("centered", False):
+        mg_out = rho * mg + (1.0 - rho) * g
+        denom = ms_out - torch.square(mg_out) + eps
+    else:
+        mg_out = mg
+        denom = ms_out + eps
+    ft = _promoted(lr, p, mom, g)
+    mom_out = (momentum * mom).to(ft) + \
+        lr * g.to(ft) / torch.sqrt(denom).to(ft)
+    out = {"ParamOut": [(p.to(ft) - mom_out).to(p.dtype)],
+           "MeanSquareOut": [ms_out], "MomentOut": [mom_out.to(mom.dtype)]}
+    if mg is not None:
+        out["MeanGradOut"] = [mg_out]
+    return out
+
+
+@register_lowering("ftrl", no_grad=True)
+def _ftrl(ctx, inputs, attrs):
+    """FTRL-proximal: new_sq = sq + g^2, sigma = (new_sq^-power -
+    sq^-power) / lr (sqrt for the default power -0.5), lin_out = lin + g -
+    sigma * p, p_out = (clip(lin_out, -l1, l1) - lin_out) / (new_sq^-power
+    / lr + 2 * l2) where |lin_out| > l1, else 0."""
+    p, g = one(inputs, "Param"), one(inputs, "Grad")
+    sq = one(inputs, "SquaredAccumulator")
+    lin = one(inputs, "LinearAccumulator")
+    lr = _lr(inputs)
+    l1 = attrs.get("l1", 0.0)
+    l2 = attrs.get("l2", 0.0)
+    power = attrs.get("lr_power", -0.5)
+    new_sq = sq + torch.square(g)
+    if power == -0.5:
+        root_new, root_old = torch.sqrt(new_sq), torch.sqrt(sq)
+    else:
+        root_new, root_old = torch.pow(new_sq, -power), torch.pow(sq, -power)
+    ft = _promoted(lr, p, lin, new_sq)
+    sigma = (root_new - root_old).to(ft) / lr
+    lin_out = (lin + g).to(ft) - sigma * p.to(ft)
+    denom = root_new.to(ft) / lr + 2.0 * l2
+    pre = torch.clamp(lin_out, -l1, l1) - lin_out
+    p_out = torch.where(torch.abs(lin_out) > l1, pre / denom,
+                        torch.zeros_like(lin_out))
+    return {"ParamOut": [p_out.to(p.dtype)], "SquaredAccumOut": [new_sq],
+            "LinearAccumOut": [lin_out.to(lin.dtype)]}
+
+
+def _proximal(p, g, lr_t, l1, l2):
+    """sign(prox) * max(|prox| - lr_t * l1, 0) / (1 + lr_t * l2) for prox =
+    p - lr_t * g, in the promoted dtype, rounded to p's."""
+    ft = _promoted(lr_t, p, g)
+    prox = p.to(ft) - lr_t * g.to(ft)
+    return (torch.sign(prox) * torch.clamp(torch.abs(prox) - lr_t * l1,
+                                           min=0.0) /
+            (1.0 + lr_t * l2)).to(p.dtype)
+
+
+@register_lowering("proximal_gd", no_grad=True)
+def _proximal_gd(ctx, inputs, attrs):
+    p, g = one(inputs, "Param"), one(inputs, "Grad")
+    return {"ParamOut": [_proximal(p, g, _lr(inputs), attrs.get("l1", 0.0),
+                                   attrs.get("l2", 0.0))]}
+
+
+@register_lowering("proximal_adagrad", no_grad=True)
+def _proximal_adagrad(ctx, inputs, attrs):
+    """m_out = m + g^2, then proximal_gd's step at lr / sqrt(m_out)."""
+    p, g, m = one(inputs, "Param"), one(inputs, "Grad"), one(inputs, "Moment")
+    lr = _lr(inputs)
+    m_out = m + torch.square(g)
+    lr_t = lr / torch.sqrt(m_out).to(_promoted(lr, m_out))
+    return {"ParamOut": [_proximal(p, g, lr_t, attrs.get("l1", 0.0),
+                                   attrs.get("l2", 0.0))],
+            "MomentOut": [m_out]}
+
+
+@register_lowering("average_accumulates", no_grad=True)
+def _average_accumulates(ctx, inputs, attrs):
+    """ModelAverage's window bookkeeping, on the device: sum_1 gathers the
+    parameter each step; past the window (clamped between
+    min_average_window and max_average_window, else num_updates *
+    average_window) sum_1 rolls into sum_2, and sum_2 into sum_3."""
+    param = one(inputs, "param")
+    sum_1 = one(inputs, "in_sum_1")
+    sum_2 = one(inputs, "in_sum_2")
+    sum_3 = one(inputs, "in_sum_3")
+    num_accum = one(inputs, "in_num_accumulates") + 1
+    old_num = one(inputs, "in_old_num_accumulates")
+    num_updates = one(inputs, "in_num_updates") + 1
+    avg_window = attrs.get("average_window", 0.15)
+    max_avg = attrs.get("max_average_window", 10000)
+    min_avg = attrs.get("min_average_window", 10000)
+    sum_1 = sum_1 + param
+    window = (num_updates.float() * avg_window).long()
+    window = torch.minimum(window.new_tensor(max_avg),
+                           torch.maximum(window.new_tensor(min_avg), window))
+    roll = num_accum > window
+    sum_2_n = torch.where(roll, sum_2 + sum_1, sum_2)
+    sum_1_n = torch.where(roll, torch.zeros_like(sum_1), sum_1)
+    old_num_n = torch.where(roll, num_accum, old_num)
+    num_accum_n = torch.where(roll, torch.zeros_like(num_accum), num_accum)
+    roll2 = old_num_n + num_accum_n > window
+    sum_3_n = torch.where(roll2, sum_2_n, sum_3)
+    sum_2_n = torch.where(roll2, torch.zeros_like(sum_2_n), sum_2_n)
+    return {"out_sum_1": [sum_1_n], "out_sum_2": [sum_2_n],
+            "out_sum_3": [sum_3_n], "out_num_accumulates": [num_accum_n],
+            "out_old_num_accumulates": [old_num_n],
+            "out_num_updates": [num_updates]}

@@ -262,6 +262,18 @@ def _add_position_encoding(ctx, inputs, attrs):
     return {"Out": [alpha * x + beta * enc[None, :, :].to(x.dtype)]}
 
 
+@register_lowering("label_smooth")
+def _label_smooth(ctx, inputs, attrs):
+    """(1 - epsilon) * X + epsilon / K over X's last axis of K classes, or
+    + epsilon * PriorDist where a prior is given."""
+    x = one(inputs, "X")
+    eps = attrs.get("epsilon", 0.0)
+    dist = one(inputs, "PriorDist")
+    if dist is not None:
+        return {"Out": [(1.0 - eps) * x + eps * dist]}
+    return {"Out": [(1.0 - eps) * x + eps / x.shape[-1]]}
+
+
 # ---------- top-k ----------
 
 @register_lowering("top_k", no_grad=True)

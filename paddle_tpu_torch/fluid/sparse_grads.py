@@ -10,9 +10,8 @@ densify it where their rewrite needs the dense form.
 
 ROWS_SUFFIX = "@ROWS"
 
-# the optimizer op types with a sparse lowering (ops/optimizer_ops.py); the
-# JAX package's set also holds adagrad, an optimizer the port has not yet
-SPARSE_CAPABLE_OPTIMIZERS = frozenset(["sgd", "adam"])
+# the optimizer op types with a sparse lowering (ops/optimizer_ops.py)
+SPARSE_CAPABLE_OPTIMIZERS = frozenset(["sgd", "adagrad", "adam"])
 
 
 def sparse_rows_var(block, grad_name):

@@ -156,8 +156,6 @@ def build(src_vocab=4000, tgt_vocab=4000, seq_len=64, n_layer=2, n_head=8,
     if strategy is not None:
         raise NotImplementedError("sharding strategies are not ported yet; "
                                   "build with strategy=None")
-    if label_smooth_eps:
-        raise NotImplementedError("label smoothing is not ported yet")
     src = fluid.layers.data(name="src_ids", shape=[seq_len], dtype="int64")
     tgt = fluid.layers.data(name="tgt_ids", shape=[seq_len], dtype="int64")
     label = fluid.layers.data(name="labels", shape=[seq_len, 1],
@@ -185,7 +183,15 @@ def build(src_vocab=4000, tgt_vocab=4000, seq_len=64, n_layer=2, n_head=8,
                             use_fused=use_fused_attention)
 
     logits = _fc(dec, tgt_vocab, "proj")
-    loss = fluid.layers.softmax_with_cross_entropy(logits, label)
+    if label_smooth_eps:
+        # one_hot -> label_smooth -> soft-label cross-entropy, as the Fluid
+        # Transformer's recipe (label_smooth_eps 0.1) trains
+        onehot = fluid.layers.one_hot(label, depth=tgt_vocab)
+        smoothed = fluid.layers.label_smooth(onehot, epsilon=label_smooth_eps)
+        loss = fluid.layers.softmax_with_cross_entropy(logits, smoothed,
+                                                       soft_label=True)
+    else:
+        loss = fluid.layers.softmax_with_cross_entropy(logits, label)
     avg_loss = fluid.layers.mean(loss)
     return ["src_ids", "tgt_ids", "labels"], avg_loss
 

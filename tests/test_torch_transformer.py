@@ -151,8 +151,10 @@ def test_build_rejects_sharding_strategy():
 
 
 def test_port_imports_no_jax():
-    """The port, its models and its training modules load without JAX or
-    the JAX package (a subprocess: this test process has both loaded)."""
+    """The port, its models and its training modules (the optimizers, the
+    learning-rate schedules and their layers and ops too) load without JAX
+    or the JAX package (a subprocess: this test process has both
+    loaded)."""
     code = ("import sys, paddle_tpu_torch.fluid, "
             "paddle_tpu_torch.models.transformer, "
             "paddle_tpu_torch.models.bert, "
@@ -165,6 +167,16 @@ def test_port_imports_no_jax():
             "paddle_tpu_torch.fluid.clip, "
             "paddle_tpu_torch.fluid.ops.grad_ops, "
             "paddle_tpu_torch.fluid.ops.optimizer_ops, "
+            "paddle_tpu_torch.fluid.ops.compare_ops, "
+            "paddle_tpu_torch.fluid.ops.math_ops, "
+            "paddle_tpu_torch.fluid.ops.activation_ops, "
+            "paddle_tpu_torch.fluid.ops.reduce_ops, "
+            "paddle_tpu_torch.fluid.ops.tensor_ops, "
+            "paddle_tpu_torch.fluid.layers.ops, "
+            "paddle_tpu_torch.fluid.layers.control_flow, "
+            "paddle_tpu_torch.fluid.layers.tensor, "
+            "paddle_tpu_torch.fluid.layers.math_op_patch, "
+            "paddle_tpu_torch.fluid.layers.learning_rate_scheduler, "
             "paddle_tpu_torch.ops.attention, "
             "paddle_tpu_torch.ops.adam_kernel, "
             "paddle_tpu_torch.ops._build\n"
