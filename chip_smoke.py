@@ -166,8 +166,8 @@ non-zero exit):
               2 steps, save_checkpoint, 2 more (run A); load_checkpoint
               into a fresh Scope restores every persistable and generator
               state bit for bit, and the same 2 steps (run B) give A's
-              losses within CKPT_LOSS_REL_MAX. Control: the resume without
-              the generator states must miss.
+              losses bit for bit. Control: the resume without the
+              generator states must miss.
 24. se_resnext50 - SE-ResNeXt-50 at full width (3x224x224, 1000 classes,
               cardinality 32, reduction 16, bf16, Adam(1e-3) as
               benchmark/fluid_benchmark.py trains it) at batch 64: one warm
@@ -193,6 +193,10 @@ non-zero exit):
               the kernel cases hold against the plain version.
               Then the mnist MLP for 3 steps on the card and on the CPU
               from the same parameters: losses within 1e-5 relative.
+23a. row_sums - (before checkpoint) scatter_rows_ and _merge_rows twice
+              on the card on the same inputs (Zipf ids over DeepFM's
+              100,000-row tables, a 2-row table of BERT's width, negative
+              and out-of-range ids): equal bits, and the CPU's index_add_.
 27. optimizers - every other Fluid optimizer (LarsMomentum, Adagrad dense
               and sparse on an is_sparse embedding, Adamax, DecayedAdagrad,
               Adadelta, RMSProp plain and centered with momentum, Ftrl at
@@ -205,6 +209,17 @@ non-zero exit):
               learning-rate schedule for 12 steps on the card against its
               closed form (within 1e-6 of its largest rate) and its step
               counter.
+28. book    - the Fluid book's straight-line models (tools/
+              torch_book_models.py: fit_a_line, recognize_digits_conv,
+              image_classification at ResNet-32, word2vec,
+              recommender_system) at the book's widths and batches: one
+              warm step and 4 steps through run_steps each (examples/s,
+              step ms, peak memory, op count, no port kernel launched),
+              then 3 steps in lockstep with the CPU (as optimizers);
+              recognize_digits_conv also on batches holding ignore_index
+              labels, and its control (cross_entropy without its mask on
+              the card) must fail; word2vec twice from one state, bit for
+              bit.
 
 The kernel cases also time rows 1, 3, 8 and 11 at BERT-base's shapes
 (attention at batch 256, 12 heads, seq 128, D 64; LayerNorm on [32768,
@@ -2221,9 +2236,9 @@ def _deepfm_phase(fluid, deepfm, counters, cfg, batch, steps):
 # - the sparse pairs' rows equal; the gradients (the pairs' values, the MLP
 #   weights'), the moments after the step and the step's change of the
 #   parameters, of both tables and the MLP weights, by ||card - cpu|| /
-#   ||cpu|| to 0.05. The orders of f32 sums (the card's index_add_ adds an
-#   id's repeats in another order than the CPU's loop) move these by about
-#   1e-6. A ReLU preactivation within rounding of 0 can take the other side
+#   ||cpu|| to 0.05. The orders of f32 sums in the matmuls (an id's
+#   repeats add in the CPU's order on the card too: phase_row_sums) move
+#   these by about 1e-6. A ReLU preactivation within rounding of 0 can take the other side
 #   on the other device and so route one example's gradient another way:
 #   tools/torch_deepfm_lockstep.py saw one such flip in 12 steps, which
 #   moved that example's sparse values by 0.135 of their largest and these
@@ -3364,6 +3379,209 @@ def phase_optimizers(fluid, counters):
                              % (failed, launched))
 
 
+# ---- the Fluid book's straight-line models (tools/torch_book_models.py) ----
+
+# Each model at the book's widths and batch: startup on the card, one warm
+# step, BOOK_STEPS steps through run_steps (_window: examples/s, step ms,
+# peak memory, launches: none of the port's kernels is on these paths, the
+# Adam gate refuses every book parameter and cross_entropy is not the CE
+# kernel's op); then BOOK_PARITY_STEPS steps in lockstep with the CPU
+# (_lockstep: each loss within OPT_LOSS_REL_MAX, each op replayed on the
+# card from the CPU's values within RESNET_OP_TOL; an Adam op replayed so
+# takes the CPU's gradient, so no near-epsilon amplification reaches it).
+BOOK_STEPS = 4
+BOOK_PARITY_STEPS = 3
+# the share of recognize_digits_conv's control batch labelled ignore_index
+BOOK_IGNORED = 8
+W2V_RUNS = 2
+
+
+def _book_tool():
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "torch_book_models.py")
+    spec = importlib.util.spec_from_file_location("torch_book_models", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+def _cross_entropy_unmasked(ctx, inputs, attrs):
+    """cross_entropy on the card without its ignore and out-of-range mask
+    (a control): every label gathered, clamped into the classes. CPU
+    tensors take the real lowering."""
+    import torch
+    from paddle_tpu_torch.fluid.ops import loss_ops
+    x, label = inputs["X"][0], inputs["Label"][0]
+    if not x.is_cuda:
+        return loss_ops._cross_entropy(ctx, inputs, attrs)
+    idx = label.reshape(-1).long().clamp(0, x.shape[-1] - 1)
+    return {"Y": [-torch.log(torch.gather(x, -1, idx[:, None]) + 1e-12)]}
+
+
+def _w2v_twice(fluid, tool):
+    """word2vec at the book's width, W2V_RUNS runs of BOOK_STEPS steps on
+    the card from one state (the CPU's startup): its four sparse lookups
+    of one table reach sgd through scatter_rows_, so the losses and the
+    table must be equal bit for bit from run to run."""
+    import numpy as np
+    import torch
+    b = tool.programs("word2vec", fluid, seed=SEED)
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(b.startup, scope=scope)
+    state = {n: scope.get(n) for n, v in b.main.global_block().vars.items()
+             if v.persistable and scope.get(n) is not None}
+    draws = [tool.synthetic_batch("word2vec", tool.BATCH["word2vec"],
+                                  seed=SEED + 50 + k)
+             for k in range(BOOK_STEPS)]
+    feed = {k: np.stack([d[k] for d in draws]) for k in draws[0]}
+    exe, runs = fluid.Executor(), []
+    for _ in range(W2V_RUNS):
+        card = fluid.Scope()
+        for n, t in state.items():
+            card.set(n, t.to("cuda", copy=True))
+        losses, = exe.run_steps(b.main, feed=feed, n_steps=BOOK_STEPS,
+                                fetch_list=[b.loss], scope=card)
+        runs.append((losses, card.get("shared_w").cpu()))
+    equal = all(np.array_equal(r[0], runs[0][0]) and
+                torch.equal(r[1], runs[0][1]) for r in runs[1:])
+    return {"runs": W2V_RUNS, "steps": BOOK_STEPS,
+            "losses": [r[0].tolist() for r in runs],
+            "losses_and_table_bit_for_bit": equal}, equal
+
+
+def phase_book(fluid, counters):
+    """The Fluid book's five straight-line models (fit_a_line,
+    recognize_digits_conv, image_classification, word2vec,
+    recommender_system) at the book's widths and batches: a _window each
+    (no port kernel launches) and BOOK_PARITY_STEPS lockstep steps card
+    against CPU; recognize_digits_conv also on a batch with BOOK_IGNORED
+    labels at ignore_index, which must pass, and its control
+    (cross_entropy without its mask on the card), which must fail;
+    word2vec's runs bit for bit (_w2v_twice). Returns the launches."""
+    import numpy as np
+    from unittest import mock
+    from paddle_tpu_torch.fluid.ops import registry
+    tool = _book_tool()
+    none = dict.fromkeys(counters, 0)
+    total, results = dict(none), {}
+    for name in tool.MODELS:
+        t0 = time.perf_counter()
+        b = tool.programs(name, fluid, seed=SEED)
+        batch = tool.BATCH[name]
+        draws = [tool.synthetic_batch(name, batch, seed=SEED + k)
+                 for k in range(BOOK_STEPS + 1)]
+        stacked = {k: np.stack([d[k] for d in draws]) for k in draws[0]}
+        launched = _window(
+            "book_" + name, fluid, counters, (b.main, b.startup, b.loss),
+            {k: v[:1] for k, v in stacked.items()},
+            {k: v[1:] for k, v in stacked.items()}, BOOK_STEPS, none, None,
+            {"model": name, "batch": batch,
+             "ops": len(b.main.global_block().ops),
+             "build_seconds": time.perf_counter() - t0},
+            {"examples": batch})
+        for k, n in launched.items():
+            total[k] += n
+        feeds = [tool.synthetic_batch(name, batch, seed=SEED + 100 + k)
+                 for k in range(BOOK_PARITY_STEPS)]
+        _, rec, ok = _lockstep(fluid, b, feeds)
+        results[name] = dict(rec, ok=ok)
+    digits = tool.programs("recognize_digits_conv", fluid, seed=SEED)
+    ignored = [tool.synthetic_batch("recognize_digits_conv",
+                                    tool.BATCH["recognize_digits_conv"],
+                                    seed=SEED + 200 + k)
+               for k in range(BOOK_PARITY_STEPS)]
+    for f in ignored:
+        f["label"][:BOOK_IGNORED] = IGNORE
+    _, rec, ok = _lockstep(fluid, digits, ignored)
+    results["recognize_digits_conv_ignore_index"] = dict(rec, ok=ok)
+    with mock.patch.dict(registry._LOWERINGS,
+                         cross_entropy=_cross_entropy_unmasked):
+        _, rec, control_passed = _lockstep(fluid, digits, ignored)
+    results["control_cross_entropy_unmasked_on_the_card"] = dict(
+        rec, ok=not control_passed)
+    rec, ok = _w2v_twice(fluid, tool)
+    results["word2vec_twice"] = dict(rec, ok=ok)
+    failed = [k for k, r in results.items() if not r["ok"]]
+    emit({"phase": "book", "ok": not failed, "parity_steps":
+          BOOK_PARITY_STEPS, "results": results})
+    if failed:
+        raise AssertionError("book: %s failed" % failed)
+    return total
+
+
+# Row sums (scatter_rows_, _merge_rows): ROW_SUM_RUNS calls of each route
+# on the card on the same inputs must give equal bits, on ids with many
+# repeats (a Zipf draw over DeepFM's 100,000-row tables, and a 2-row table
+# such as BERT's token types), and equal the CPU's index_add_.
+ROW_SUM_RUNS = 2
+ROW_SUM_CASES = [(100000, 26 * 4096, 16, "float32", "zipf"),
+                 (100000, 26 * 4096, 1, "float32", "zipf"),
+                 (100000, 26 * 4096, 16, "bfloat16", "zipf"),
+                 (2, 32768, 768, "bfloat16", "uniform"),
+                 (2073, 400, 32, "float32", "uniform")]
+
+
+def phase_row_sums():
+    """scatter_rows_ (into zeros and into a table, as sparse SGD adds)
+    and _merge_rows on each ROW_SUM_CASES case, ROW_SUM_RUNS times on the
+    card: equal bits every time, and the CPU's values; negative and
+    out-of-range ids among them. Each route's device ms a call, and
+    index_add_'s into zeros (the route scatter_rows_ took before)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.fluid.ops import optimizer_ops, tensor_ops
+    t_start = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED)
+    cases, ok = [], True
+    for vocab, n, width, dtype, draw in ROW_SUM_CASES:
+        dt = getattr(torch, dtype)
+        if draw == "zipf":
+            p = torch.arange(1, vocab + 1, dtype=torch.float64) ** -1.1
+            ids = torch.multinomial(p / p.sum(), n, replacement=True,
+                                    generator=gen)
+        else:
+            ids = torch.randint(0, vocab, (n,), generator=gen)
+        ids[:16] = torch.tensor([-1, -vocab, vocab, vocab + 3] * 4)
+        vals = torch.randn(n, width, generator=gen).to(dt)
+        table = torch.randn(vocab, width, generator=gen).to(dt)
+        routes = {
+            "scatter_zeros": lambda d, i, v: tensor_ops.scatter_rows_(
+                torch.zeros_like(d), i, v),
+            "scatter_table": lambda d, i, v: tensor_ops.scatter_rows_(
+                d.clone(), i, v),
+            "merge_rows": lambda d, i, v: torch.cat([
+                x.double().reshape(-1) for x in
+                optimizer_ops._merge_rows(i, v, d.shape[0])])}
+        rec = {"vocab": vocab, "ids": n, "width": width, "dtype": dtype,
+               "draw": draw, "most_repeats": int(torch.bincount(
+                   ids.clamp(0, vocab - 1)).max())}
+        for route, fn in routes.items():
+            cpu = fn(table, ids, vals)
+            card_in = (table.cuda(), ids.cuda(), vals.cuda())
+            outs = [fn(*card_in) for _ in range(ROW_SUM_RUNS)]
+            same = all(torch.equal(o, outs[0]) for o in outs[1:])
+            equal_cpu = torch.equal(outs[0].cpu(), cpu)
+            rec[route] = {"runs_bit_for_bit": same,
+                          "equals_cpu_index_add": equal_cpu,
+                          "ms": time_ms(lambda: fn(*card_in), iters=5,
+                                        warmup=1)}
+            ok = ok and same and equal_cpu
+        # the route it replaces: index_add_ (atomics) into zeros
+        rows, adds = tensor_ops._row_adds(table, ids, vals)
+        rows, adds = rows.cuda(), adds.cuda()
+        zeros = torch.zeros(table.shape, dtype=dt, device="cuda")
+        rec["index_add_ms"] = time_ms(
+            lambda: zeros.clone().index_add_(0, rows, adds), iters=5,
+            warmup=1)
+        cases.append(rec)
+    emit({"phase": "row_sums", "ok": ok, "runs": ROW_SUM_RUNS,
+          "cases": cases, "phase_seconds": time.perf_counter() - t_start})
+    if not ok:
+        raise AssertionError("row sums differ from run to run or from the "
+                             "CPU")
+
+
 # ---- persistence and inference: fluid.io, the predictor, the transpiler ----
 
 # The artifacts and checkpoints are written under the checkout's build/
@@ -3378,7 +3596,9 @@ FOLD_REL_MAX = 1e-4
 FOLD_TIMING_ROUNDS = 5
 CKPT_BATCH = 32
 CKPT_STEPS = 2
-CKPT_LOSS_REL_MAX = 1e-5
+# run B's losses must equal run A's; the control must miss them by more
+# than this
+CKPT_CONTROL_REL_MIN = 1e-5
 
 
 def _artifact_bytes(dirname):
@@ -3660,9 +3880,11 @@ def phase_checkpoint(fluid, transformer, counters):
     takes CKPT_STEPS steps, save_checkpoint, CKPT_STEPS more; run B
     load_checkpoint's into a fresh Scope (every persistable and generator
     state bit for bit the saved one) and takes the same steps, its losses
-    within CKPT_LOSS_REL_MAX of A's. Control: a resume without the
-    generator states, whose dropout masks differ, must miss. Returns the
-    phase's launches."""
+    equal to A's bit for bit (the embedding gradients' row sums give the
+    same bits in every run: phase_row_sums). Control: a resume without
+    the generator states, whose dropout masks differ, must miss A's
+    losses by more than CKPT_CONTROL_REL_MIN. Returns the phase's
+    launches."""
     import shutil
     import torch
     cfg = transformer.FLAGSHIP_CFG
@@ -3707,8 +3929,9 @@ def phase_checkpoint(fluid, transformer, counters):
     launched = _read(counters)
     shutil.rmtree(ckpt, ignore_errors=True)
     rel_b, rel_c = _rel(run_b, run_a), _rel(run_c, run_a)
+    losses_equal = bool((run_b == run_a).all())
     ok = state_equal and gens_equal and meta.get("step") == CKPT_STEPS and \
-        rel_b <= CKPT_LOSS_REL_MAX and rel_c > CKPT_LOSS_REL_MAX and \
+        losses_equal and rel_c > CKPT_CONTROL_REL_MIN and \
         devices == [str(exe.device)]
     emit({"phase": "checkpoint", "ok": ok, "batch": CKPT_BATCH,
           "seq_len": cfg["seq_len"], "dropout_rate": cfg["dropout_rate"],
@@ -3717,9 +3940,10 @@ def phase_checkpoint(fluid, transformer, counters):
           "load_seconds": load_ms / 1e3, "state_bit_for_bit": state_equal,
           "generators_bit_for_bit": gens_equal, "loaded_on": devices,
           "losses_a": run_a.tolist(), "losses_b": run_b.tolist(),
-          "loss_rel_err": rel_b, "rel_err_max": CKPT_LOSS_REL_MAX,
+          "loss_rel_err": rel_b, "losses_bit_for_bit": losses_equal,
           "control": {"fault": "resume without the generator states",
-                      "losses": run_c.tolist(), "loss_rel_err": rel_c},
+                      "losses": run_c.tolist(), "loss_rel_err": rel_c,
+                      "rel_err_min": CKPT_CONTROL_REL_MIN},
           "launches": launched})
     if not ok:
         raise AssertionError("checkpoint failed: state %s, generators %s, "
@@ -3860,6 +4084,7 @@ def main():
     add(phase_inference_serve(fluid, transformer, counters))
     with fluid.unique_name.guard():
         add(phase_inference_resnet50(fluid, resnet, counters))
+    phase_row_sums()
     add(phase_checkpoint(fluid, transformer, counters))
 
     # benchmark/fluid_benchmark.py's image zoo: SE-ResNeXt-50 at full width
@@ -3872,6 +4097,8 @@ def main():
     # every other Fluid optimizer, ModelAverage, append_LARS and the
     # learning-rate schedules
     phase_optimizers(fluid, counters)
+    # the Fluid book's straight-line models
+    add(phase_book(fluid, counters))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

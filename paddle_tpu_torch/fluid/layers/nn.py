@@ -3,7 +3,11 @@
 BERT, DeepFM, ResNet, VGG, SE-ResNeXt and the MNIST MLP call, the
 elementwise, logical, activation and reduction layers, clipping, label
 smoothing, cos_sim and the global step counter of the learning-rate
-schedules, with the same signatures and the same ops, slots and attrs."""
+schedules, the losses of the Fluid book and of ``fluid.layers`` (the
+cross-entropy over probabilities, the squared error, log, Huber, KL,
+n-pair, teacher-student, smooth L1, BPR, rank, margin-rank, dice and
+hinge losses) and l2_normalize, with the same signatures and the same
+ops, slots and attrs."""
 import numpy as np
 
 from ..layer_helper import LayerHelper
@@ -14,6 +18,10 @@ __all__ = [
     "fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
     "dropout", "softmax", "topk",
     "softmax_with_cross_entropy", "sigmoid_cross_entropy_with_logits",
+    "cross_entropy", "square_error_cost", "l2_normalize", "log_loss",
+    "huber_loss", "kldiv_loss", "npair_loss", "teacher_student_sigmoid_loss",
+    "smooth_l1", "bpr_loss", "rank_loss", "margin_rank_loss", "dice_loss",
+    "hinge_loss",
     "matmul", "transpose", "reshape", "flatten", "slice", "one_hot", "mean",
     "elementwise_add", "elementwise_sub", "elementwise_mul",
     "elementwise_div", "elementwise_max", "elementwise_min",
@@ -92,7 +100,8 @@ def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
     """2-D convolution over NCHW input with an OIHW filter (default init
     Normal(0, sqrt(2 / fan_in))), then the bias over channels and ``act``.
     groups equal to the channels with num_filters a multiple of them makes
-    the reference's ``depthwise_conv2d`` op, which is not ported yet."""
+    the reference's ``depthwise_conv2d`` op (the default groups of 1 over
+    a one-channel image does too)."""
     helper = LayerHelper("conv2d", input=input, param_attr=param_attr,
                          bias_attr=bias_attr, act=act, name=name)
     dtype = helper.input_dtype()
@@ -525,3 +534,145 @@ def add_position_encoding(input, alpha, beta, name=None):
     helper = LayerHelper("add_position_encoding", input=input, name=name)
     return _single_out(helper, "add_position_encoding", {"X": [input]},
                        {"alpha": alpha, "beta": beta}, dtype=input.dtype)
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    """The cross-entropy of probabilities ``input`` (a softmax's output)
+    against hard int64 labels [N, 1] or soft ones: loss [N, 1]."""
+    helper = LayerHelper("cross_entropy", input=input)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="cross_entropy",
+                     inputs={"X": [input], "Label": [label]},
+                     outputs={"Y": [out]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    return out
+
+
+def square_error_cost(input, label):
+    """(input - label) ** 2 elementwise: an elementwise_sub and a square."""
+    helper = LayerHelper("square_error_cost", input=input)
+    minus_out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="elementwise_sub",
+                     inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [minus_out]}, attrs={"axis": -1})
+    sq = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="square", inputs={"X": [minus_out]},
+                     outputs={"Out": [sq]})
+    return sq
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", input=x, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    norm = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="norm", inputs={"X": [x]},
+                     outputs={"Out": [out], "Norm": [norm]},
+                     attrs={"axis": 1 if axis is None else axis,
+                            "epsilon": epsilon})
+    return out
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    helper = LayerHelper("log_loss", input=input, name=name)
+    return _single_out(helper, "log_loss",
+                       {"Predicted": [input], "Labels": [label]},
+                       {"epsilon": epsilon}, dtype=input.dtype, slot="Loss")
+
+
+def huber_loss(input, label, delta):
+    helper = LayerHelper("huber_loss", input=input)
+    residual = helper.create_variable_for_type_inference(input.dtype,
+                                                         stop_gradient=True)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="huber_loss",
+                     inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [out], "Residual": [residual]},
+                     attrs={"delta": delta})
+    return out
+
+
+def kldiv_loss(x, target, reduction="mean", name=None):
+    helper = LayerHelper("kldiv_loss", input=x, name=name)
+    return _single_out(helper, "kldiv_loss",
+                       {"X": [x], "Target": [target]},
+                       {"reduction": reduction}, dtype=x.dtype, slot="Loss")
+
+
+def npair_loss(anchor, positive, labels, l2_reg=0.002):
+    helper = LayerHelper("npair_loss", input=anchor)
+    return _single_out(helper, "npair_loss",
+                       {"Anchor": [anchor], "Positive": [positive],
+                        "Labels": [labels]},
+                       {"l2_reg": l2_reg}, dtype=anchor.dtype)
+
+
+def teacher_student_sigmoid_loss(input, label, soft_max_up_bound=15.0,
+                                 soft_max_lower_bound=-15.0):
+    helper = LayerHelper("teacher_student_sigmoid_loss", input=input)
+    return _single_out(helper, "teacher_student_sigmoid_loss",
+                       {"X": [input], "Label": [label]},
+                       {"soft_max_up_bound": soft_max_up_bound,
+                        "soft_max_lower_bound": soft_max_lower_bound},
+                       dtype=input.dtype, slot="Y")
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper("smooth_l1_loss", input=x)
+    diff = helper.create_variable_for_type_inference(x.dtype,
+                                                     stop_gradient=True)
+    loss = helper.create_variable_for_type_inference(x.dtype)
+    inputs = {"X": [x], "Y": [y]}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = [inside_weight]
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = [outside_weight]
+    helper.append_op(type="smooth_l1_loss", inputs=inputs,
+                     outputs={"Diff": [diff], "Out": [loss]},
+                     attrs={"sigma": sigma if sigma is not None else 1.0})
+    return loss
+
+
+def bpr_loss(input, label, name=None):
+    helper = LayerHelper("bpr_loss", input=input, name=name)
+    return _single_out(helper, "bpr_loss",
+                       {"X": [input], "Label": [label]}, dtype=input.dtype,
+                       slot="Y")
+
+
+def rank_loss(label, left, right, name=None):
+    helper = LayerHelper("rank_loss", input=left, name=name)
+    return _single_out(helper, "rank_loss",
+                       {"Label": [label], "Left": [left], "Right": [right]},
+                       dtype=left.dtype)
+
+
+def margin_rank_loss(label, left, right, margin=0.1, name=None):
+    helper = LayerHelper("margin_rank_loss", input=left, name=name)
+    act = helper.create_variable_for_type_inference(left.dtype,
+                                                    stop_gradient=True)
+    out = helper.create_variable_for_type_inference(left.dtype)
+    helper.append_op(type="margin_rank_loss",
+                     inputs={"Label": [label], "X1": [left], "X2": [right]},
+                     outputs={"Out": [out], "Activated": [act]},
+                     attrs={"margin": margin})
+    return out
+
+
+def dice_loss(input, label, epsilon=1e-5):
+    """1 - 2 |input * onehot(label)| / (|input| + |onehot|) per sample,
+    averaged: one_hot, reductions and the Variable operators."""
+    label = one_hot(label, depth=input.shape[-1])
+    reduce_dim = list(range(1, len(input.shape)))
+    inse = reduce_sum(input * label, dim=reduce_dim)
+    dice_denominator = reduce_sum(input, dim=reduce_dim) + \
+        reduce_sum(label, dim=reduce_dim)
+    dice_score = 1 - inse * 2 / (dice_denominator + epsilon)
+    return reduce_mean(dice_score)
+
+
+def hinge_loss(input, label, name=None):
+    helper = LayerHelper("hinge_loss", input=input, name=name)
+    return _single_out(helper, "hinge_loss",
+                       {"Logits": [input], "Labels": [label]},
+                       dtype=input.dtype, slot="Loss")

@@ -1,6 +1,6 @@
-"""NN lowerings: conv2d, pool2d, batch_norm and its grad, layer_norm,
-dropout and its grad, and fused_attention (the port's counterpart of
-``paddle_tpu/fluid/ops/nn_ops.py``).
+"""NN lowerings: conv2d, depthwise_conv2d, pool2d, batch_norm and its
+grad, layer_norm, dropout and its grad, and fused_attention (the port's
+counterpart of ``paddle_tpu/fluid/ops/nn_ops.py``).
 
 conv2d is ``F.conv2d`` (cuDNN on the card), as the JAX package's is XLA's
 convolution; a float32 convolution runs in true f32 on the card, forward
@@ -101,6 +101,15 @@ def _conv2d(ctx, inputs, attrs):
     else:
         out = F.conv2d(x, w, None, *conv)
     return {"Output": [out.to(x.dtype)]}
+
+
+@register_lowering("depthwise_conv2d")
+def _depthwise_conv2d(ctx, inputs, attrs):
+    """conv2d with groups set to the input's channels (a channel multiplier
+    of num_filters / channels): the same routes, float32 through
+    ``_Conv2dF32``."""
+    return _conv2d(ctx, inputs,
+                   dict(attrs, groups=one(inputs, "Input").shape[1]))
 
 
 def _pool_out_size(in_size, k, s, p, ceil_mode):

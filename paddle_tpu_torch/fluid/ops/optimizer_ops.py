@@ -64,15 +64,16 @@ def _adam_kernel_ok(p):
 def _merge_rows(rows, vals, height):
     """Duplicate ids merged: (the distinct ids in [0, height), ascending,
     and for each the f32 sum of its values, added in their order in the
-    batch), as the JAX package's ``_merge_rows`` sorts and segment-sums
-    them. A negative id wraps once by +height; one still out of range is
-    dropped, as the JAX scatters drop it."""
+    batch by scatter_rows_, the same bits in every run), as the JAX
+    package's ``_merge_rows`` sorts and segment-sums them. A negative id
+    wraps once by +height; one still out of range is dropped, as the JAX
+    scatters drop it."""
     rows = wrap_ids(rows.reshape(-1).long(), height)
     valid = (rows >= 0) & (rows < height)
     uniq, inv = torch.unique(rows[valid], return_inverse=True)
     merged = torch.zeros((uniq.shape[0],) + tuple(vals.shape[1:]),
                          dtype=torch.float32, device=vals.device)
-    return uniq, merged.index_add_(0, inv, vals[valid].float())
+    return uniq, scatter_rows_(merged, inv, vals[valid].float())
 
 
 @register_lowering("sgd", no_grad=True)

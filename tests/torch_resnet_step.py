@@ -158,9 +158,18 @@ def op_by_op(model, dtype):
     Returns [(op type, output name, max |port - jax| / max |jax|)]."""
     tm, _, loss, acc = build(tfluid, modules(model)[1], model, dtype)
     before, after, vals = jax_step(model, dtype)
-    inputs = feed(model)
+    return replay(tm, [loss.name, acc.name], feed(model), before, after,
+                  vals)
+
+
+def replay(tm, fetch, inputs, before, after, vals):
+    """The port's plan of program ``tm`` (fetching ``fetch``) run op by op,
+    each op on the JAX step's values of its inputs: the feeds ``inputs``,
+    the persistables ``before`` the step, the intermediates ``vals``; each
+    output against the JAX value (``after`` for a persistable). Returns
+    [(op type, output name, max |port - jax| / max |jax|)]."""
     block = tm.global_block()
-    plan = texecutor._Plan(tm, [loss.name, acc.name])
+    plan = texecutor._Plan(tm, fetch)
     last_writer = {n: k for k, (op, _) in enumerate(plan.steps)
                    for n in op.output_arg_names}
     port, final = {}, set()
