@@ -6,10 +6,13 @@ smoothing, cos_sim and the global step counter of the learning-rate
 schedules, the losses of the Fluid book and of ``fluid.layers`` (the
 cross-entropy over probabilities, the squared error, log, Huber, KL,
 n-pair, teacher-student, smooth L1, BPR, rank, margin-rank, dice and
-hinge losses) and l2_normalize, with the same signatures and the same
-ops, slots and attrs."""
+hinge losses), l2_normalize and the tensor layers (split, stack,
+gather, scatter, pads, crops, channel moves, the random layers, sum,
+mul, ...), with the same signatures and the same ops, slots and
+attrs."""
 import numpy as np
 
+from ..framework import Variable
 from ..layer_helper import LayerHelper
 from ..initializer import Constant, Normal
 from ..param_attr import ParamAttr
@@ -32,6 +35,12 @@ __all__ = [
     "selu", "sigmoid", "square", "reduce_sum", "reduce_mean", "reduce_max",
     "reduce_min", "reduce_prod", "scale", "label_smooth", "cos_sim",
     "autoincreased_step_counter", "add_position_encoding",
+    "squeeze", "unsqueeze", "stack", "unstack", "expand", "mul", "split",
+    "shape", "pad", "pad2d", "pad_constant_like", "gather", "scatter",
+    "random_crop", "crop", "space_to_depth", "shuffle_channel",
+    "uniform_random_batch_size_like", "gaussian_random",
+    "gaussian_random_batch_size_like", "sampling_id", "sum", "multiplex",
+    "reverse", "merge_selected_rows", "get_tensor_from_selected_rows",
 ]
 
 
@@ -676,3 +685,239 @@ def hinge_loss(input, label, name=None):
     return _single_out(helper, "hinge_loss",
                        {"Logits": [input], "Labels": [label]},
                        dtype=input.dtype, slot="Loss")
+
+
+def squeeze(input, axes, name=None):
+    helper = LayerHelper("squeeze", input=input, name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    xshape = helper.create_variable_for_type_inference(input.dtype,
+                                                       stop_gradient=True)
+    helper.append_op(type="squeeze2", inputs={"X": [input]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"axes": list(axes)})
+    return out
+
+
+def unsqueeze(input, axes, name=None):
+    helper = LayerHelper("unsqueeze", input=input, name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    xshape = helper.create_variable_for_type_inference(input.dtype,
+                                                       stop_gradient=True)
+    helper.append_op(type="unsqueeze2", inputs={"X": [input]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"axes": list(axes)})
+    return out
+
+
+def stack(x, axis=0):
+    if isinstance(x, Variable):
+        x = [x]
+    helper = LayerHelper("stack", input=x)
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    helper.append_op(type="stack", inputs={"X": x}, outputs={"Y": [out]},
+                     attrs={"axis": axis})
+    return out
+
+
+def unstack(x, axis=0, num=None):
+    helper = LayerHelper("unstack", input=x)
+    if num is None:
+        num = x.shape[axis]
+    outs = [helper.create_variable_for_type_inference(x.dtype)
+            for _ in range(num)]
+    helper.append_op(type="unstack", inputs={"X": [x]}, outputs={"Y": outs},
+                     attrs={"axis": axis, "num": num})
+    return outs
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper("expand", input=x, name=name)
+    return _single_out(helper, "expand", {"X": [x]},
+                       {"expand_times": list(expand_times)}, dtype=x.dtype)
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper("mul", input=x, name=name)
+    return _single_out(helper, "mul", {"X": [x], "Y": [y]},
+                       {"x_num_col_dims": x_num_col_dims,
+                        "y_num_col_dims": y_num_col_dims}, dtype=x.dtype)
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", input=input, name=name)
+    dim = dim if dim >= 0 else dim + len(input.shape)
+    if isinstance(num_or_sections, int):
+        num = num_or_sections
+        attrs = {"num": num, "sections": [], "axis": dim}
+    else:
+        num = len(num_or_sections)
+        attrs = {"num": 0, "sections": list(num_or_sections), "axis": dim}
+    outs = [helper.create_variable_for_type_inference(input.dtype)
+            for _ in range(num)]
+    helper.append_op(type="split", inputs={"X": [input]},
+                     outputs={"Out": outs}, attrs=attrs)
+    return outs
+
+
+def shape(input):
+    helper = LayerHelper("shape", input=input)
+    out = helper.create_variable_for_type_inference("int32",
+                                                    stop_gradient=True)
+    helper.append_op(type="shape", inputs={"Input": [input]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper("pad", input=x, name=name)
+    return _single_out(helper, "pad", {"X": [x]},
+                       {"paddings": list(paddings),
+                        "pad_value": float(pad_value)}, dtype=x.dtype)
+
+
+def pad2d(input, paddings=[0, 0, 0, 0], mode="constant", pad_value=0.0,
+          data_format="NCHW", name=None):
+    helper = LayerHelper("pad2d", input=input, name=name)
+    return _single_out(helper, "pad2d", {"X": [input]},
+                       {"paddings": list(paddings), "mode": mode,
+                        "pad_value": float(pad_value),
+                        "data_format": data_format}, dtype=input.dtype)
+
+
+def pad_constant_like(x, y, pad_value=0.0, name=None):
+    helper = LayerHelper("pad_constant_like", input=x, name=name)
+    return _single_out(helper, "pad_constant_like", {"X": [x], "Y": [y]},
+                       {"pad_value": float(pad_value)}, dtype=y.dtype)
+
+
+def gather(input, index):
+    helper = LayerHelper("gather", input=input)
+    return _single_out(helper, "gather", {"X": [input], "Index": [index]},
+                       dtype=input.dtype)
+
+
+def scatter(input, index, updates, name=None, overwrite=True):
+    helper = LayerHelper("scatter", input=input, name=name)
+    return _single_out(helper, "scatter",
+                       {"X": [input], "Ids": [index], "Updates": [updates]},
+                       {"overwrite": overwrite}, dtype=input.dtype)
+
+
+def random_crop(x, shape, seed=None):
+    helper = LayerHelper("random_crop", input=x)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    seed_out = helper.create_variable_for_type_inference("int64",
+                                                         stop_gradient=True)
+    helper.append_op(type="random_crop", inputs={"X": [x]},
+                     outputs={"Out": [out], "SeedOut": [seed_out]},
+                     attrs={"shape": list(shape),
+                            "seed": seed if seed is not None else 0})
+    return out
+
+
+def crop(x, shape=None, offsets=None, name=None):
+    helper = LayerHelper("crop", input=x, name=name)
+    if isinstance(shape, Variable):
+        raise NotImplementedError("a crop shape held in a Variable is not "
+                                  "supported: pass a list")
+    offsets = offsets or [0] * len(x.shape)
+    return _single_out(helper, "crop", {"X": [x]},
+                       {"shape": list(shape), "offsets": list(offsets)},
+                       dtype=x.dtype)
+
+
+def space_to_depth(x, blocksize, name=None):
+    helper = LayerHelper("space_to_depth", input=x, name=name)
+    return _single_out(helper, "space_to_depth", {"X": [x]},
+                       {"blocksize": blocksize}, dtype=x.dtype)
+
+
+def shuffle_channel(x, group, name=None):
+    helper = LayerHelper("shuffle_channel", input=x, name=name)
+    return _single_out(helper, "shuffle_channel", {"X": [x]},
+                       {"group": group}, dtype=x.dtype)
+
+
+def uniform_random_batch_size_like(input, shape, dtype="float32",
+                                   input_dim_idx=0, output_dim_idx=0,
+                                   min=-1.0, max=1.0, seed=0):
+    helper = LayerHelper("uniform_random_batch_size_like", input=input)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="uniform_random_batch_size_like",
+                     inputs={"Input": [input]}, outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "dtype": dtype,
+                            "input_dim_idx": input_dim_idx,
+                            "output_dim_idx": output_dim_idx, "min": min,
+                            "max": max, "seed": seed})
+    return out
+
+
+def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32"):
+    helper = LayerHelper("gaussian_random")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="gaussian_random", outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "mean": mean, "std": std,
+                            "seed": seed, "dtype": dtype})
+    return out
+
+
+def gaussian_random_batch_size_like(input, shape, input_dim_idx=0,
+                                    output_dim_idx=0, mean=0.0, std=1.0,
+                                    seed=0, dtype="float32"):
+    helper = LayerHelper("gaussian_random_batch_size_like", input=input)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="gaussian_random_batch_size_like",
+                     inputs={"Input": [input]}, outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "mean": mean, "std": std,
+                            "seed": seed, "dtype": dtype,
+                            "input_dim_idx": input_dim_idx,
+                            "output_dim_idx": output_dim_idx})
+    return out
+
+
+def sampling_id(x, min=0.0, max=1.0, seed=0, dtype="float32"):
+    """One int64 id a row of probabilities ``x``; min, max and dtype are
+    taken and not used, as in the JAX package."""
+    helper = LayerHelper("sampling_id", input=x)
+    out = helper.create_variable_for_type_inference("int64",
+                                                    stop_gradient=True)
+    helper.append_op(type="sampling_id", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"seed": seed})
+    return out
+
+
+def sum(x):
+    if isinstance(x, Variable):
+        x = [x]
+    helper = LayerHelper("sum", input=x)
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    helper.append_op(type="sum", inputs={"X": x}, outputs={"Out": [out]})
+    return out
+
+
+def multiplex(inputs, index):
+    helper = LayerHelper("multiplex", input=inputs)
+    out = helper.create_variable_for_type_inference(inputs[0].dtype)
+    helper.append_op(type="multiplex",
+                     inputs={"X": inputs, "Ids": [index]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def reverse(x, axis):
+    helper = LayerHelper("reverse", input=x)
+    axis = [axis] if isinstance(axis, int) else list(axis)
+    return _single_out(helper, "reverse", {"X": [x]}, {"axis": axis},
+                       dtype=x.dtype)
+
+
+def merge_selected_rows(x, name=None):
+    """A sparse gradient is held as its [n, dim] values (with the ids in
+    ``@ROWS``), one row an id as looked up, and the optimizers add
+    repeated rows themselves: x itself, no op (the JAX package's layer)."""
+    return x
+
+
+def get_tensor_from_selected_rows(x, name=None):
+    """x itself, no op (the JAX package's layer; see merge_selected_rows)."""
+    return x

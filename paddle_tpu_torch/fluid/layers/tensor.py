@@ -1,7 +1,8 @@
 """Tensor layers (the port's counterpart of
 ``paddle_tpu/fluid/layers/tensor.py``): variable and parameter creation,
-cast, concat, sums, assign, fill_constant, ones, zeros and isfinite. The
-rest of the JAX module's layers come with their ops."""
+cast, concat, sums, assign (of a Variable or a numpy array), the fills,
+argmin, argmax, argsort, reverse, has_inf, has_nan, isfinite and range.
+``tensor_array_to_tensor`` comes with the tensor arrays."""
 import numpy as np
 
 from ..core_types import convert_dtype
@@ -9,9 +10,13 @@ from ..framework import Variable
 from ..initializer import Constant
 from ..layer_helper import LayerHelper
 
-__all__ = ["create_tensor", "create_parameter", "create_global_var", "cast",
-           "concat", "sums", "assign", "fill_constant", "ones", "zeros",
-           "isfinite"]
+__all__ = [
+    "create_tensor", "create_parameter", "create_global_var", "cast",
+    "concat", "sums", "assign", "fill_constant_batch_size_like",
+    "fill_constant", "argmin", "argmax", "argsort", "ones", "zeros",
+    "reverse", "has_inf", "has_nan", "isfinite", "range", "zeros_like",
+    "ones_like",
+]
 
 
 def create_tensor(dtype, name=None, persistable=False):
@@ -69,18 +74,25 @@ def sums(input, out=None):
 
 
 def assign(input, output=None):
-    """Copy a Variable into ``output`` (a new var by default). A numpy
-    array takes the assign_value op, which is not ported yet."""
+    """Copy a Variable into ``output`` (a new var by default), or put a
+    numpy array there through an assign_value op (its values a float64
+    list)."""
     helper = LayerHelper("assign")
-    if isinstance(input, np.ndarray):
-        raise NotImplementedError("assign of a numpy array (the assign_value "
-                                  "op) is not ported yet")
-    if not isinstance(input, Variable):
+    if isinstance(input, Variable):
+        if output is None:
+            output = helper.create_variable_for_type_inference(input.dtype)
+        helper.append_op(type="assign", inputs={"X": [input]},
+                         outputs={"Out": [output]})
+    elif isinstance(input, np.ndarray):
+        if output is None:
+            output = helper.create_variable_for_type_inference(
+                str(input.dtype))
+        helper.append_op(
+            type="assign_value", outputs={"Out": [output]},
+            attrs={"shape": list(input.shape), "dtype": str(input.dtype),
+                   "values": input.astype(np.float64).tolist()})
+    else:
         raise TypeError("assign expects Variable or ndarray")
-    if output is None:
-        output = helper.create_variable_for_type_inference(input.dtype)
-    helper.append_op(type="assign", inputs={"X": [input]},
-                     outputs={"Out": [output]})
     return output
 
 
@@ -95,6 +107,53 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None):
     return out
 
 
+def fill_constant_batch_size_like(input, shape, dtype, value, input_dim_idx=0,
+                                  output_dim_idx=0):
+    helper = LayerHelper("fill_constant_batch_size_like", input=input)
+    out = helper.create_variable_for_type_inference(convert_dtype(dtype))
+    helper.append_op(type="fill_constant_batch_size_like",
+                     inputs={"Input": [input]}, outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "dtype": convert_dtype(dtype),
+                            "value": float(value),
+                            "input_dim_idx": input_dim_idx,
+                            "output_dim_idx": output_dim_idx})
+    static = list(shape)
+    static[output_dim_idx] = -1       # batch dim comes from the input
+    out.shape = tuple(static)
+    out.stop_gradient = True
+    return out
+
+
+def argmin(x, axis=0):
+    helper = LayerHelper("arg_min", input=x)
+    out = helper.create_variable_for_type_inference("int64",
+                                                    stop_gradient=True)
+    helper.append_op(type="arg_min", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def argmax(x, axis=0):
+    helper = LayerHelper("arg_max", input=x)
+    out = helper.create_variable_for_type_inference("int64",
+                                                    stop_gradient=True)
+    helper.append_op(type="arg_max", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def argsort(input, axis=-1, name=None):
+    helper = LayerHelper("argsort", input=input, name=name)
+    out = helper.create_variable_for_type_inference(input.dtype,
+                                                    stop_gradient=True)
+    ids = helper.create_variable_for_type_inference("int64",
+                                                    stop_gradient=True)
+    helper.append_op(type="argsort", inputs={"X": [input]},
+                     outputs={"Out": [out], "Indices": [ids]},
+                     attrs={"axis": axis})
+    return out, ids
+
+
 def ones(shape, dtype, force_cpu=False):
     return fill_constant(shape=shape, dtype=dtype, value=1.0)
 
@@ -103,10 +162,65 @@ def zeros(shape, dtype, force_cpu=False):
     return fill_constant(shape=shape, dtype=dtype, value=0.0)
 
 
+def reverse(x, axis):
+    from .nn import reverse as _rev
+    return _rev(x, axis)
+
+
+def has_inf(x):
+    helper = LayerHelper("isinf", input=x)
+    out = helper.create_variable_for_type_inference("bool",
+                                                    stop_gradient=True)
+    helper.append_op(type="isinf", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def has_nan(x):
+    helper = LayerHelper("isnan", input=x)
+    out = helper.create_variable_for_type_inference("bool",
+                                                    stop_gradient=True)
+    helper.append_op(type="isnan", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
 def isfinite(x):
     """A [1] bool: are all of x's elements finite?"""
     helper = LayerHelper("isfinite", input=x)
     out = helper.create_variable_for_type_inference("bool",
                                                     stop_gradient=True)
     helper.append_op(type="isfinite", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def range(start, end, step, dtype):
+    helper = LayerHelper("range")
+    out = helper.create_variable_for_type_inference(convert_dtype(dtype),
+                                                    stop_gradient=True)
+    helper.append_op(type="range_static", outputs={"Out": [out]},
+                     attrs={"start": float(start), "end": float(end),
+                            "step": float(step), "dtype": convert_dtype(dtype)})
+    return out
+
+
+def zeros_like(x, out=None):
+    helper = LayerHelper("fill_zeros_like", input=x)
+    if out is None:
+        out = helper.create_variable_for_type_inference(x.dtype,
+                                                        stop_gradient=True)
+    helper.append_op(type="fill_zeros_like", inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def ones_like(x, out=None):
+    """Ones in x's shape and dtype, through a fill_constant_batch_size_like
+    op (the JAX package's layer)."""
+    helper = LayerHelper("fill_ones_like", input=x)
+    if out is None:
+        out = helper.create_variable_for_type_inference(x.dtype,
+                                                        stop_gradient=True)
+    helper.append_op(type="fill_constant_batch_size_like",
+                     inputs={"Input": [x]}, outputs={"Out": [out]},
+                     attrs={"shape": list(x.shape), "dtype": x.dtype,
+                            "value": 1.0})
     return out

@@ -232,13 +232,13 @@ EXACT = {"ceil", "floor", "round", "elementwise_max", "elementwise_min"}
 
 def test_the_cases_are_the_ported_lowerings():
     """Every lowering this slice ports has a case here (the optimizer ops
-    are in test_torch_optimizer_zoo.py), and the port holds 139 (125 and
-    test_torch_loss_ops.py's 14)."""
+    are in test_torch_optimizer_zoo.py), and the port holds 179 (125,
+    test_torch_loss_ops.py's 14 and test_torch_tensor_ops.py's 40)."""
     assert (len(COMPARE), len(MATH), len(ACTIVATIONS), len(REDUCE),
             len(OTHER)) == (11, 13, 31, 4, 1)
     assert all(treg.has_lowering(op) and jreg.has_lowering(op)
                for op in CASES)
-    assert len(treg._LOWERINGS) == 139
+    assert len(treg._LOWERINGS) == 179
 
 
 @pytest.mark.parametrize("op", sorted(CASES))
@@ -608,6 +608,14 @@ def test_tensor_layers_build_the_jax_program():
             jm.global_block().vars.values()] == \
         [(v.name, v.dtype, v.persistable) for v in
          tm.global_block().vars.values()]
-    with pytest.raises(NotImplementedError, match="assign_value"):
-        with tfluid.program_guard(tfluid.Program(), tfluid.Program()):
-            tfluid.layers.assign(np.zeros(3, np.float32))
+    # assign of a numpy array: the assign_value op, as the JAX package
+    # builds it
+    arrays = []
+    for fl in (jfluid, tfluid):
+        main = fl.Program()
+        with fl.unique_name.guard(), fl.program_guard(main, fl.Program()):
+            fl.layers.assign(np.arange(3, dtype=np.float32))
+        arrays.append(main)
+    assert _signature(arrays[0]) == _signature(arrays[1])
+    assert [op.type for op in arrays[1].global_block().ops] == \
+        ["assign_value"]

@@ -14,13 +14,16 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 tools/torch_profile_serve.py --train --model resnet50  # batch 64
     python3 tools/torch_profile_serve.py --train --model se_resnext50  # 64
     python3 tools/torch_profile_serve.py --train --zoo vgg      # batch 64
+    python3 tools/torch_profile_serve.py --train --model tensor_chain
 
 It builds the flagship model (bench.py's config; with --wide bench.py's wide
 Transformer, d_model 2048 and d_ff 8192, so D = 256; with --model
 bench.py's BERT-base, DeepFM or ResNet-50 leg, or SE-ResNeXt-50 at full
-width as benchmark/fluid_benchmark.py trains it, training only; with --zoo
-a model of tools/torch_fluid_benchmark.py, built by its build_programs, at
-its default batch) with random weights from the seed chip_smoke.py uses.
+width as benchmark/fluid_benchmark.py trains it, or
+tools/torch_tensor_programs.py's tensor_chain at its widths, training only;
+with --zoo a model of tools/torch_fluid_benchmark.py, built by its
+build_programs, at its default batch) with random weights from the seed
+chip_smoke.py uses.
 Serving: two warm-up requests, then three traced with torch.profiler.
 Training (bench.py's training leg, as chip_smoke.py's train phases run
 it): one warm step, then two steps traced through Executor.run_steps. It prints one JSON line. Busy share is the
@@ -54,12 +57,14 @@ def main():
                     help="bench.py's wide Transformer (d_model 2048, d_ff "
                     "8192; training batch 64)")
     ap.add_argument("--model", choices=("transformer", "bert", "deepfm",
-                                        "resnet50", "se_resnext50"),
+                                        "resnet50", "se_resnext50",
+                                        "tensor_chain"),
                     default="transformer",
                     help="with --train: bench.py's BERT-base (batch 256, "
                     "seq 128), DeepFM (batch 4096) or ResNet-50 (batch 64, "
-                    "3x224x224, bf16) leg, or SE-ResNeXt-50 (batch 64, "
-                    "3x224x224, bf16, Adam(1e-3))")
+                    "3x224x224, bf16) leg, SE-ResNeXt-50 (batch 64, "
+                    "3x224x224, bf16, Adam(1e-3)) or tensor_chain (its "
+                    "widths, bf16, Adam(1e-4))")
     ap.add_argument("--zoo", choices=("mnist", "resnet", "vgg", "se_resnext",
                                       "transformer", "deepfm"),
                     help="with --train: this model of "
@@ -111,6 +116,17 @@ def main():
                 SEED, dataset="flowers", dtype=resnet.RESNET_BENCH_DTYPE)
             one = resnet.synthetic_batch(batch, [3, 224, 224], 1000,
                                          seed=SEED)
+        elif args.model == "tensor_chain":
+            tool = _load_tool("torch_tensor_programs.py")
+            cfg = {"d_model": None}
+            batch, args.seq = tool.CHAIN["batch"], None
+            main_prog, startup, loss, _ = tool.tensor_chain(fluid, seed=SEED)
+            # the chain's inputs stand for other models' activations: put
+            # them on the card in the program's dtypes before the trace
+            block = main_prog.global_block()
+            one = {k: torch.from_numpy(v).to("cuda", getattr(
+                torch, block.var(k).dtype)) for k, v in
+                tool.chain_batch(SEED).items()}
         elif args.model == "se_resnext50":
             cfg = {"d_model": None}
             batch, args.seq = se_resnext.SE_RESNEXT50_BATCH, None
@@ -128,7 +144,9 @@ def main():
 
         def run(steps, runner=None):
             (runner or exe).run_steps(
-                main_prog, feed={k: v[None].repeat(steps, 0)
+                main_prog, feed={k: v[None].expand(steps, *v.shape)
+                                 if torch.is_tensor(v) else
+                                 v[None].repeat(steps, 0)
                                  for k, v in one.items()},
                 n_steps=steps, fetch_list=[loss], scope=scope,
                 return_numpy=False)
