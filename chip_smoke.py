@@ -253,6 +253,43 @@ non-zero exit):
               lockstep with the CPU: losses within 1e-5; each step leaves
               the other net's parameters bit for bit. Control: the D
               optimizer without parameter_list moves G's.
+33. fgsm_digits - FGSM adversarial training of the book's digits model
+              (tools/torch_grad_programs.py: fluid.gradients of the loss in
+              the image, a step of 0.1 along its sign, the same net on it
+              sharing every parameter, Adam on the mean of both losses) at
+              the book's widths, batch 64: one warm step and 4 through
+              run_steps, each adversarial loss above its clean loss, no
+              port kernel; 3 steps in lockstep with the CPU (each op
+              replayed, losses within 1e-5). Control: sign as the identity
+              on the card.
+34. input_grads_resnet50 - inference_resnet50's program (f32, is_test,
+              drawn running statistics) with two fluid.gradients over its
+              one forward (the FGSM direction, then the class-score
+              saliency map from one_hot(label)) at batch 64: ms a batch,
+              peak memory, busy share (torch.profiler), no port kernel; the
+              loss on adv above the clean loss; at batch 4 on 3x128x128 each
+              op replayed from the CPU's values and the whole run's loss,
+              adv and map against the CPU. Control: the is_test batch
+              norm's gradient in its training form on the card.
+35. nets      - fluid.nets at its users' widths, forward and backward under
+              SGD: img_conv_group as VGG-16's first block (batch 64, f32),
+              glu over a [8192, 4096] bf16 fc, scaled_dot_product_attention
+              at train256's widths ([256, 256, 512], 8 heads, bf16) and an
+              fc over three bf16 inputs (512, 512, 2048): a window each, no
+              port kernel, then lockstep with the CPU at small batches.
+              Control: the attention's 1/sqrt(d) scale ignored on the card.
+36. bhtd_attention - the fused_attention op in its default [B, H, T, D]
+              layout at [8, 8, 4096, 64] bf16, causal and not, with
+              fluid.gradients of q, k, v: each run launches the flash
+              forward, dq and dkv kernels once; out and the gradients equal
+              the bthd route's on the transposed tensors bit for bit; both
+              routes' ms. At T 256 the dense reference, no launch. Control:
+              the bthd route on the untransposed tensors must differ.
+37. check_nan_inf - train256's step through Executor.run with the
+              FLAGS_check_nan_inf scan on and off, in turns from one state:
+              losses and state bit for bit, step ms of both; log of a
+              negative feed raises FloatingPointError naming its output.
+              Control: with the scan off it returns NaN.
 
 The kernel cases also time rows 1, 3, 8 and 11 at BERT-base's shapes
 (attention at batch 256, 12 heads, seq 128, D 64; LayerNorm on [32768,
@@ -2663,10 +2700,10 @@ def _replay_on_card(fluid, main, fetch, state, feed, vals, after):
                 tape[k] = grad_ops.record_forward(op, env, ctx,
                                                   plan.taped[k])
             else:
-                ctx.record = tape.pop(plan.grad_fwd[k]) \
-                    if k in plan.grad_fwd else None
+                if k in plan.grad_fwd:
+                    ctx.record, ctx.retain_graph = plan.record_for(tape, k)
                 registry.lower_op(op, env, ctx)
-                ctx.record = None
+                ctx.record, ctx.retain_graph = None, False
             for j, o in zip(run, ops):
                 for n in o.output_arg_names:
                     if n == "@EMPTY@" or n not in env:
@@ -3242,15 +3279,17 @@ def _mnist_feeds(mlp, steps, sparse=False):
             for k in range(steps)]
 
 
-def _lockstep(fluid, programs, feeds, card_main=None, exact_ops=()):
+def _lockstep(fluid, programs, feeds, card_main=None, exact_ops=(),
+              loss_rel_max=None):
     """Each feed of `feeds` one step of `programs` (main, startup, loss) in
     lockstep, card against CPU, from the CPU's state before it (the startup
     run on the CPU): the step through run_steps on the card, its loss
-    within OPT_LOSS_REL_MAX of the CPU's, and every op of it replayed on
-    the card from the CPU's values (_replay_on_card) within RESNET_OP_TOL,
-    the outputs of the op types `exact_ops` bit for bit; `card_main` (a
-    control) runs on the card in main's place. Returns (the last step's
-    card scope, readings, ok)."""
+    within `loss_rel_max` (default OPT_LOSS_REL_MAX) of the CPU's, and
+    every op of it replayed on the card from the CPU's values
+    (_replay_on_card) within RESNET_OP_TOL, the outputs of the op types
+    `exact_ops` bit for bit; `card_main` (a control) runs on the card in
+    main's place. Returns (the last step's card scope, readings, ok)."""
+    loss_rel_max = loss_rel_max or OPT_LOSS_REL_MAX
     main, startup, loss = programs[:3]
     card_main = card_main or main
     block = main.global_block()
@@ -3280,8 +3319,8 @@ def _lockstep(fluid, programs, feeds, card_main=None, exact_ops=()):
                         if t in exact_ops and e != 0.0})
         ok = ok and step_ok
         state = after
-    ok = ok and max(loss_rel) <= OPT_LOSS_REL_MAX and not inexact
-    rec = {"loss_rel_err": loss_rel, "loss_rel_max": OPT_LOSS_REL_MAX,
+    ok = ok and max(loss_rel) <= loss_rel_max and not inexact
+    rec = {"loss_rel_err": loss_rel, "loss_rel_max": loss_rel_max,
            "op_tol": RESNET_OP_TOL, "worst_op": worst}
     if exact_ops:
         rec.update(exact_outputs_a_step=sum(
@@ -3939,6 +3978,551 @@ def phase_fc_gan(fluid, counters):
                              % (rec, control, launched))
 
 
+# ---- input gradients, fluid.nets, the bhtd layout and the NaN check
+# (tools/torch_grad_programs.py)
+
+# fgsm_digits: the FGSM training step of the book's digits model at its
+# widths and batch (tools/torch_grad_programs.py): one warm step and
+# FGSM_STEPS through run_steps (_window; no port kernel: the Adam gate
+# refuses the model's parameters), each step's adversarial loss above its
+# clean loss; then FGSM_PARITY_STEPS steps in lockstep with the CPU
+# (_lockstep: each op replayed on the card from the CPU's values, the
+# clean loss, the adversarial loss and the step's objective within
+# OPT_LOSS_REL_MAX). Control: sign as the identity on the card (the step
+# along the gradient itself) must fail the lockstep.
+FGSM_STEPS = 4
+FGSM_PARITY_STEPS = 3
+
+
+def _sign_as_identity(ctx, inputs, attrs):
+    """sign on the card as the identity (a control). CPU tensors take the
+    real lowering."""
+    from paddle_tpu_torch.fluid.ops import math_ops
+    x = inputs["X"][0]
+    if not x.is_cuda:
+        return math_ops._sign(ctx, inputs, attrs)
+    return {"Out": [x.clone()]}
+
+
+def phase_fgsm_digits(fluid, counters):
+    """FGSM adversarial training of recognize_digits_conv (Goodfellow et
+    al. 2015) at the book's widths, batch 64: every op of the clean
+    forward has two grad ops (fluid.gradients, then minimize). Returns the
+    launches."""
+    import numpy as np
+    from unittest import mock
+    from paddle_tpu_torch.fluid.ops import registry
+    t0 = time.perf_counter()
+    tool = _load_tool("torch_grad_programs")
+    g = tool.fgsm_digits(fluid, seed=SEED)
+    batch = tool.DIGITS_BATCH
+    draws = [tool.digits_batch(batch, seed=SEED + k)
+             for k in range(FGSM_STEPS + 1)]
+    stacked = {k: np.stack([d[k] for d in draws]) for k in draws[0]}
+    block = g.main.global_block()
+    types = [op.type for op in block.ops]
+
+    def adversarial_above_clean(scope, extra):
+        clean, adv = (x.float().cpu().numpy() for x in extra)
+        return ({"clean_losses": clean.tolist(),
+                 "adversarial_losses": adv.tolist()},
+                bool((adv > clean).all()))
+    launched = _window(
+        "fgsm_digits", fluid, counters, (g.main, g.startup, g.total),
+        {k: v[:1] for k, v in stacked.items()},
+        {k: v[1:] for k, v in stacked.items()}, FGSM_STEPS,
+        dict.fromkeys(counters, 0), None,
+        {"batch": batch, "ops": len(types),
+         "grad_of": types.count("grad_of"),
+         "batch_norm_grad": types.count("batch_norm_grad"),
+         "epsilon": tool.FGSM_EPS},
+        {"examples": batch},
+        ([g.loss, g.loss_adv], adversarial_above_clean))
+    feeds = [tool.digits_batch(batch, seed=SEED + 100 + k)
+             for k in range(FGSM_PARITY_STEPS)]
+    _, rec, ok = _lockstep(fluid, (g.main, g.startup, g.total), feeds)
+    with mock.patch.dict(registry._LOWERINGS, sign=_sign_as_identity):
+        _, control, control_passed = _lockstep(
+            fluid, (g.main, g.startup, g.total), feeds[:1])
+    ok = ok and not control_passed
+    emit({"phase": "fgsm_digits_parity", "ok": ok,
+          "steps": FGSM_PARITY_STEPS, "lockstep": rec,
+          "control_sign_as_identity_on_the_card": dict(
+              control, passed=control_passed),
+          "phase_seconds": time.perf_counter() - t0})
+    if not ok:
+        raise AssertionError("fgsm_digits parity failed: %s, control %s"
+                             % (rec, control))
+    return launched
+
+
+# input_grads_resnet50: phase inference_resnet50's program (flowers, f32,
+# is_test, 1000 classes, 224^2, running statistics drawn from SEED) with
+# the two input gradients of tools/torch_grad_programs.py appended: the
+# FGSM direction (eps 8/255) and the class-score saliency map (Simonyan et
+# al. 2014), both over the one forward, at batch RESNET_INFER_BATCH: ms a
+# batch over INPUT_GRAD_ROUNDS runs, peak memory, the busy share of two
+# runs traced by torch.profiler, launches (none of the port's kernels);
+# the loss on adv (a second run with adv as the feed) above the clean
+# loss. Then the program at resnet_parity's batch and image against the
+# CPU: each op replayed on the card from the CPU's values within
+# RESNET_OP_TOL, and the whole run's loss (RESNET_STEP_LIMITS["loss"]),
+# adv and saliency map (["named"], by norm) from the CPU's state. Control:
+# the is_test batch norm's gradient in its training form on the card (from
+# the batch statistics) must fail the replay.
+INPUT_GRAD_ROUNDS = 5
+
+
+def _batch_norm_grad_training_form():
+    from paddle_tpu_torch.fluid.ops import nn_ops
+
+    def lowering(ctx, inputs, attrs):
+        if inputs["X"][0].is_cuda:
+            attrs = dict(attrs, is_test=False, use_global_stats=False)
+        return nn_ops._batch_norm_grad(ctx, inputs, attrs)
+    return lowering
+
+
+def _busy_share(run, n=2):
+    """(wall ms, device-busy ms, {kind: [device ms, launches]}) a call of
+    run() over n calls traced by torch.profiler (one stream: kernels do
+    not overlap); kinds as tools/torch_profile_serve.py classes them
+    ("conv": cuDNN's convolutions and layout transposes, "matmul",
+    "other")."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    kind = _load_tool("torch_profile_serve")._kind
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    by_kind = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = by_kind.setdefault(kind(e.name), [0.0, 0])
+            k[0] += e.time_range.elapsed_us() / 1e3 / n
+            k[1] += 1.0 / n
+    return wall, sum(ms for ms, _ in by_kind.values()), by_kind
+
+
+def phase_input_grads_resnet50(fluid, resnet, counters):
+    import numpy as np
+    import torch
+    from unittest import mock
+    from paddle_tpu_torch.fluid.ops import registry
+    t0 = time.perf_counter()
+    tool = _load_tool("torch_grad_programs")
+    g = tool.input_grads_resnet(fluid, seed=SEED, dataset="flowers")
+    block = g.main.global_block()
+    types = [op.type for op in block.ops]
+    stats = tool.draw_bn_stats(g.main, SEED)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(g.startup, scope=scope)
+    for n, v in stats.items():
+        scope.set(n, torch.from_numpy(v).cuda())
+    feed = resnet.synthetic_batch(RESNET_INFER_BATCH, RESNET_IMAGE,
+                                  RESNET_CLASSES, seed=SEED)
+    fetch = [g.adv.name, g.saliency.name, g.loss.name]
+    run = lambda f=feed: exe.run(g.main, feed=f, fetch_list=fetch,
+                                 scope=scope, return_numpy=False)
+    run()                                     # warm
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    ms = []
+    for _ in range(INPUT_GRAD_ROUNDS):
+        out, t = _timed_ms(run)
+        ms.append(t)
+    launched = _read(counters)
+    peak = torch.cuda.max_memory_allocated()
+    wall, busy, by_kind = _busy_share(run)
+    adv, saliency, loss = out
+    step = (adv - torch.from_numpy(feed["img"]).cuda()).abs()
+    adv_loss, = exe.run(g.main, feed=dict(feed, img=adv),
+                        fetch_list=[g.loss.name], scope=scope)
+    eps = tool.RESNET_EPS
+    moved = float(((step - eps).abs() <= 1e-6).float().mean())
+    first = {"saliency_shape": list(saliency.shape),
+             "saliency_finite": bool(torch.isfinite(saliency).all()),
+             "adv_share_moved_by_eps": moved,
+             "clean_loss": float(loss), "adversarial_loss": float(adv_loss)}
+    ok = first["saliency_finite"] and moved > 0.99 and \
+        float(adv_loss) > float(loss) and \
+        launched == dict.fromkeys(counters, 0) and \
+        list(saliency.shape) == [RESNET_INFER_BATCH] + RESNET_IMAGE
+    del exe, scope, out, adv, saliency, step
+    torch.cuda.empty_cache()
+
+    # against the CPU at resnet_parity's batch and image
+    cpu_scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(g.startup, scope=cpu_scope)
+    state = {v.name: cpu_scope.get(v.name) for v in block.vars.values()
+             if v.persistable and cpu_scope.get(v.name) is not None}
+    state.update({n: torch.from_numpy(v) for n, v in stats.items()})
+    small = resnet.synthetic_batch(RESNET_PARITY_BATCH, RESNET_PARITY_IMAGE,
+                                   RESNET_CLASSES, seed=SEED + 700)
+    names = sorted({n for op in block.ops for n in op.output_arg_names
+                    if n != "@EMPTY@" and not block.var(n).persistable})
+    vals, after = _cpu_step(fluid, g.main, state, small, names)
+    errs = _replay_on_card(fluid, g.main, fetch, state, small, vals, after)
+    op_ok, worst = _op_verdict(errs)
+    card, _ = _card_step(fluid, fluid.Executor(), g.main, state, small,
+                         fetch, [])
+    cpu = {n: fluid.executor.as_numpy(vals[n]) for n in fetch}
+    whole = {"loss": abs(float(card[g.loss.name]) - float(cpu[g.loss.name]))
+             / abs(float(cpu[g.loss.name])),
+             "adv": _rel_norm(card[g.adv.name], cpu[g.adv.name]),
+             "saliency": _rel_norm(card[g.saliency.name],
+                                   cpu[g.saliency.name])}
+    whole_ok = whole["loss"] <= RESNET_STEP_LIMITS["loss"] and \
+        max(whole["adv"], whole["saliency"]) <= RESNET_STEP_LIMITS["named"]
+    with mock.patch.dict(registry._LOWERINGS,
+                         batch_norm_grad=_batch_norm_grad_training_form()):
+        control_ok, control_worst = _op_verdict(_replay_on_card(
+            fluid, g.main, fetch, state, small, vals, after))
+    ok = ok and op_ok and whole_ok and not control_ok
+    emit({"phase": "input_grads_resnet50", "ok": ok,
+          "batch": RESNET_INFER_BATCH, "image": RESNET_IMAGE,
+          "dtype": "float32", "ops": len(types),
+          "grad_of": types.count("grad_of"),
+          "batch_norm_grad": types.count("batch_norm_grad"),
+          "epsilon": eps, "ms_per_batch": ms,
+          "images_per_s": RESNET_INFER_BATCH * 1e3 / min(ms),
+          "peak_memory_bytes": peak, "profiled_wall_ms": wall,
+          "device_busy_ms": busy, "busy_share": busy / wall,
+          "device_ms_and_launches_by_kind": by_kind,
+          "conv_flops_a_batch_forward": conv_flops_per_image(g.main) *
+          RESNET_INFER_BATCH,
+          "port_kernel_launches": launched, "first_gradient": first,
+          "parity": {"batch": RESNET_PARITY_BATCH,
+                     "image": RESNET_PARITY_IMAGE, "op_tol": RESNET_OP_TOL,
+                     "worst_op": worst, "ops_ok": op_ok,
+                     "whole_run": whole,
+                     "whole_limits": RESNET_STEP_LIMITS},
+          "control_batch_norm_grad_training_form_on_the_card": {
+              "passed": control_ok, "worst_op": control_worst},
+          "phase_seconds": time.perf_counter() - t0})
+    if not ok:
+        raise AssertionError("input_grads_resnet50 failed: %s, ops %s, "
+                             "whole run %s, control passed %s, launches %s"
+                             % (first, worst, whole, control_ok, launched))
+    return launched
+
+
+# nets: fluid.nets at the widths of the models that use them, each net's
+# program trained by SGD(1e-3) on a mean of squares (forward and
+# backward): img_conv_group as VGG-16's first block (64 filters twice,
+# 3x3, on 3x224x224, batch 64, f32), glu over a [8192, 4096] bf16 fc (a
+# gated FFN at train256's d_model), scaled_dot_product_attention at
+# train256's widths ([256, 256, 512], 8 heads, bf16, dropout 0; the q, k,
+# v projections fc's) and an fc over three bf16 inputs of widths 512, 512
+# and 2048 (16,384 rows). Each: one warm step and NETS_STEPS through
+# run_steps (_window, the feeds made on the card before it; no port
+# kernel), then NETS_PARITY_STEPS steps in lockstep with the CPU at
+# NETS_PARITY_BATCH (each op within RESNET_OP_TOL; the loss within
+# OPT_LOSS_REL_MAX in f32, TRAIN_LOSS_REL_MAX in bf16). Control: the
+# attention's 1/sqrt(d) scale ignored on the card.
+NETS_STEPS = 3
+NETS_PARITY_STEPS = 2
+NETS_PARITY_BATCH = {"img_conv_group": 2, "glu": 256,
+                     "scaled_dot_product_attention": 4, "fc_three_inputs": 256}
+
+
+def _net_programs(fluid, name):
+    """(main, startup, loss, {feed: per-example shape}, dtype) of net
+    `name` at its width."""
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        if name == "img_conv_group":
+            shapes, dtype = {"img": RESNET_IMAGE}, "float32"
+            out = fluid.nets.img_conv_group(
+                L.data(name="img", shape=RESNET_IMAGE, dtype="float32"),
+                conv_num_filter=[64, 64], pool_size=2, conv_act="relu",
+                pool_stride=2)
+        elif name == "glu":
+            shapes, dtype = {"x": [512]}, "bfloat16"
+            x = L.cast(L.data(name="x", shape=[512], dtype="float32"),
+                       dtype)
+            out = fluid.nets.glu(L.fc(x, 4096), dim=-1)
+        elif name == "scaled_dot_product_attention":
+            shapes, dtype = {"x": [256, 512]}, "bfloat16"
+            x = L.cast(L.data(name="x", shape=[256, 512], dtype="float32"),
+                       dtype)
+            q, k, v = (L.fc(x, 512, num_flatten_dims=2, bias_attr=False)
+                       for _ in range(3))
+            out = fluid.nets.scaled_dot_product_attention(q, k, v, 8)
+        else:
+            shapes = {"a": [512], "b": [512], "c": [2048]}
+            dtype = "bfloat16"
+            xs = [L.cast(L.data(name=n, shape=s, dtype="float32"), dtype)
+                  for n, s in shapes.items()]
+            out = L.fc(xs, 512)
+        loss = L.mean(L.square(L.cast(out, "float32")))
+        fluid.optimizer.SGD(learning_rate=1e-3).minimize(loss)
+    return main, startup, loss, shapes, dtype
+
+
+NET_BATCH = {"img_conv_group": 64, "glu": 8192,
+             "scaled_dot_product_attention": 256, "fc_three_inputs": 16384}
+
+
+def _scale_ignored(ctx, inputs, attrs):
+    """scale on the card as the identity (a control)."""
+    from paddle_tpu_torch.fluid.ops import math_ops
+    x = inputs["X"][0]
+    if not x.is_cuda:
+        return math_ops._scale(ctx, inputs, attrs)
+    return {"Out": [x.clone()]}
+
+
+def phase_nets(fluid, counters):
+    import numpy as np
+    import torch
+    from unittest import mock
+    from paddle_tpu_torch.fluid.ops import registry
+    t0 = time.perf_counter()
+    results, total = {}, dict.fromkeys(counters, 0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    for name in NET_BATCH:
+        main, startup, loss, shapes, dtype = _net_programs(fluid, name)
+        batch = NET_BATCH[name]
+        feed = {n: torch.rand([NETS_STEPS + 1, batch] + s, generator=gen,
+                              device="cuda") * 2 - 1
+                for n, s in shapes.items()}
+        launched = _window(
+            "nets_" + name, fluid, counters, (main, startup, loss),
+            {n: v[:1] for n, v in feed.items()},
+            {n: v[1:] for n, v in feed.items()}, NETS_STEPS,
+            dict.fromkeys(counters, 0), None,
+            {"net": name, "batch": batch, "dtype": dtype,
+             "ops": len(main.global_block().ops)},
+            {"examples": batch})
+        del feed
+        for k, n in launched.items():
+            total[k] += n
+        rng = np.random.RandomState(SEED + 800)
+        small = [{n: rng.uniform(-1, 1, [NETS_PARITY_BATCH[name]] + s)
+                  .astype("float32") for n, s in shapes.items()}
+                 for _ in range(NETS_PARITY_STEPS)]
+        limit = OPT_LOSS_REL_MAX if dtype == "float32" else \
+            TRAIN_LOSS_REL_MAX
+        _, rec, ok = _lockstep(fluid, (main, startup, loss), small,
+                               loss_rel_max=limit)
+        results[name] = dict(rec, ok=ok)
+        if name == "scaled_dot_product_attention":
+            with mock.patch.dict(registry._LOWERINGS, scale=_scale_ignored):
+                _, rec, passed = _lockstep(fluid, (main, startup, loss),
+                                           small[:1], loss_rel_max=limit)
+            results["control_attention_scale_ignored_on_the_card"] = dict(
+                rec, ok=not passed)
+    failed = [k for k, r in results.items() if not r["ok"]]
+    emit({"phase": "nets", "ok": not failed,
+          "parity_steps": NETS_PARITY_STEPS,
+          "parity_batch": NETS_PARITY_BATCH, "results": results,
+          "phase_seconds": time.perf_counter() - t0})
+    if failed:
+        raise AssertionError("nets: %s failed" % failed)
+    return total
+
+
+# bhtd_attention: the fused_attention op in its default [B, H, T, D]
+# layout at train4096's shapes ([8, 8, 4096, 64], bf16), causal and not,
+# forward and backward through fluid.gradients: each run launches the
+# flash forward, dq and dkv kernels once (rows 2, 4, 5); out, dQ, dK and
+# dV from ops/attention.fused_attention equal the bthd route's on the
+# transposed tensors bit for bit (the same kernels on the same values);
+# the two routes' ms (CUDA events, forward and backward). At T 256 the
+# dense reference runs, no kernel launch. Control: the bthd route on the
+# untransposed tensors (H and T swapped) must differ.
+BHTD_SHAPE = (8, 8, LONG_SEQ, 64)
+BHTD_SHORT = 256
+
+
+def _bhtd_program(fluid, causal, t):
+    """(program, [out, dq, dk, dv]): q, k, v [B, 8, t, 64] fed in f32, cast
+    to bf16, the fused_attention op (default layout), and the gradients of
+    the mean of the output's squares in q, k and v."""
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        h, d = BHTD_SHAPE[1], BHTD_SHAPE[3]
+        qkv = [L.data(name=n, shape=[h, t, d], dtype="float32",
+                      stop_gradient=False) for n in "qkv"]
+        helper = fluid.LayerHelper("fused_attention")
+        out = helper.create_variable_for_type_inference("bfloat16")
+        helper.append_op(type="fused_attention",
+                         inputs={s: [L.cast(x, "bfloat16")]
+                                 for s, x in zip("QKV", qkv)},
+                         outputs={"Out": [out]},
+                         attrs={"causal": causal, "scale": -1.0})
+        loss = L.mean(L.square(L.cast(out, "float32")))
+        grads = fluid.gradients(loss, qkv)
+    return main, [out] + grads
+
+
+def _attention_and_grads(fn, q, k, v, do, causal):
+    import torch
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    out = fn(*leaves, causal=causal)
+    return [out.detach()] + list(torch.autograd.grad(out, leaves, do))
+
+
+def phase_bhtd_attention(fluid, A, counters):
+    import torch
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    b, h, t, d = BHTD_SHAPE
+    exe, total, readings, ok = fluid.Executor(), None, {}, True
+    tr = lambda x: x.transpose(1, 2).contiguous()
+    back = lambda x: x.transpose(1, 2)
+    for causal in (False, True):
+        feed = {n: torch.randn(BHTD_SHAPE, generator=gen, device="cuda")
+                for n in "qkv"}
+        main, outs = _bhtd_program(fluid, causal, t)
+        exe.run(main, feed=feed, fetch_list=[o.name for o in outs],
+                scope=fluid.Scope(), return_numpy=False)       # warm
+        _zero(counters)
+        got = exe.run(main, feed=feed, fetch_list=[o.name for o in outs],
+                      scope=fluid.Scope(), return_numpy=False)
+        torch.cuda.synchronize()
+        launched = _read(counters)
+        want = dict.fromkeys(counters, 0)
+        want.update(flash=1, flash_bwd_dq=1, flash_bwd_dkv=1)
+        total = launched if total is None else \
+            {k: total[k] + n for k, n in launched.items()}
+        q, k, v = (feed[n].to(torch.bfloat16) for n in "qkv")
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        bhtd = _attention_and_grads(A.fused_attention, q, k, v, do, causal)
+        bthd = [back(x) for x in _attention_and_grads(
+            A.fused_attention_bthd, tr(q), tr(k), tr(v), tr(do), causal)]
+        equal = [bool(torch.equal(x, y)) for x, y in zip(bhtd, bthd)]
+        control_equal = bool(torch.equal(
+            A.fused_attention_bthd(q, k, v, causal), bhtd[0]))
+        ms = {"bhtd": time_ms(lambda: _attention_and_grads(
+                  A.fused_attention, q, k, v, do, causal), iters=10),
+              "bthd": time_ms(lambda: _attention_and_grads(
+                  A.fused_attention_bthd, tr(q), tr(k), tr(v), tr(do),
+                  causal), iters=10)}
+        case_ok = launched == want and all(equal) and not control_equal \
+            and all(bool(torch.isfinite(x.float()).all()) for x in got)
+        ok = ok and case_ok
+        readings["causal" if causal else "non_causal"] = {
+            "launches_a_run": {k: n for k, n in launched.items() if n},
+            "out_dq_dk_dv_equal_to_bthd": equal,
+            "control_untransposed_equal": control_equal,
+            "ms_fwd_bwd_with_transposes": ms, "ok": case_ok}
+        del feed, got, bhtd, bthd
+    short = {n: torch.randn((b, h, BHTD_SHORT, d), generator=gen,
+                            device="cuda") for n in "qkv"}
+    main, outs = _bhtd_program(fluid, True, BHTD_SHORT)
+    _zero(counters)
+    got = exe.run(main, feed=short, fetch_list=[o.name for o in outs],
+                  scope=fluid.Scope(), return_numpy=False)
+    dense = _read(counters)
+    q, k, v = (short[n].to(torch.bfloat16) for n in "qkv")
+    dense_ok = dense == dict.fromkeys(counters, 0) and torch.equal(
+        got[0], A.reference_attention(q, k, v, True)) and \
+        all(bool(torch.isfinite(x.float()).all()) for x in got)
+    ok = ok and dense_ok
+    emit({"phase": "bhtd_attention", "ok": ok, "shape": list(BHTD_SHAPE),
+          "dtype": "bfloat16", "cases": readings,
+          "t256_dense": {"launches": {k: n for k, n in dense.items() if n},
+                         "ok": dense_ok},
+          "phase_seconds": time.perf_counter() - t0})
+    if not ok:
+        raise AssertionError("bhtd_attention failed: %s, T 256 %s"
+                             % (readings, dense))
+    torch.cuda.empty_cache()
+    return total
+
+
+# check_nan_inf: train256's program (TRAIN_BATCH, seq 256, dropout 0.1)
+# for NAN_STEPS steps through Executor.run from one startup state in two
+# scopes, one executor with FLAGS_check_nan_inf's check on and one with
+# it off, in turns: the losses and every persistable after the steps bit
+# for bit equal; each step's ms, and the scan alone on the state the steps
+# wrote (NAN_SCAN_ROUNDS times, host clock with a synchronize). Then log of a negative feed with the
+# check on raises FloatingPointError naming its output; the control, the
+# same run with it off, returns NaN and does not raise.
+NAN_STEPS = 6
+NAN_SCAN_ROUNDS = 5
+
+
+def phase_check_nan_inf(fluid, transformer, cfg):
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    main, startup, loss = transformer.training_programs(SEED, **cfg)
+    off, on = fluid.Executor(), fluid.Executor()
+    on.check_nan_inf = True
+    scopes = {"off": fluid.Scope(), "on": fluid.Scope()}
+    off.run(startup, scope=scopes["off"])
+    persist = [v.name for v in main.global_block().vars.values()
+               if v.persistable and scopes["off"].get(v.name) is not None]
+    for n in persist:
+        scopes["on"].set(n, scopes["off"].get(n).clone())
+    losses, ms = {"off": [], "on": []}, {"off": [], "on": []}
+    for k in range(NAN_STEPS + 1):
+        feed = transformer.synthetic_batch(TRAIN_BATCH, cfg["seq_len"],
+                                           cfg["tgt_vocab"], SEED + 900 + k)
+        for label, exe in (("off", off), ("on", on)):
+            (got,), t = _timed_ms(lambda: exe.run(
+                main, feed=feed, fetch_list=[loss], scope=scopes[label]))
+            losses[label].append(float(np.asarray(got).reshape(-1)[0]))
+            if k:                      # the first step warms up
+                ms[label].append(t)
+    same = losses["off"] == losses["on"] and all(
+        torch.equal(scopes["off"].get(n), scopes["on"].get(n))
+        for n in persist)
+    # the scan alone on the step's state: what it reads and its ms
+    plan = on._plan(main, [loss.name])
+    scanned = sum(scopes["on"].get(n).numel() *
+                  scopes["on"].get(n).element_size() for n in plan.written
+                  if scopes["on"].has(n) and
+                  scopes["on"].get(n).is_floating_point())
+    scan_ms = [_timed_ms(lambda: on._check_finite(
+        plan, {}, scopes["on"]))[1] for _ in range(NAN_SCAN_ROUNDS)]
+    del scopes
+    torch.cuda.empty_cache()
+    prog, startup_log = fluid.Program(), fluid.Program()
+    with fluid.program_guard(prog, startup_log), fluid.unique_name.guard():
+        x = fluid.layers.data(name="x", shape=[4], dtype="float32")
+        out = fluid.layers.log(x)
+    feed = {"x": -np.ones((2, 4), "float32")}
+    raised = None
+    try:
+        on.run(prog, feed=feed, fetch_list=[out], scope=fluid.Scope())
+    except FloatingPointError as e:
+        raised = str(e)
+    control, = off.run(prog, feed=feed, fetch_list=[out],
+                       scope=fluid.Scope())
+    ok = same and bool(np.isfinite(losses["on"]).all()) and \
+        raised is not None and repr(out.name) in raised and \
+        bool(np.isnan(control).all())
+    emit({"phase": "check_nan_inf", "ok": ok, "batch": TRAIN_BATCH,
+          "seq_len": cfg["seq_len"], "steps": NAN_STEPS,
+          "losses": losses, "losses_and_state_bit_for_bit": same,
+          "step_ms": ms, "mean_step_ms": {k: sum(v) / len(v)
+                                          for k, v in ms.items()},
+          "scan_alone_ms": scan_ms, "scanned_state_bytes": scanned,
+          "log_of_negative_raised": raised,
+          "control_flag_off_returned_nan": bool(np.isnan(control).all()),
+          "phase_seconds": time.perf_counter() - t0})
+    if not ok:
+        raise AssertionError("check_nan_inf failed: losses %s, raised %r"
+                             % (losses, raised))
+
+
 # Row sums (scatter_rows_, _merge_rows): ROW_SUM_RUNS calls of each route
 # on the card on the same inputs must give equal bits, on ids with many
 # repeats (a Zipf draw over DeepFM's 100,000-row tables, and a 2-row table
@@ -4536,6 +5120,15 @@ def main():
     add(phase_serve_ids(fluid, transformer, A, counters))
     phase_initializers(fluid)
     phase_fc_gan(fluid, counters)
+    # input gradients and several backward passes over one forward (FGSM
+    # training, ResNet-50's FGSM direction and saliency map), fluid.nets,
+    # the fused_attention op in its default bhtd layout (rows 2, 4 and 5
+    # once a call) and FLAGS_check_nan_inf
+    add(phase_fgsm_digits(fluid, counters))
+    add(phase_input_grads_resnet50(fluid, resnet, counters))
+    add(phase_nets(fluid, counters))
+    add(phase_bhtd_attention(fluid, A, counters))
+    phase_check_nan_inf(fluid, transformer, cfg)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

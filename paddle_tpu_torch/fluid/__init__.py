@@ -17,7 +17,7 @@ from .param_attr import ParamAttr
 from . import layers
 from .layer_helper import LayerHelper
 from . import backward
-from .backward import append_backward
+from .backward import append_backward, calc_gradient, gradients
 from . import optimizer
 from . import regularizer
 from . import clip
@@ -31,15 +31,17 @@ from .io import save_vars, save_params, save_persistables, load_vars, \
 from . import transpiler
 from .transpiler import memory_optimize, release_memory
 from . import inference
+from . import nets
 
 __all__ = framework.__all__ + [
     "ops", "initializer", "ParamAttr", "layers", "LayerHelper", "backward",
-    "append_backward", "optimizer", "regularizer", "clip",
+    "append_backward", "calc_gradient", "gradients", "optimizer",
+    "regularizer", "clip",
     "GradientClipByValue", "GradientClipByNorm", "GradientClipByGlobalNorm",
     "set_gradient_clip",
     "Executor", "Scope", "global_scope", "scope_guard", "params_from_numpy",
     "io", "save_vars", "save_params", "save_persistables", "load_vars",
     "load_params", "load_persistables", "save_inference_model",
     "load_inference_model", "transpiler", "memory_optimize",
-    "release_memory", "inference",
+    "release_memory", "inference", "nets",
 ]

@@ -4,15 +4,17 @@ The port's counterpart of ``paddle_tpu/fluid/backward.py``, op for op: the
 same grad ops (the generic ``grad_of`` or an op's own grad maker), the same
 ``<var>@GRAD`` names, ``@RENAME@`` contributions summed by ``sum`` ops, and
 the same Backward role attrs, so a training Program built here equals the
-JAX package's. How the grad ops run is the executor's business
-(ops/grad_ops.py).
+JAX package's. ``calc_gradient`` (``gradients``) appends the grad ops of
+targets with respect to chosen inputs, as the JAX package does. How the
+grad ops run is the executor's business (ops/grad_ops.py): one forward op
+may have the grad ops of several such passes.
 """
 from .framework import Variable, grad_var_name, GRAD_VAR_SUFFIX
 from .core_types import OpRole, dtype_is_floating
 from .ops import registry as op_registry
 from .ops.grad_ops import EMPTY_VAR
 
-__all__ = ["append_backward"]
+__all__ = ["append_backward", "calc_gradient", "gradients"]
 
 
 def _var_dtype(block, name):
@@ -29,8 +31,9 @@ def _var_stop_gradient(block, name):
         return False
 
 
-def _find_op_path(block, targets):
-    """Ops that (transitively) produce ``targets``."""
+def _find_op_path(block, targets, sources=None):
+    """Ops that (transitively) produce ``targets``; pruned to those reachable
+    from ``sources`` when given."""
     needed = set(targets)
     path = []
     for op in reversed(block.ops):
@@ -41,6 +44,14 @@ def _find_op_path(block, targets):
             path.append(op)
             needed.update(n for n in op.input_arg_names if n != EMPTY_VAR)
     path.reverse()
+    if sources:
+        reachable = set(sources)
+        fwd = []
+        for op in path:
+            if any(i in reachable for i in op.input_arg_names):
+                reachable.update(op.output_arg_names)
+                fwd.append(op)
+        path = fwd
     return path
 
 
@@ -265,3 +276,59 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
         finalize = []
         params_and_grads.append((p, block._var_recursive(gname)))
     return params_and_grads
+
+
+def calc_gradient(targets, inputs, target_gradients=None, no_grad_set=None):
+    """Append the grad ops of ``targets`` (a variable or a list) with
+    respect to ``inputs`` (a variable or a list) over the ops that lie
+    between them. Each target's gradient starts at ``target_gradients``'
+    variable where given, else at a ``fill_constant`` of ones. Returns the
+    gradient variable of each input, None where no target reaches it.
+    ``grad_of`` has no gradient, so a loss built from the result and
+    differentiated again gets no second-order terms."""
+    targets = targets if isinstance(targets, list) else [targets]
+    inputs = inputs if isinstance(inputs, list) else [inputs]
+    if target_gradients and not isinstance(target_gradients, list):
+        target_gradients = [target_gradients]
+    program = targets[0].block.program
+    block = program.global_block()
+    no_grad_set = set(no_grad_set or [])
+    no_grad_set = {v.name if isinstance(v, Variable) else v
+                   for v in no_grad_set}
+
+    start_grads = {}
+    for i, t in enumerate(targets):
+        tg = target_gradients[i] if target_gradients else None
+        gname = grad_var_name(t.name)
+        if tg is not None:
+            start_grads[t.name] = tg.name
+        else:
+            block.append_op(
+                type="fill_constant",
+                outputs={"Out": [gname]},
+                attrs={"shape": list(t.shape or ()), "value": 1.0,
+                       "dtype": t.dtype or "float32",
+                       OpRole.KEY: OpRole.Backward})
+            block.create_var(name=gname, shape=t.shape, dtype=t.dtype)
+            start_grads[t.name] = gname
+
+    op_path = _find_op_path(block, [t.name for t in targets],
+                            [v.name for v in inputs])
+    acc = _append_grad_ops(block, op_path, start_grads, no_grad_set)
+
+    grads = []
+    finalize = []
+    for v in inputs:
+        gname = acc.resolve(v.name, finalize)
+        for d in finalize:
+            block.append_op(type=d["type"], inputs=d["inputs"],
+                            outputs=d["outputs"], attrs=d.get("attrs"))
+        finalize = []
+        grads.append(block._var_recursive(gname) if gname else None)
+    return grads
+
+
+def gradients(targets, inputs, target_gradients=None, no_grad_set=None):
+    """``calc_gradient`` under the name of the reference's
+    ``fluid.gradients``."""
+    return calc_gradient(targets, inputs, target_gradients, no_grad_set)

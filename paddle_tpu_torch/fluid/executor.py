@@ -11,9 +11,11 @@ did for free is done here by a per-(program, fetch list) plan:
   holds only its live activations (XLA's buffer liveness);
 - a training program's forward ops run once: each ``grad_of`` op is paired
   with its forward op, which runs under autograd and keeps its record until
-  the grad op takes the gradient (XLA merged the JAX package's recomputed
-  forward with the real one; ops/grad_ops.py); a grad op registered as
-  paired (batch_norm_grad) gets its forward op's outputs the same way;
+  its last grad op takes the gradient (XLA merged the JAX package's
+  recomputed forward with the real one; ops/grad_ops.py); a grad op
+  registered as paired (batch_norm_grad) gets its forward op's outputs the
+  same way. A forward op may have a grad op for each backward pass over it
+  (append_backward and calc_gradient on one forward);
 - a run of consecutive ops with a group lowering (the optimizer's adam ops,
   one per parameter) runs as one call, so its kernel launches once for the
   run (XLA fused the JAX package's per-op updates into one program).
@@ -29,13 +31,14 @@ the block, as the JAX executor runs them between its device segments.
 the CPU is used only when the caller passes ``CPUPlace()``.
 """
 import contextlib
+import itertools
 import json
 import zlib
 
 import numpy as np
 import torch
 
-from . import framework
+from . import flags, framework
 from .core_types import to_torch_dtype
 from .framework import Variable, default_main_program
 from .interop import tensor_from_numpy
@@ -181,41 +184,67 @@ def _attrs_key(attrs):
     return json.dumps(attrs, sort_keys=True, default=repr)
 
 
+def _grad_bases(names):
+    """The forward variables that gradient names ``<var>@GRAD...`` belong
+    to."""
+    return {n.split("@GRAD")[0] for n in names if "@GRAD" in n}
+
+
 def _pair_grad_ops(ops):
-    """{index of a grad op: index of its forward op}. A ``grad_of`` op's
-    forward op is the latest op before it, not yet paired, of its fwd_type,
-    attrs and inputs; a paired grad op's (registry.register_paired_grad)
-    the latest one, not yet paired, of its forward type with the same names
-    in the shared input slots."""
-    pairs, taken, keys = {}, set(), {}
+    """{index of a grad op: index of its forward op}. The candidates for a
+    ``grad_of`` op are the ops before it of its fwd_type, attrs and inputs;
+    for a paired grad op (registry.register_paired_grad) the ops before it
+    of its forward type with the same names in the shared input slots. Of
+    them the grad op takes the latest that writes a variable whose gradient
+    it reads (``<out>@GRAD...``: two copies of one op on one input keep
+    their own grad ops), else the latest. A forward op may have any number
+    of grad ops: one for each append_backward or calc_gradient that walks
+    through it."""
+    pairs, keys, by_inputs = {}, {}, {}
     for i, op in enumerate(ops):
         if op.type == "grad_of":
             fwd_type = op.attrs["fwd_type"]
-            fwd_in = {k[len("FWD_IN:"):]: list(v)
-                      for k, v in op.inputs.items()
-                      if k.startswith("FWD_IN:")}
-            key = _attrs_key(op.attrs["fwd_attrs"])
-            same = lambda f: dict(f.inputs) == fwd_in
+            slots = tuple(sorted(k[len("FWD_IN:"):] for k in op.inputs
+                                 if k.startswith("FWD_IN:")))
+            fwd_in = tuple(tuple(op.inputs["FWD_IN:" + s]) for s in slots)
+            attrs = _attrs_key(op.attrs["fwd_attrs"])
+            bases = _grad_bases(n for k, ns in op.inputs.items()
+                                if k.startswith("OG:") for n in ns)
         elif paired_forward(op.type) is not None:
             fwd_type, slots = paired_forward(op.type)
-            fwd_in = {s: list(op.inputs.get(s, ())) for s in slots}
-            key = None
-            same = lambda f: all(list(f.inputs.get(s, ())) == v
-                                 for s, v in fwd_in.items())
+            fwd_in = tuple(tuple(op.inputs.get(s, ())) for s in slots)
+            attrs = None
+            bases = _grad_bases(n for k, ns in op.inputs.items()
+                                if k not in slots for n in ns)
         else:
             continue
-        for j in range(i - 1, -1, -1):
-            f = ops[j]
-            if j in taken or f.type != fwd_type or not same(f):
+        # the ops of fwd_type by their names in `slots` (a grad_of's
+        # forward op has no other input slot)
+        exact = attrs is not None
+        index = by_inputs.get((fwd_type, slots, exact))
+        if index is None:
+            index = by_inputs[(fwd_type, slots, exact)] = {}
+            for j, f in enumerate(ops):
+                if f.type == fwd_type and \
+                        (not exact or set(f.inputs) == set(slots)):
+                    index.setdefault(tuple(tuple(f.inputs.get(s, ()))
+                                           for s in slots), []).append(j)
+        found = None
+        for j in reversed(index.get(fwd_in, ())):
+            if j >= i:
                 continue
-            if key is not None:
+            if attrs is not None:
                 if j not in keys:
-                    keys[j] = _attrs_key(f.attrs)
-                if keys[j] != key:
+                    keys[j] = _attrs_key(ops[j].attrs)
+                if keys[j] != attrs:
                     continue
-            pairs[i] = j
-            taken.add(j)
-            break
+            if found is None:
+                found = j
+            if bases & set(ops[j].output_arg_names):
+                found = j
+                break
+        if found is not None:
+            pairs[i] = found
     return pairs
 
 
@@ -255,8 +284,9 @@ class _Plan(object):
     names no later op or fetch reads. A plan for run_steps (``steps``)
     leaves the feed and fetch ops out and refuses any other host op. Each
     ``grad_of`` op is paired with its forward op, which the run tapes
-    (ops/grad_ops.py): a kept grad op keeps its forward op. Runs of ops with
-    a group lowering (``runs``: first step -> its steps) run as one call."""
+    (ops/grad_ops.py): a kept grad op keeps its forward op, and a forward op
+    with several grad ops is taped once for all of them. Runs of ops with a
+    group lowering (``runs``: first step -> its steps) run as one call."""
 
     def __init__(self, program, fetch_names, steps=False):
         block = program.global_block()
@@ -288,33 +318,57 @@ class _Plan(object):
         kept_idx.reverse()
         pos = {i: k for k, i in enumerate(kept_idx)}
         kept = [ops[i] for i in kept_idx]
-        last_read = {}
-        for i, op in enumerate(kept):
-            for n in op.input_arg_names:
-                last_read[n] = i
         keep = set(fetch_names)
-        self.steps, self.live = [], []
-        for k, op in enumerate(kept):
+        # walking back: does the next op after step k that touches a name
+        # read it? A name written again before any read (a second backward
+        # pass's h@GRAD, an in-place increment) is dead in between
+        read_next = {}
+        steps, live = [], []
+        for k in range(len(kept) - 1, -1, -1):
+            op = kept[k]
+            needed_after = lambda n: n in keep or read_next.get(n, False)
             touched = set(op.input_arg_names) | set(op.output_arg_names)
-            drop = [n for n in touched
-                    if n not in keep and last_read.get(n, -1) <= k]
-            self.steps.append((op, drop))
-            self.live.append(frozenset(
+            steps.append((op, [n for n in touched if not needed_after(n)]))
+            live.append(frozenset(
                 slot for slot, names in op.outputs.items()
-                if any(n in keep or persistable(n) or
-                       last_read.get(n, -1) > k for n in names)))
+                if any(needed_after(n) or persistable(n) for n in names)))
+            read_next.update(dict.fromkeys(op.output_arg_names, False))
+            read_next.update(dict.fromkeys(op.input_arg_names, True))
+        self.steps, self.live = steps[::-1], live[::-1]
         # step of a grad op -> step of its forward op; step of a taped
-        # forward op -> the need_grad flags of its grad_of ({} for a paired
-        # grad op, which reads the forward op's outputs and no gradient)
+        # forward op -> the union of its grad_of ops' need_grad flags ({}
+        # for a paired grad op, which reads the forward op's outputs and no
+        # gradient) and the step of its last grad op, which frees the record
         self.grad_fwd = {pos[i]: pos[pairs[i]] for i in kept_idx
                          if i in pairs}
-        self.taped = {pos[pairs[i]]: ops[i].attrs.get("need_grad", {})
-                      for i in kept_idx if i in pairs}
+        self.taped, self.last_grad = {}, {}
+        for k, f in sorted(self.grad_fwd.items()):
+            flags = self.taped.setdefault(f, {})
+            for slot, fl in kept[k].attrs.get("need_grad", {}).items():
+                had = flags.get(slot, [])
+                flags[slot] = [a or b for a, b in itertools.zip_longest(
+                    had, fl, fillvalue=False)]
+            self.last_grad[f] = k
         self.runs = _runs(kept, self.taped)
         self.in_run = {j for run in self.runs.values() for j in run[1:]}
         self.persistable = {n for op in kept for n in op.output_arg_names
                             if persistable(n)}
         self.host = {k for k, op in enumerate(kept) if is_host_op(op.type)}
+        # what FLAGS_check_nan_inf scans: the names the run writes (in
+        # program order) that end in the scope or in the fetches
+        self.written = list(dict.fromkeys(
+            n for op in kept for n in op.output_arg_names if n != "@EMPTY@"))
+        self.fetched = set(fetch_names) | {
+            op.input("X")[0] for op in kept if op.type == "fetch"}
+
+    def record_for(self, tape, k):
+        """(the forward record that grad step k reads, whether a later grad
+        op reads it too): the last grad op of a forward op takes the record
+        off ``tape``, and frees its graph; an earlier one leaves both."""
+        f = self.grad_fwd[k]
+        if self.last_grad[f] == k:
+            return tape.pop(f, None), False
+        return tape.get(f), True
 
 
 class Executor(object):
@@ -329,6 +383,9 @@ class Executor(object):
                 "False; pass fluid.CPUPlace() to run on the CPU" % self.place)
         self.device = self.place.torch_device()
         self._plans = {}
+        # the reference's FLAGS_check_nan_inf scan (operator.cc:963); may be
+        # set by hand
+        self.check_nan_inf = flags.get("check_nan_inf")
 
     def _plan(self, program, fetch_names, steps=False):
         key = (program.id, program.version, tuple(fetch_names), steps)
@@ -342,7 +399,10 @@ class Executor(object):
             return_numpy=True, use_program_cache=True):
         """Run ``program`` once. Returns the values of its fetch ops (a
         program loaded by io.load_inference_model has them) followed by
-        those of ``fetch_list``, as the JAX executor does."""
+        those of ``fetch_list``, as the JAX executor does. With
+        ``check_nan_inf`` set (FLAGS_check_nan_inf) a non-finite value
+        among those the run wrote to the scope or fetched raises
+        FloatingPointError."""
         if program is None:
             program = default_main_program()
         scope = scope if scope is not None else global_scope()
@@ -354,6 +414,8 @@ class Executor(object):
         gen = self._generator(scope, program, plan.rng_fp)
         st = _RunState(env, feed or {}, scope, program)
         self._run_step(plan, env, scope, block, gen, program._is_test, st)
+        if self.check_nan_inf:
+            self._check_finite(plan, env, scope)
         results = st.fetch_results + [self._fetch(env, scope, n)
                                       for n in fetch_names]
         if return_numpy:
@@ -433,9 +495,9 @@ class Executor(object):
                 elif k in plan.taped:
                     tape[k] = record_forward(op, env, ctx, plan.taped[k])
                 elif k in plan.grad_fwd:
-                    ctx.record = tape.pop(plan.grad_fwd[k], None)
+                    ctx.record, ctx.retain_graph = plan.record_for(tape, k)
                     lower_op(op, env, ctx)
-                    ctx.record = None
+                    ctx.record, ctx.retain_graph = None, False
                 else:
                     lower_op(op, env, ctx)
                 for j in run:
@@ -446,6 +508,40 @@ class Executor(object):
                             scope.set(n, env[n])
                     for n in drop_j:
                         env.pop(n, None)
+
+    @staticmethod
+    def _check_finite(plan, env, scope):
+        """FLAGS_check_nan_inf after a run: the floating values that the run
+        wrote to the scope or fetched, screened by one sum of |x| a tensor
+        on the device (NaN and Inf carry through a sum; the tensors grouped
+        by dtype) and one host sync; a tensor the screen flags is checked
+        exactly, and the first non-finite one in program order raises
+        FloatingPointError, as the JAX executor's scan does. run_steps does
+        not scan, as in the JAX package."""
+        names, values = [], []
+        for n in plan.written:
+            if n in plan.fetched or n in plan.persistable or scope.has(n):
+                v = env.get(n)
+                v = scope.get(n) if v is None else v
+                if isinstance(v, torch.Tensor) and v.is_floating_point() \
+                        and v.numel():
+                    names.append(n)
+                    values.append(v.detach())
+        if not values:
+            return
+        groups = {}
+        for i, v in enumerate(values):
+            groups.setdefault(v.dtype, []).append(i)
+        order = [i for idx in groups.values() for i in idx]
+        sums = torch.cat([torch.stack(torch._foreach_norm(
+            [values[i] for i in idx], 1)).float()
+            for idx in groups.values()])
+        finite = torch.isfinite(sums).cpu().tolist()     # the one sync
+        for i in sorted(i for i, ok in zip(order, finite) if not ok):
+            if not bool(torch.isfinite(values[i]).all()):
+                raise FloatingPointError(
+                    "NaN/Inf detected in variable %r after segment run"
+                    % names[i])
 
     @staticmethod
     def _fetch(env, scope, name):

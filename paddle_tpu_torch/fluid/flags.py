@@ -2,8 +2,12 @@
 
 The port's copy of ``paddle_tpu/fluid/flags.py``: the same ``FLAGS_*``
 names, types and defaults for the flags the ported modules read, so one
-environment configures both packages alike. Flags of modules not yet
-ported join the table with those modules.
+environment configures both packages alike; ``dump()`` prints the
+effective values. Flags of modules not yet ported join the table with
+those modules: ``rng_impl`` and ``dropout_rng`` (the JAX package's random
+bit sources, ROADMAP Queue 2 item 3), and the ``monitor_*`` flags and
+``profiler_max_events`` (fluid.monitor and fluid.profiler, Queue 1 item
+10) are not here yet.
 
 Also hosts ``warn_noop(...)``: a one-time warning when a knob kept for the
 reference's scripts (memory_optimize, release_memory) does nothing in the
@@ -12,10 +16,14 @@ port, with the same message form as the JAX package's.
 import os
 import warnings
 
-__all__ = ["get", "warn_noop", "WHITELIST"]
+__all__ = ["get", "dump", "warn_noop", "WHITELIST"]
 
 # name (without FLAGS_ prefix) -> (type, default, help)
 WHITELIST = {
+    "check_nan_inf": (bool, False,
+                      "after every run, check the values the run writes "
+                      "to the scope or fetches for NaN/Inf (executor.py; "
+                      "reference platform/enforce nan check)"),
     "adam_kernel": (bool, True,
                     "use the fused dense-Adam CUDA kernel on the card "
                     "(ops/adam_kernel.py; 0 forces the plain path for A/B)"),
@@ -46,6 +54,18 @@ WHITELIST = {
     "onepass_max_seq": (int, 512,
                         "longest sequence for the one-pass attention "
                         "kernel (bounded by its shared-memory score tile)"),
+    "fraction_of_gpu_memory_to_use": (float, 1.0,
+                                      "accepted for reference script "
+                                      "compat; no-op (PyTorch's caching "
+                                      "allocator owns device memory)"),
+    "benchmark": (bool, False,
+                  "accepted for reference script compat (reference uses it "
+                  "to force sync kernels; the port's launches stay "
+                  "asynchronous)"),
+    "eager_delete_tensor_gb": (float, -1.0,
+                               "accepted for reference compat; no-op (the "
+                               "executor drops each intermediate after its "
+                               "last reader)"),
 }
 
 
@@ -62,6 +82,15 @@ def get(name, default=None):
     if typ is bool:
         return raw.lower() not in ("", "0", "false", "no")
     return typ(raw)
+
+
+def dump():
+    """Effective flag values, one line each."""
+    lines = []
+    for name, (typ, dflt, help_) in sorted(WHITELIST.items()):
+        lines.append("FLAGS_%s=%r (default %r) - %s"
+                     % (name, get(name), dflt, help_))
+    return "\n".join(lines)
 
 
 _warned = set()

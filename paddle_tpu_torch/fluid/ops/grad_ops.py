@@ -15,9 +15,14 @@ The JAX lowering re-runs the forward under ``jax.vjp`` and relies on XLA to
 merge the recomputed forward with the real one. Eager PyTorch merges
 nothing, so the port never runs a forward twice: the executor pairs each
 ``grad_of`` with its forward op when it plans a run, runs that forward op
-under autograd on detached leaves of the inputs that need a gradient
-(``record_forward``), and hands the record to the ``grad_of`` lowering,
-which calls ``torch.autograd.grad`` once and so frees the saved residuals.
+under autograd on detached leaves of the inputs that some grad op of it
+needs (``record_forward``), and hands the record to each ``grad_of``
+lowering, which calls ``torch.autograd.grad`` for the leaves it needs. A
+forward op walked by several backward passes (append_backward and
+calc_gradient over one forward) has several grad ops: all but the last
+keep the graph (``ctx.retain_graph``), the last frees the saved residuals.
+An input gradient that no later op reads is not computed (XLA's dead-code
+elimination drops it in the JAX package).
 """
 import contextlib
 
@@ -72,6 +77,10 @@ def _grad_of(ctx, inputs, attrs):
             "with its forward op in the same run" % attrs["fwd_type"])
     fwd_len = {k[len("FWD_IN:"):]: len(v) for k, v in inputs.items()
                if k.startswith("FWD_IN:")}
+    need = attrs.get("need_grad", {})
+    wanted = [((slot, i), leaf) for (slot, i), leaf in rec.leaves
+              if i < len(need.get(slot, ())) and need[slot][i] and
+              ctx.output_live("IG:" + slot)]
     og = {k[len("OG:"):]: v for k, v in inputs.items() if k.startswith("OG:")}
     outs, cots = [], []
     for slot, vals in rec.outs.items():
@@ -82,11 +91,12 @@ def _grad_of(ctx, inputs, attrs):
                 continue     # no cotangent: contributes zero
             outs.append(o)
             cots.append(torch.broadcast_to(g, o.shape).to(o.dtype))
-    leaves = [leaf for _, leaf in rec.leaves]
-    grads = torch.autograd.grad(outs, leaves, cots, allow_unused=True) \
-        if outs else [None] * len(leaves)
+    leaves = [leaf for _, leaf in wanted]
+    grads = torch.autograd.grad(outs, leaves, cots, allow_unused=True,
+                                retain_graph=ctx.retain_graph) \
+        if outs and leaves else [None] * len(leaves)
     result = {}
-    for ((slot, i), leaf), g in zip(rec.leaves, grads):
+    for ((slot, i), leaf), g in zip(wanted, grads):
         key = "IG:" + slot
         if key not in result:
             result[key] = [None] * fwd_len[slot]

@@ -479,15 +479,15 @@ def _dropout_grad(ctx, inputs, attrs):
 
 @register_lowering("fused_attention")
 def _fused_attention(ctx, inputs, attrs):
-    """Fused SDPA on [B, T, H, D]: the one-pass or flash CUDA kernel on the
-    card, the dense PyTorch path otherwise (ops/attention.py)."""
-    from ...ops.attention import fused_attention_bthd
+    """Fused SDPA in the op's layout: on [B, T, H, D] ("bthd") the one-pass
+    or flash CUDA kernel on the card, the dense PyTorch path otherwise; on
+    [B, H, T, D] ("bhtd", the default) the flash kernels from
+    FLAGS_flash_min_seq keys on the card, the dense reference otherwise
+    (ops/attention.py)."""
+    from ...ops.attention import fused_attention, fused_attention_bthd
     q, k, v = one(inputs, "Q"), one(inputs, "K"), one(inputs, "V")
     scale = attrs.get("scale", -1.0)
     scale = None if scale is None or scale < 0 else scale
-    if attrs.get("layout", "bhtd") != "bthd":
-        raise NotImplementedError(
-            "fused_attention layout %r is not ported yet; the Transformer "
-            "uses 'bthd'" % attrs.get("layout", "bhtd"))
-    return {"Out": [fused_attention_bthd(q, k, v, attrs.get("causal", False),
-                                         scale)]}
+    fn = fused_attention_bthd if attrs.get("layout", "bhtd") == "bthd" \
+        else fused_attention
+    return {"Out": [fn(q, k, v, attrs.get("causal", False), scale)]}

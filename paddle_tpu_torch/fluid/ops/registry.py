@@ -46,10 +46,11 @@ class LoweringContext(object):
     on, the run's random generator, the test-mode flag, the dropout
     generator snapshots of this step (rng_tag -> generator state, read back
     by dropout_grad), the forward record a ``grad_of`` op or a paired grad
-    op consumes (ops/grad_ops.py ``ForwardRecord``), and the
-    output slots of the running op that a later op or a fetch reads or that
-    are persistable (``live_outputs``; None = all). The executor sets the
-    last two just before each op."""
+    op consumes (ops/grad_ops.py ``ForwardRecord``) and whether a later
+    grad op of the same forward op consumes it too (``retain_graph``), and
+    the output slots of the running op that a later op or a fetch reads or
+    that are persistable (``live_outputs``; None = all). The executor sets
+    the last three just before each op."""
 
     def __init__(self, device, generator=None, is_test=False):
         self.device = torch.device(device)
@@ -57,6 +58,7 @@ class LoweringContext(object):
         self.is_test = is_test
         self.dropout_states = {}
         self.record = None
+        self.retain_graph = False
         self.live_outputs = None
 
     def output_live(self, slot):

@@ -53,6 +53,10 @@ and registers stay those of D = 128.
 In the backward a keyless row keeps the dense path's answer: P = 1/T_k over
 all keys, dS = 0. ``fused_attention_bthd`` is differentiable: an
 autograd.Function runs the kernels with the JAX package's residuals.
+``fused_attention`` takes [B, H, T, D] (the fused_attention op's default
+layout) with the JAX package's dispatch for it: the flash kernels on the
+transposed tensors from FLAGS_flash_min_seq keys on the card, the dense
+``reference_attention`` otherwise.
 """
 import math
 
@@ -468,6 +472,34 @@ class _FusedAttention(torch.autograd.Function):
             grads = onepass_attention_bwd_bthd(q, k, v, g, ctx.causal,
                                                ctx.scale)
         return grads + (None, None, None)
+
+
+def reference_attention(q, k, v, causal=False, scale=None):
+    """Dense attention on [B, H, T, D] in the inputs' dtype, op for op the
+    JAX package's ``reference_attention``: the scores, the mask, the softmax
+    and P.V, autograd for the backward."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * _scale_of(q, scale)
+    if causal:
+        t_q, t_k = q.shape[2], k.shape[2]
+        keep = torch.ones(t_q, t_k, dtype=torch.bool,
+                          device=s.device).tril(diagonal=t_k - t_q)
+        s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), v)
+
+
+def fused_attention(q, k, v, causal=False, scale=None):
+    """[B, H, T, D] attention (the op's default layout), with the JAX
+    package's dispatch for it: on the card, T_k >= FLAGS_flash_min_seq runs
+    the flash kernels on the tensors transposed to [B, T, H, D] and back
+    (forward, then dq and dkv in the backward); everything else, on the
+    card too, runs ``reference_attention`` (the JAX package's bhtd route
+    never takes the one-pass kernel). Differentiable."""
+    if _use_kernels(q) and k.shape[2] >= _flash_min_seq():
+        tr = lambda x: x.transpose(1, 2).contiguous()
+        out = _FusedAttention.apply(tr(q), tr(k), tr(v), causal, scale,
+                                    _MODE_FLASH)
+        return out.transpose(1, 2).contiguous()
+    return reference_attention(q, k, v, causal, scale)
 
 
 def fused_attention_bthd(q, k, v, causal=False, scale=None):

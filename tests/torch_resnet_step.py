@@ -199,10 +199,10 @@ def replay(tm, fetch, inputs, before, after, vals):
         elif k in plan.taped:
             tape[k] = grad_ops.record_forward(op, env, ctx, plan.taped[k])
         else:
-            ctx.record = tape.pop(plan.grad_fwd[k]) \
-                if k in plan.grad_fwd else None
+            if k in plan.grad_fwd:
+                ctx.record, ctx.retain_graph = plan.record_for(tape, k)
             registry.lower_op(op, env, ctx)
-            ctx.record = None
+            ctx.record, ctx.retain_graph = None, False
         for j, o in zip(run, ops):
             for n in o.output_arg_names:
                 if n == "@EMPTY@" or n not in env:

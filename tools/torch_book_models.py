@@ -17,8 +17,6 @@ MovieLens-1M) are replaced by seeded draws of their shapes and id ranges
 (``synthetic_batch``).
 
 What is cut from the book's programs:
-- recognize_digits_conv is built from conv2d and pool2d, not
-  ``nets.simple_img_conv_pool``, which gives the same ops.
 - recommender_system keeps the user tower (id, gender, age and job) and
   the movie-id tower; the movie tower's category and title features need
   ``sequence_pool`` and ``sequence_conv_pool`` (ragged sequences), which
@@ -66,17 +64,18 @@ def fit_a_line(fluid):
 
 
 def recognize_digits_conv(fluid, filters=(20, 50)):
-    """conv 20@5x5 relu, max pool 2/2, batch_norm; conv 50@5x5 relu, max
-    pool 2/2; fc(10, softmax), cross_entropy, mean and accuracy;
-    Adam(0.001). The first conv over the one-channel image is a
-    depthwise_conv2d op."""
+    """nets.simple_img_conv_pool (conv 20@5x5 relu, max pool 2/2),
+    batch_norm, nets.simple_img_conv_pool (conv 50@5x5 relu, max pool 2/2);
+    fc(10, softmax), cross_entropy, mean and accuracy; Adam(0.001). The
+    first conv over the one-channel image is a depthwise_conv2d op."""
     L = fluid.layers
     img = L.data(name="img", shape=[1, 28, 28], dtype="float32")
     label = L.data(name="label", shape=[1], dtype="int64")
     h = img
     for k, n in enumerate(filters):
-        h = L.conv2d(input=h, num_filters=n, filter_size=5, act="relu")
-        h = L.pool2d(input=h, pool_size=2, pool_type="max", pool_stride=2)
+        h = fluid.nets.simple_img_conv_pool(
+            input=h, filter_size=5, num_filters=n, pool_size=2,
+            pool_stride=2, act="relu")
         if k == 0:
             h = L.batch_norm(h)
     pred = L.fc(input=h, size=10, act="softmax")
