@@ -197,6 +197,11 @@ non-zero exit):
               on the card on the same inputs (Zipf ids over DeepFM's
               100,000-row tables, a 2-row table of BERT's width, negative
               and out-of-range ids): equal bits, and the CPU's index_add_.
+              Also the NN lowerings' row sums twice, equal bits:
+              hierarchical_sigmoid's W and Bias gradients (16,384 Zipf
+              labels over 2,073 classes), tree_conv's child sums and
+              gradients at nn_chain's widths, and add_along_rows_ (sampled
+              softmax's gradient) on [16384, 8192] logits.
 27. optimizers - every other Fluid optimizer (LarsMomentum, Adagrad dense
               and sparse on an is_sparse embedding, Adamax, DecayedAdagrad,
               Adadelta, RMSProp plain and centered with momentum, Ftrl at
@@ -290,6 +295,38 @@ non-zero exit):
               losses and state bit for bit, step ms of both; log of a
               negative feed raises FloatingPointError naming its output.
               Control: with the scan off it returns NaN.
+38. dcgan     - DCGAN at dcgan.torch's widths (tools/torch_nn_programs.py:
+              nz 100, ngf = ndf = 64, 64x64x3, batch 64, f32, Adam(2e-4,
+              0.5)): one warm D and G step, 4 D and 4 G steps through
+              run_steps (ms a D and a G step, peak memory, busy share, no
+              port kernel); 2 alternating D and G steps in lockstep with
+              the CPU at batch 8 (each op replayed, losses within 1e-5, the
+              other net's parameters untouched). Control: G's transposed
+              convolution filters flipped spatially on the card.
+39. stn_digits - a spatial transformer (PyTorch's STN tutorial's
+              localisation net, affine_grid, grid_sampler) before the
+              book's digits net, batch 64: a window, 3 lockstep steps from
+              the identity transform. Control: grid_sampler over half-pixel
+              coordinates on the card.
+40. word2vec_hsigmoid - the book's word2vec (dict 2073) with hsigmoid in
+              place of its softmax, batch 100: a window, 3 lockstep steps,
+              the W and bias gradients twice, bit for bit. Control: the
+              path codes inverted on the card.
+41. nn_layers - nn_chain: group_norm, affine_channel, lrn, fsp, a grouped
+              Bilinear conv2d_transpose, the resizes and adaptive pooling
+              on ResNet-50's conv2 maps; C3D's first blocks (conv3d,
+              pool3d, conv3d_transpose, adaptive_pool3d) on [8, 3, 16, 112,
+              112]; row_conv, im2sequence, bilinear_tensor_product,
+              conv_shift, data_norm, tree_conv and similarity_focus; sampled
+              softmax (customized and uniform), sample_logits over [16384,
+              8192] logits and spectral_norm of D's [512, 256, 4, 4] weight;
+              f32, Adam(1e-4): a window (one Adam launch a step over the LM
+              head's weight, busy share), 2 lockstep steps of the
+              deterministic parts at smaller maps, clips and rows; the
+              drawing heads' invariants at full width; spectral_norm's
+              sigma after 20 steps against float64 power iteration and the
+              largest singular value. Control: the antialiasing shrink
+              without antialiasing on the card.
 
 The kernel cases also time rows 1, 3, 8 and 11 at BERT-base's shapes
 (attention at batch 256, 12 heads, seq 128, D 64; LayerNorm on [32768,
@@ -300,11 +337,12 @@ epsilon 1e-9 and an lr_t near 1e-7, bit for bit), and each kernel the zoo
 phase runs at its float32 shapes: rows 1 and 3 at the tool's transformer's
 (batch 64, 8 heads, seq 128, D 64), row 11 over the parameters each zoo
 model's step gives the kernel (ZOO_ADAM_CASES), and row 11 over
-tensor_chain's 3 fc weights (TENSOR_ADAM_CASES). Then it prints the card's
+tensor_chain's 3 fc weights (TENSOR_ADAM_CASES) and over nn_chain's LM
+head (NN_ADAM_CASES). Then it prints the card's
 name and power limit (nvidia-smi), one JSON line with every kernel's
 numbers (with a "bert_base" entry where a kernel runs at BERT-base's
-shapes, "se_resnext50", "train256_recipe" and "tensor_layers" ones for
-Adam, and a
+shapes, "se_resnext50", "train256_recipe", "tensor_layers" and
+"nn_layers" ones for Adam, and a
 "zoo_<model>" one where a kernel runs in that zoo model), and last {"ok": true, "device": {...}}. It imports nothing of JAX or of the JAX package
 paddle_tpu.
 """
@@ -1639,6 +1677,8 @@ def phase_kernels():
                      "train256_recipe", RECIPE_ADAM_HPARAMS, RECIPE_LR_T)
     _adam_multi_case(K, gen, summary, max_err, failed, TENSOR_ADAM_CASES,
                      "tensor_layers")
+    _adam_multi_case(K, gen, summary, max_err, failed, NN_ADAM_CASES,
+                     "nn_layers")
     _ce_cases(CE, gen, summary, max_err, failed)
     _ln_cases(LN, gen, summary, max_err, failed)
     _emb_cases(EG, gen, summary, max_err, failed)
@@ -3279,6 +3319,38 @@ def _mnist_feeds(mlp, steps, sparse=False):
             for k in range(steps)]
 
 
+def _lockstep_step(fluid, main, card_main, loss, state, feed, names,
+                   exact_ops=()):
+    """One step of `main` in lockstep, card against CPU, from the CPU's
+    `state`: the step through run_steps on the card (`card_main` in main's
+    place), and every op of it replayed on the card from the CPU's values
+    (_replay_on_card). Returns (the CPU's state after, the card's scope,
+    the loss's relative error, the worst outputs, the inexact outputs of
+    the op types `exact_ops`, ok, the op errors)."""
+    vals, after = _cpu_step(fluid, main, state, feed, names)
+    card_scope = fluid.Scope()
+    for n, t in state.items():
+        card_scope.set(n, t.to("cuda", copy=True))
+    card, = fluid.Executor().run_steps(card_main, feed={
+        n: v[None] for n, v in feed.items()}, n_steps=1,
+        fetch_list=[loss], scope=card_scope)
+    cpu = float(vals[loss.name])
+    loss_rel = abs(float(card[0]) - cpu) / abs(cpu)
+    errs = _replay_on_card(fluid, card_main, [loss.name], state, feed, vals,
+                           after)
+    ok, worst = _op_verdict(errs)
+    inexact = {n: (t, e) for n, (t, _, e) in errs.items()
+               if t in exact_ops and e != 0.0}
+    return after, card_scope, loss_rel, worst, inexact, ok, errs
+
+
+def _step_names(main):
+    """The non-persistable outputs of main's ops, sorted."""
+    block = main.global_block()
+    return sorted({n for op in block.ops for n in op.output_arg_names
+                   if n != "@EMPTY@" and not block.var(n).persistable})
+
+
 def _lockstep(fluid, programs, feeds, card_main=None, exact_ops=(),
               loss_rel_max=None):
     """Each feed of `feeds` one step of `programs` (main, startup, loss) in
@@ -3297,28 +3369,16 @@ def _lockstep(fluid, programs, feeds, card_main=None, exact_ops=(),
     fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope)
     state = {n: scope.get(n) for n, v in block.vars.items()
              if v.persistable and scope.get(n) is not None}
-    names = sorted({n for op in block.ops for n in op.output_arg_names
-                    if n != "@EMPTY@" and not block.var(n).persistable})
-    card_exe = fluid.Executor()
+    names = _step_names(main)
     loss_rel, worst, inexact, ok = [], [], {}, True
     for feed in feeds:
-        vals, after = _cpu_step(fluid, main, state, feed, names)
-        card_scope = fluid.Scope()
-        for n, t in state.items():
-            card_scope.set(n, t.to("cuda", copy=True))
-        card, = card_exe.run_steps(card_main, feed={
-            n: v[None] for n, v in feed.items()}, n_steps=1,
-            fetch_list=[loss], scope=card_scope)
-        cpu = float(vals[loss.name])
-        loss_rel.append(abs(float(card[0]) - cpu) / abs(cpu))
-        errs = _replay_on_card(fluid, card_main, [loss.name], state, feed,
-                               vals, after)
-        step_ok, step_worst = _op_verdict(errs)
+        state, card_scope, rel, step_worst, step_inexact, step_ok, errs = \
+            _lockstep_step(fluid, main, card_main, loss, state, feed, names,
+                           exact_ops)
+        loss_rel.append(rel)
         worst.append(step_worst)
-        inexact.update({n: (t, e) for n, (t, _, e) in errs.items()
-                        if t in exact_ops and e != 0.0})
+        inexact.update(step_inexact)
         ok = ok and step_ok
-        state = after
     ok = ok and max(loss_rel) <= loss_rel_max and not inexact
     rec = {"loss_rel_err": loss_rel, "loss_rel_max": loss_rel_max,
            "op_tol": RESNET_OP_TOL, "worst_op": worst}
@@ -3637,7 +3697,8 @@ def _scatter_first_lands(ctx, inputs, attrs):
 def _row_grads_twice(fluid, chain):
     """tensor_chain at full width: two steps on the card from one state
     (the card's startup), fetching the gradient gather passes to its X and
-    the one scatter(overwrite=False) passes to its Updates: equal bits."""
+    the one scatter(overwrite=False) passes to its Updates: equal bits
+    (_grads_twice)."""
     import numpy as np
     tool = _load_tool("torch_tensor_programs")
     block = chain.main.global_block()
@@ -3645,24 +3706,9 @@ def _row_grads_twice(fluid, chain):
     add, = [op for op in block.ops if op.type == "scatter" and
             not op.attrs["overwrite"]]
     names = [gather.input("X")[0] + "@GRAD", add.input("Updates")[0] + "@GRAD"]
-    exe, scope = fluid.Executor(), fluid.Scope()
-    exe.run(chain.startup, scope=scope)
-    state = {n: scope.get(n).clone() for n in scope._vars
-             if scope.get(n) is not None}
-    feed = tool.chain_batch(SEED + 300)
-    runs = []
-    for _ in range(2):
-        run = fluid.Scope()
-        for n, t in state.items():
-            run.set(n, t.clone())
-        runs.append(exe.run(chain.main, feed=feed, fetch_list=names,
-                            scope=run, return_numpy=False))
-        del run
-    equal = all(bool((a == b).all()) for a, b in zip(*runs))
-    nonzero = all(bool((a != 0).any()) for a in runs[0])
-    return {"gradients": names, "shapes": [list(a.shape) for a in runs[0]],
-            "ids": int(np.prod(block.var(gather.input("Index")[0]).shape)),
-            "bit_for_bit": equal, "nonzero": nonzero}, equal and nonzero
+    rec, ok = _grads_twice(fluid, chain, tool.chain_batch(SEED + 300), names)
+    rec["ids"] = int(np.prod(block.var(gather.input("Index")[0]).shape))
+    return rec, ok
 
 
 def phase_tensor_layers(fluid, counters):
@@ -3716,13 +3762,18 @@ def phase_tensor_layers(fluid, counters):
 
 
 def _chi_square_p(ids, probs):
-    """p-value of the chi-square test of `ids`' counts against `probs`."""
+    """p-value of the chi-square test of `ids`' counts against `probs`,
+    the classes under 5 expected draws merged into one cell."""
     import numpy as np
     from scipy import stats
-    counts = np.bincount(ids, minlength=len(probs))
+    counts = np.bincount(ids, minlength=len(probs)).astype(np.float64)
     expected = probs * len(ids)
+    small = expected < 5
+    if small.any():
+        counts = np.append(counts[~small], counts[small].sum())
+        expected = np.append(expected[~small], expected[small].sum())
     return float(stats.chi2.sf(((counts - expected) ** 2 / expected).sum(),
-                               len(probs) - 1))
+                               len(expected) - 1))
 
 
 def _sampling_check(fluid):
@@ -4523,6 +4574,505 @@ def phase_check_nan_inf(fluid, transformer, cfg):
                              % (losses, raised))
 
 
+# ---- the rest of the NN layers (tools/torch_nn_programs.py)
+
+# dcgan: DCGAN at dcgan.torch's widths (batch 64, f32, Adam(2e-4, 0.5)): one
+# warm D and G step, then DCGAN_STEPS D steps and DCGAN_STEPS G steps through
+# run_steps (no port kernel: the Adam gate refuses 4-D filters and 1-D batch
+# norm parameters); then DCGAN_PARITY_STEPS alternating D and G steps in
+# lockstep with the CPU at batch DCGAN_PARITY_BATCH (each op replayed on the
+# card from the CPU's values within RESNET_OP_TOL, losses within
+# OPT_LOSS_REL_MAX, the other net's parameters untouched). Control: G's
+# transposed-convolution filters flipped spatially on the card.
+DCGAN_STEPS = 4
+DCGAN_PARITY_STEPS = 2
+DCGAN_PARITY_BATCH = 8
+# stn_digits: the spatial transformer on the book's digits (batch 64, Adam);
+# a window, STN_PARITY_STEPS lockstep steps from the identity transform.
+# Control: grid_sampler over half-pixel (not align-corners) coordinates on
+# the card.
+STN_STEPS = 4
+STN_PARITY_STEPS = 3
+# word2vec_hsigmoid: the book's word2vec with hsigmoid (batch 100, SGD); a
+# window, W2V_HS_PARITY_STEPS lockstep steps, and the W and bias gradients
+# twice from one state, bit for bit. Control: the path codes inverted on the
+# card.
+W2V_HS_STEPS = 4
+W2V_HS_PARITY_STEPS = 3
+# nn_layers: nn_chain at its widths (every part, its inputs made on the card
+# before the window), NN_STEPS steps, one Adam launch a step over the LM
+# head's [512, 8192] weight (NN_ADAM_CASES); NN_PARITY_STEPS lockstep steps
+# of its deterministic parts at NN_PARITY_WIDTHS (fewer maps, clips, rows and
+# nodes; the CPU runs the C3D blocks at 16x16); the drawing heads held by
+# their invariants at full width; spectral_norm's sigma after SN_CALLS
+# single-step iterations against float64 power iteration from the same
+# start (within SN_ITER_REL_MAX) and against the largest singular value
+# (within SN_GAP_MAX: 20 steps of power iteration on a Gaussian [512, 4096]
+# weight leave 1-2.5% of it, tests/test_torch_nn_ops.py). Control: the
+# antialiasing shrink without antialiasing on the card.
+NN_STEPS = 3
+NN_PARITY_STEPS = 2
+NN_PARITY_WIDTHS = dict(maps=2, channels=64, size=16, clips=1, frames=4,
+                        clip_size=16, rows=2, steps=40, width=64, im_maps=2,
+                        im_channels=16, im_w=20, pairs=64, pair_dim=32,
+                        pair_out=16, shifts=64, dense_batch=256, trees=2,
+                        nodes=32, node_feat=16, tree_out=16, focus_maps=2,
+                        sm_rows=64)
+NN_ADAM_CASES = [((512, 8192), "float32", 1)]
+NN_ADAM_TENSORS = sum(n for _, _, n in NN_ADAM_CASES)
+SN_CALLS = 20
+SN_ITER_REL_MAX = 1e-4
+SN_GAP_MAX = 0.025
+SAMPLE_CHI_DRAWS = 65536
+
+
+def _stack_feeds(feeds):
+    """A list of step feeds as run_steps takes them, [steps, ...]."""
+    import numpy as np
+    return {k: np.stack([f[k] for f in feeds]) for k in feeds[0]}
+
+
+def _persistables(*programs):
+    return sorted({n for p in programs for n, v in p.global_block()
+                   .vars.items() if v.persistable})
+
+
+def _gan_alternating_lockstep(fluid, gan, feeds, control=None):
+    """D then G, each step of `feeds` ((d_feed, g_feed) pairs), in lockstep
+    card against CPU from the CPU's state (_lockstep_step), the lowerings
+    `control` ({op type: lowering}) patched in on the card's runs. Returns
+    (readings, ok): losses within OPT_LOSS_REL_MAX, every op within
+    RESNET_OP_TOL, each card step leaving the other net's parameters bit
+    for bit as they were."""
+    import torch
+    from unittest import mock
+    from paddle_tpu_torch.fluid.ops import registry
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(gan.startup, scope=scope)
+    state = {n: scope.get(n) for n in _persistables(gan.d_main, gan.g_main)
+             if scope.get(n) is not None}
+    names = {p: _step_names(p) for p in (gan.d_main, gan.g_main)}
+    rel, worst, kept, ok = [], [], True, True
+    patch = mock.patch.dict(registry._LOWERINGS, control or {})
+    for d_feed, g_feed in feeds:
+        for main, loss, feed, other in (
+                (gan.d_main, gan.d_loss, d_feed, gan.g_params),
+                (gan.g_main, gan.g_loss, g_feed, gan.d_params)):
+            with patch:
+                after, card, r, w, _, step_ok, _ = _lockstep_step(
+                    fluid, main, main, loss, state, feed, names[main])
+            rel.append(r)
+            worst.append(w)
+            ok = ok and step_ok
+            kept = kept and all(torch.equal(card.get(n).cpu(), state[n])
+                                for n in other)
+            state = after
+    ok = ok and max(rel) <= OPT_LOSS_REL_MAX and kept
+    return {"loss_rel_err": rel, "loss_rel_max": OPT_LOSS_REL_MAX,
+            "op_tol": RESNET_OP_TOL, "worst_op": worst,
+            "other_nets_parameters_kept": kept}, ok
+
+
+def _conv_transpose_flipped(ctx, inputs, attrs):
+    """conv2d_transpose on the card with its filter flipped spatially (the
+    classic mistake of porting a transposed convolution as a convolution's
+    gradient; a control). CPU tensors take the real lowering."""
+    from paddle_tpu_torch.fluid.ops import nn_ops
+    w = inputs["Filter"][0]
+    if w.is_cuda:
+        inputs = dict(inputs, Filter=[w.flip(-1, -2)])
+    return nn_ops._conv2d_transpose(ctx, inputs, attrs)
+
+
+def phase_dcgan(fluid, counters):
+    """DCGAN (tools/torch_nn_programs.py) on the card: D and G windows, the
+    busy share of a D and a G step, the lockstep and its control. Returns
+    the window's launches."""
+    import numpy as np
+    import torch
+    t_start = time.perf_counter()
+    tool = _load_tool("torch_nn_programs")
+    gan = tool.dcgan(fluid, seed=SEED)
+    draws = [tool.dcgan_batch(SEED + k) for k in range(DCGAN_STEPS + 1)]
+    d_stack = _stack_feeds([d for d, _ in draws])
+    g_stack = _stack_feeds([g for _, g in draws])
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(gan.startup, scope=scope)
+    for main, loss, stack in ((gan.d_main, gan.d_loss, d_stack),
+                              (gan.g_main, gan.g_loss, g_stack)):
+        exe.run_steps(main, feed={k: v[:1] for k, v in stack.items()},
+                      n_steps=1, fetch_list=[loss], scope=scope)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    rec = {"phase": "dcgan", "widths": tool.DCGAN, "steps": DCGAN_STEPS,
+           "ops": {"d": len(gan.d_main.global_block().ops),
+                   "g": len(gan.g_main.global_block().ops)}}
+    losses = {}
+    for part, main, loss, stack in (("d", gan.d_main, gan.d_loss, d_stack),
+                                    ("g", gan.g_main, gan.g_loss, g_stack)):
+        t0 = time.perf_counter()
+        got, = exe.run_steps(main, feed={k: v[1:] for k, v in stack.items()},
+                             n_steps=DCGAN_STEPS, fetch_list=[loss],
+                             scope=scope)
+        torch.cuda.synchronize()
+        rec[part + "_step_ms"] = (time.perf_counter() - t0) * 1e3 / \
+            DCGAN_STEPS
+        losses[part] = np.asarray(got).reshape(-1).tolist()
+    launched = _read(counters)
+    rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    one_d = {k: v[1] for k, v in d_stack.items()}
+    one_g = {k: v[1] for k, v in g_stack.items()}
+    wall, busy, by_kind = _busy_share(lambda: (
+        exe.run(gan.d_main, feed=one_d, fetch_list=[gan.d_loss],
+                scope=scope),
+        exe.run(gan.g_main, feed=one_g, fetch_list=[gan.g_loss],
+                scope=scope)))
+    rec.update(losses=losses, images_per_s=tool.DCGAN["batch"] * 1e3 /
+               (rec["d_step_ms"] + rec["g_step_ms"]),
+               profiled_wall_ms_d_and_g=wall, device_busy_ms=busy,
+               busy_share=busy / wall, device_ms_by_kind=by_kind,
+               launches=launched)
+    del exe, scope
+    torch.cuda.empty_cache()
+    widths = dict(batch=DCGAN_PARITY_BATCH)
+    feeds = [tool.dcgan_batch(SEED + 100 + k, **widths)
+             for k in range(DCGAN_PARITY_STEPS)]
+    lock, lock_ok = _gan_alternating_lockstep(fluid, gan, feeds)
+    control, control_passed = _gan_alternating_lockstep(
+        fluid, gan, feeds[:1], {"conv2d_transpose": _conv_transpose_flipped})
+    finite = all(np.isfinite(v).all() for v in losses.values())
+    ok = finite and not any(launched.values()) and lock_ok and \
+        not control_passed
+    rec.update(ok=ok, parity_batch=DCGAN_PARITY_BATCH, lockstep=lock,
+               control_g_filter_flipped_on_the_card=dict(
+                   control, ok=not control_passed),
+               phase_seconds=time.perf_counter() - t_start)
+    emit(rec)
+    if not ok:
+        raise AssertionError("dcgan failed: %s" % rec)
+    return launched
+
+
+def _grid_sampler_half_pixel(ctx, inputs, attrs):
+    """grid_sampler on the card over half-pixel coordinates
+    (align_corners=False; a control). CPU tensors take the real lowering."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.fluid.ops import nn_ops
+    x, grid = inputs["X"][0], inputs["Grid"][0]
+    if not x.is_cuda:
+        return nn_ops._grid_sampler(ctx, inputs, attrs)
+    return {"Output": [F.grid_sample(x, grid, padding_mode="border",
+                                     align_corners=False)]}
+
+
+def phase_stn_digits(fluid, counters):
+    """The spatial transformer on the book's digits: a _window (no port
+    kernel), the lockstep from the identity transform and its control.
+    Returns the window's launches."""
+    from unittest import mock
+    from paddle_tpu_torch.fluid.ops import registry
+    tool = _load_tool("torch_nn_programs")
+    t0 = time.perf_counter()
+    prog = tool.stn_digits(fluid, seed=SEED)
+    batch = tool.STN["batch"]
+    stacked = _stack_feeds([tool.stn_batch(SEED + k, batch)
+                            for k in range(STN_STEPS + 1)])
+    none = dict.fromkeys(counters, 0)
+    launched = _window(
+        "stn_digits", fluid, counters, prog[:3],
+        {k: v[:1] for k, v in stacked.items()},
+        {k: v[1:] for k, v in stacked.items()}, STN_STEPS, none, None,
+        {"batch": batch, "ops": len(prog.main.global_block().ops),
+         "build_seconds": time.perf_counter() - t0}, {"examples": batch})
+    t0 = time.perf_counter()
+    feeds = [tool.stn_batch(SEED + 100 + k, batch)
+             for k in range(STN_PARITY_STEPS)]
+    results = {}
+    _, rec, ok = _lockstep(fluid, prog[:3], feeds)
+    results["lockstep"] = dict(rec, ok=ok)
+    with mock.patch.dict(registry._LOWERINGS,
+                         grid_sampler=_grid_sampler_half_pixel):
+        _, rec, passed = _lockstep(fluid, prog[:3], feeds[:1])
+    results["control_grid_sampler_half_pixel_on_the_card"] = dict(
+        rec, ok=not passed)
+    failed = [k for k, r in results.items() if not r["ok"]]
+    emit({"phase": "stn_digits_parity", "ok": not failed, "batch": batch,
+          "steps": STN_PARITY_STEPS, "results": results,
+          "phase_seconds": time.perf_counter() - t0})
+    if failed:
+        raise AssertionError("stn_digits: %s failed" % failed)
+    return launched
+
+
+def _hsigmoid_codes_inverted(ctx, inputs, attrs):
+    """hierarchical_sigmoid on the card with every path code inverted (a
+    control). CPU tensors take the real lowering."""
+    import torch
+    from paddle_tpu_torch.fluid.ops import misc_nn_ops
+    x = inputs["X"][0]
+    if x.is_cuda and inputs.get("PathTable") is None:
+        _, path, code = misc_nn_ops._binary_tree_paths(
+            attrs.get("num_classes", 2))
+        inputs = dict(inputs, PathTable=[torch.tensor(path, device="cuda")],
+                      PathCode=[1 - torch.tensor(code, device="cuda")])
+    return misc_nn_ops._hierarchical_sigmoid(ctx, inputs, attrs)
+
+
+def _grads_twice(fluid, prog, feed, names, runs=2):
+    """`runs` steps of `prog` on the card from one state (the card's
+    startup), fetching `names`: (readings, equal and nonzero)."""
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(prog.startup, scope=scope)
+    state = {n: scope.get(n).clone() for n in scope._vars
+             if scope.get(n) is not None}
+    got = []
+    for _ in range(runs):
+        run = fluid.Scope()
+        for n, t in state.items():
+            run.set(n, t.clone())
+        got.append(exe.run(prog.main, feed=feed, fetch_list=names,
+                           scope=run, return_numpy=False))
+        del run
+    equal = all(bool((a == b).all()) for r in got[1:]
+                for a, b in zip(got[0], r))
+    nonzero = all(bool((a != 0).any()) for a in got[0])
+    return {"gradients": names, "runs": runs,
+            "shapes": [list(a.shape) for a in got[0]],
+            "bit_for_bit": equal, "nonzero": nonzero}, equal and nonzero
+
+
+def phase_word2vec_hsigmoid(fluid, counters):
+    """The book's word2vec with hsigmoid: a _window (no port kernel), the
+    lockstep, the W and bias gradients twice and the control. Returns the
+    window's launches."""
+    from unittest import mock
+    from paddle_tpu_torch.fluid.ops import registry
+    tool = _load_tool("torch_nn_programs")
+    t0 = time.perf_counter()
+    prog = tool.word2vec_hsigmoid(fluid, seed=SEED)
+    batch = tool.W2V["batch"]
+    stacked = _stack_feeds([tool.w2v_batch(SEED + k, batch,
+                                           tool.W2V["dict_size"])
+                            for k in range(W2V_HS_STEPS + 1)])
+    launched = _window(
+        "word2vec_hsigmoid", fluid, counters, prog[:3],
+        {k: v[:1] for k, v in stacked.items()},
+        {k: v[1:] for k, v in stacked.items()}, W2V_HS_STEPS,
+        dict.fromkeys(counters, 0), None,
+        {"batch": batch, "widths": tool.W2V,
+         "ops": len(prog.main.global_block().ops),
+         "build_seconds": time.perf_counter() - t0}, {"examples": batch})
+    t0 = time.perf_counter()
+    feeds = [tool.w2v_batch(SEED + 100 + k, batch, tool.W2V["dict_size"])
+             for k in range(W2V_HS_PARITY_STEPS)]
+    results = {}
+    _, rec, ok = _lockstep(fluid, prog[:3], feeds)
+    results["lockstep"] = dict(rec, ok=ok)
+    with mock.patch.dict(registry._LOWERINGS,
+                         hierarchical_sigmoid=_hsigmoid_codes_inverted):
+        _, rec, passed = _lockstep(fluid, prog[:3], feeds[:1])
+    results["control_path_codes_inverted_on_the_card"] = dict(
+        rec, ok=not passed)
+    rec, ok = _grads_twice(fluid, prog, feeds[0], ["hs.w@GRAD", "hs.b@GRAD"])
+    results["hsigmoid_gradients_twice"] = dict(rec, ok=ok)
+    failed = [k for k, r in results.items() if not r["ok"]]
+    emit({"phase": "word2vec_hsigmoid_parity", "ok": not failed,
+          "steps": W2V_HS_PARITY_STEPS, "results": results,
+          "phase_seconds": time.perf_counter() - t0})
+    if failed:
+        raise AssertionError("word2vec_hsigmoid: %s failed" % failed)
+    return launched
+
+
+def _resize_without_antialias(ctx, inputs, attrs):
+    """bilinear_interp on the card without antialiasing (a control). CPU
+    tensors take the real lowering."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.fluid.ops import nn_ops
+    x = inputs["X"][0]
+    if not x.is_cuda:
+        return nn_ops._bilinear_interp(ctx, inputs, attrs)
+    return {"Out": [F.interpolate(x, (attrs["out_h"], attrs["out_w"]),
+                                  mode="bilinear", align_corners=False)]}
+
+
+def _drawing_heads_check(tool):
+    """sample_logits and the uniform sampled softmax at nn_chain's widths
+    on the card: the samples in range, the labels first, q by its formula,
+    the accidental hits at -1e20, the draws log-uniform (sample_logits) and
+    uniform (sampled softmax, whose loss at zero logits is log(the columns
+    left)), chi-square p > 1e-4 on SAMPLE_CHI_DRAWS draws; each call's ms.
+    Returns (readings, ok)."""
+    import math
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.fluid.ops import misc_nn_ops, registry
+    w = tool.CHAIN
+    n, v, s = w["sm_rows"], w["vocab"], w["samples"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    logits = torch.randn(n, v, generator=gen, device="cuda")
+    labels = torch.randint(0, v, (n, 1), generator=gen, device="cuda")
+    ctx = registry.LoweringContext("cuda", torch.Generator(device="cuda"))
+    ctx.generator.manual_seed(SEED + 1)
+    out = misc_nn_ops._sample_logits(
+        ctx, {"Logits": [logits], "Labels": [labels]},
+        {"num_samples": s, "remove_accidental_hits": True})
+    samples, q = out["Samples"][0], out["Probabilities"][0]
+    sl = out["SampledLogits"][0]
+    want_q = torch.log((samples + 2.0) / (samples + 1.0)) / math.log(v + 1)
+    hit = (samples[:, 1:] == labels).reshape(n, s)
+    want = torch.gather(logits, 1, samples) - torch.log(q + 1e-20)
+    drawn = samples[:, 1:].reshape(-1)[:SAMPLE_CHI_DRAWS].cpu().numpy()
+    k = np.arange(v, dtype=np.float64)
+    log_uniform = np.log((k + 2) / (k + 1)) / np.log(v + 1)
+    rec = {"rows": n, "classes": v, "samples": s,
+           "in_range": bool((samples >= 0).all() and (samples < v).all()),
+           "labels_first": bool(torch.equal(samples[:, :1], labels)),
+           "q_formula": bool(torch.equal(q, want_q)),
+           "hits": int(hit.sum()),
+           "hits_at_minus_1e20": bool((sl[:, 1:][hit] < -0.99e20).all()),
+           "others_exact": bool(torch.equal(sl[:, 1:][~hit],
+                                            want[:, 1:][~hit])),
+           "log_uniform_p": _chi_square_p(drawn, log_uniform),
+           "sample_logits_ms": time_ms(lambda: misc_nn_ops._sample_logits(
+               ctx, {"Logits": [logits], "Labels": [labels]},
+               {"num_samples": s}), iters=5, warmup=1)}
+    zeros = torch.zeros(n, v, device="cuda")
+    ctx.generator.manual_seed(SEED + 2)
+    loss, = misc_nn_ops._sampled_softmax_ce(
+        ctx, {"Logits": [zeros], "Labels": [labels]},
+        {"num_samples": s, "remove_accidental_hits": True})["Loss"]
+    replay = torch.Generator(device="cuda")
+    replay.manual_seed(SEED + 2)
+    drawn = torch.randint(0, v, (n, s), generator=replay, device="cuda")
+    columns = 1 + s - (drawn == labels).sum(1, keepdim=True)
+    rec.update(
+        uniform_loss_rel_err=float(((loss - torch.log(columns.float())) /
+                                    torch.log(columns.float())).abs().max()),
+        uniform_p=_chi_square_p(
+            drawn.reshape(-1)[:SAMPLE_CHI_DRAWS].cpu().numpy(),
+            np.full(v, 1.0 / v)),
+        sampled_softmax_ms=time_ms(lambda: misc_nn_ops._sampled_softmax_ce(
+            ctx, {"Logits": [logits], "Labels": [labels]},
+            {"num_samples": s}), iters=5, warmup=1))
+    ok = rec["in_range"] and rec["labels_first"] and rec["q_formula"] and \
+        rec["hits"] > 0 and rec["hits_at_minus_1e20"] and \
+        rec["others_exact"] and rec["log_uniform_p"] > 1e-4 and \
+        rec["uniform_p"] > 1e-4 and rec["uniform_loss_rel_err"] <= 1e-6
+    return rec, ok
+
+
+def _spectral_norm_check(tool):
+    """spectral_norm's lowering SN_CALLS times on the card on DCGAN D's
+    [512, 256, 4, 4] weight (N(0, 0.02)), one power-iteration step a call,
+    U and V carried: sigma = u W v against float64 power iteration from the
+    same U and V (within SN_ITER_REL_MAX) and against the largest singular
+    value (at most it, within SN_GAP_MAX); ms a call. Returns (readings,
+    ok)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.fluid.ops import misc_nn_ops, registry
+    shape = tool.CHAIN["sn_shape"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    w = torch.randn(shape, generator=gen, device="cuda") * 0.02
+    wm = w.reshape(shape[0], -1)
+    u0 = torch.randn(shape[0], generator=gen, device="cuda")
+    v0 = torch.randn(wm.shape[1], generator=gen, device="cuda")
+    ctx = registry.LoweringContext("cuda")
+    attrs = {"dim": 0, "power_iters": 1, "eps": 1e-12}
+    u, v = u0, v0
+    for _ in range(SN_CALLS):
+        out = misc_nn_ops._spectral_norm(ctx, {"Weight": [w], "U": [u],
+                                               "V": [v]}, attrs)
+        u, v = out["UOut"][0], out["VOut"][0]
+    sigma = float(w.norm() / out["Out"][0].norm())
+    m = wm.double().cpu().numpy()
+    u64, v64 = u0.double().cpu().numpy(), v0.double().cpu().numpy()
+    for _ in range(SN_CALLS):
+        v64 = m.T @ u64
+        v64 /= np.linalg.norm(v64) + 1e-12
+        u64 = m @ v64
+        u64 /= np.linalg.norm(u64) + 1e-12
+    sigma64 = float(u64 @ m @ v64)
+    sigma_max = float(torch.linalg.matrix_norm(wm.double(), ord=2))
+    rec = {"shape": list(shape), "calls": SN_CALLS, "sigma": sigma,
+           "sigma_float64_iteration": sigma64, "sigma_max": sigma_max,
+           "iteration_rel_err": abs(sigma - sigma64) / sigma64,
+           "gap_to_sigma_max": 1 - sigma / sigma_max,
+           "ms_a_call": time_ms(lambda: misc_nn_ops._spectral_norm(
+               ctx, {"Weight": [w], "U": [u], "V": [v]}, attrs))}
+    ok = rec["iteration_rel_err"] <= SN_ITER_REL_MAX and \
+        -1e-6 <= rec["gap_to_sigma_max"] <= SN_GAP_MAX
+    return rec, ok
+
+
+def phase_nn_layers(fluid, counters):
+    """nn_chain (tools/torch_nn_programs.py) on the card: the _window at its
+    widths (one Adam launch a step) with its busy share, the lockstep of its
+    deterministic parts and the control, the drawing heads' invariants and
+    spectral_norm's sigma. Returns the window's launches."""
+    import torch
+    from unittest import mock
+    from paddle_tpu_torch.fluid.ops import registry
+    tool = _load_tool("torch_nn_programs")
+    t0 = time.perf_counter()
+    chain = tool.nn_chain(fluid, seed=SEED)
+    block = chain.main.global_block()
+    # the chain's inputs stand for other models' activations: made on the
+    # card, in the program's dtypes, before the window (set-up)
+    batch = {k: torch.from_numpy(v).to("cuda", getattr(
+        torch, block.var(k).dtype)) for k, v in tool.chain_batch(SEED).items()}
+    stacked = lambda steps: {k: v[None].expand(steps, *v.shape)
+                             for k, v in batch.items()}
+
+    def busy(scope, _extra):
+        exe = fluid.Executor()
+        wall, busy_ms, by_kind = _busy_share(lambda: exe.run(
+            chain.main, feed=batch, fetch_list=[chain.loss], scope=scope))
+        return {"profiled_wall_ms": wall, "device_busy_ms": busy_ms,
+                "busy_share": busy_ms / wall,
+                "device_ms_by_kind": by_kind}, True
+    launched = _window(
+        "nn_layers", fluid, counters, chain[:3], stacked(1),
+        stacked(NN_STEPS), NN_STEPS,
+        dict(dict.fromkeys(counters, 0), adam=1), NN_ADAM_TENSORS,
+        {"widths": tool.CHAIN, "dtype": "float32", "parts": chain.parts,
+         "ops": len(block.ops), "build_seconds": time.perf_counter() - t0},
+        {"steps": 1}, check=([], busy))
+    del batch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    parts = tuple(p for p in tool.PARTS if p not in tool.RANDOM_PARTS)
+    small = tool.nn_chain(fluid, seed=SEED, parts=parts, **NN_PARITY_WIDTHS)
+    feeds = [tool.chain_batch(SEED + 100 + k, parts=parts,
+                              **NN_PARITY_WIDTHS)
+             for k in range(NN_PARITY_STEPS)]
+    results = {}
+    _, rec, ok = _lockstep(fluid, small[:3], feeds)
+    results["lockstep"] = dict(rec, ok=ok)
+    with mock.patch.dict(registry._LOWERINGS,
+                         bilinear_interp=_resize_without_antialias):
+        _, rec, passed = _lockstep(fluid, small[:3], feeds[:1])
+    results["control_shrink_without_antialiasing_on_the_card"] = dict(
+        rec, ok=not passed)
+    rec, ok = _drawing_heads_check(tool)
+    results["drawing_heads"] = dict(rec, ok=ok)
+    rec, ok = _spectral_norm_check(tool)
+    results["spectral_norm_sigma"] = dict(rec, ok=ok)
+    failed = [k for k, r in results.items() if not r["ok"]]
+    emit({"phase": "nn_layers_parity", "ok": not failed,
+          "widths": NN_PARITY_WIDTHS, "parts": parts,
+          "steps": NN_PARITY_STEPS, "results": results,
+          "phase_seconds": time.perf_counter() - t0})
+    if failed:
+        raise AssertionError("nn_layers: %s failed" % failed)
+    return launched
+
+
 # Row sums (scatter_rows_, _merge_rows): ROW_SUM_RUNS calls of each route
 # on the card on the same inputs must give equal bits, on ids with many
 # repeats (a Zipf draw over DeepFM's 100,000-row tables, and a 2-row table
@@ -4533,6 +5083,91 @@ ROW_SUM_CASES = [(100000, 26 * 4096, 16, "float32", "zipf"),
                  (100000, 26 * 4096, 16, "bfloat16", "zipf"),
                  (2, 32768, 768, "bfloat16", "uniform"),
                  (2073, 400, 32, "float32", "uniform")]
+
+
+# the NN lowerings' row sums: hsigmoid's W and Bias gradients (labels drawn
+# Zipf over word2vec's 2073 classes, so the tree's top nodes repeat in every
+# row), tree_conv's child sums and their gradient at nn_chain's widths, and
+# the gradient of sampled softmax's picks along the rows of [16384, 8192]
+# logits (add_along_rows_)
+NN_ROW_SUM_HSIGMOID = (16384, 256, 2073)
+NN_ROW_SUM_TREE = (64, 256, 128, 128)
+NN_ROW_SUM_ALONG = (16384, 8192, 1025)
+
+
+def _nn_row_sum_routes(gen):
+    """Each NN route ROW_SUM_RUNS times on the card on the same inputs:
+    equal bits every run; its ms a call and its largest difference from the
+    CPU's result (the forward products round apart, so not 0). Returns
+    (readings, ok)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.fluid.ops import misc_nn_ops, registry
+    tool = _load_tool("torch_nn_programs")
+    b, f, k = NN_ROW_SUM_HSIGMOID
+    p = torch.arange(1, k + 1, dtype=torch.float64) ** -1.1
+    hs = {"X": torch.randn(b, f, generator=gen),
+          "W": torch.randn(k - 1, f, generator=gen) * 0.1,
+          "Label": torch.multinomial(p / p.sum(), b, replacement=True,
+                                     generator=gen)[:, None],
+          "Bias": torch.randn(k - 1, 1, generator=gen)}
+    t, n, nf, out = NN_ROW_SUM_TREE
+    tree = {"NodesVector": torch.randn(t, n, nf, generator=gen),
+            "EdgeSet": torch.from_numpy(tool.tree_edges(
+                t, n, np.random.RandomState(SEED))),
+            "Filter": torch.randn(nf, 3, out, 1, generator=gen) * 0.1}
+    rows, cols, picks = NN_ROW_SUM_ALONG
+    along = {"dst": torch.zeros(rows, cols),
+             "idx": torch.randint(0, cols, (rows, picks), generator=gen),
+             "vals": torch.randn(rows, picks, generator=gen)}
+
+    on = {}
+
+    def inputs(ins, device):
+        """ins on `device`, moved once."""
+        key = (id(ins), device)
+        if key not in on:
+            on[key] = {s: v.to(device) for s, v in ins.items()}
+        return on[key]
+
+    def op_grads(op, ins, attrs, slot, wrt):
+        def run(device):
+            ctx = registry.LoweringContext(device)
+            x = {s: [v.detach().requires_grad_(s in wrt)]
+                 for s, v in inputs(ins, device).items()}
+            y, = registry.get_lowering(op)(ctx, x, attrs)[slot]
+            g = torch.ones_like(y) / y.numel()
+            return torch.autograd.grad(y, [x[s][0] for s in wrt], g)
+        return run
+
+    def along_rows(device):
+        a = inputs(along, device)
+        return [misc_nn_ops.add_along_rows_(a["dst"].clone(), a["idx"],
+                                            a["vals"])]
+    routes = {
+        "hsigmoid_w_and_bias_grads": op_grads(
+            "hierarchical_sigmoid", hs, {"num_classes": k}, "Out",
+            ["W", "Bias"]),
+        "tree_conv_child_sums_and_grads": op_grads(
+            "tree_conv", tree, {"max_depth": 2}, "Out",
+            ["NodesVector", "Filter"]),
+        "sampled_softmax_grad_along_rows": along_rows}
+    recs, ok = {}, True
+    for name, run in routes.items():
+        cpu = run("cpu")
+        outs = [run("cuda") for _ in range(ROW_SUM_RUNS)]
+        same = all(torch.equal(a, b) for o in outs[1:]
+                   for a, b in zip(outs[0], o))
+        recs[name] = {
+            "runs_bit_for_bit": same,
+            "max_rel_diff_to_cpu": max(
+                float((a.cpu().double() - c.double()).abs().max() /
+                      (c.double().abs().max() or 1.0))
+                for a, c in zip(outs[0], cpu)),
+            "ms": time_ms(lambda: run("cuda"), iters=3, warmup=1)}
+        ok = ok and same
+    del on
+    return recs, ok
 
 
 def phase_row_sums():
@@ -4588,8 +5223,11 @@ def phase_row_sums():
             lambda: zeros.clone().index_add_(0, rows, adds), iters=5,
             warmup=1)
         cases.append(rec)
+    nn_routes, nn_ok = _nn_row_sum_routes(gen)
+    ok = ok and nn_ok
     emit({"phase": "row_sums", "ok": ok, "runs": ROW_SUM_RUNS,
-          "cases": cases, "phase_seconds": time.perf_counter() - t_start})
+          "cases": cases, "nn_routes": nn_routes,
+          "phase_seconds": time.perf_counter() - t_start})
     if not ok:
         raise AssertionError("row sums differ from run to run or from the "
                              "CPU")
@@ -5129,6 +5767,15 @@ def main():
     add(phase_nets(fluid, counters))
     add(phase_bhtd_attention(fluid, A, counters))
     phase_check_nan_inf(fluid, transformer, cfg)
+    # the rest of the NN layers: DCGAN (transposed convolutions), a spatial
+    # transformer, word2vec with hsigmoid, and nn_chain (the layers at
+    # ResNet-50's, C3D's, DeepSpeech's, DeepFM's and train256's widths: one
+    # Adam launch a step)
+    with fluid.unique_name.guard():
+        add(phase_dcgan(fluid, counters))
+    add(phase_stn_digits(fluid, counters))
+    add(phase_word2vec_hsigmoid(fluid, counters))
+    add(phase_nn_layers(fluid, counters))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5167,7 +5814,8 @@ def main():
                          ("bert_base", "bert_base"),
                          ("se_resnext50", "se_resnext50"),
                          ("train256_recipe", "train256_recipe"),
-                         ("tensor_layers", "tensor_layers")] + \
+                         ("tensor_layers", "tensor_layers"),
+                         ("nn_layers", "nn_layers")] + \
                 [("zoo_" + m,) * 2 for m in ZOO_ADAM_CASES]:
             extra = summary.get((name, sub))
             if extra:

@@ -13,6 +13,7 @@ from . import reduce_ops      # noqa: F401
 from . import loss_ops        # noqa: F401
 from . import metric_ops      # noqa: F401
 from . import nn_ops          # noqa: F401
+from . import misc_nn_ops     # noqa: F401
 from . import optimizer_ops   # noqa: F401
 from . import grad_ops        # noqa: F401
 

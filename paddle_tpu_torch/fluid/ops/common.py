@@ -16,6 +16,12 @@ def on_card(x):
     return x.is_cuda
 
 
+def compute_dtype(x):
+    """float32 for a half-precision x (such a lowering computes in float32
+    and rounds its result once), else x's dtype."""
+    return torch.float32 if x.element_size() < 4 else x.dtype
+
+
 def round_scalar(value, dtype):
     """A Python scalar rounded to ``dtype``: the JAX lowerings build
     ``jnp.asarray(attr, x.dtype)`` before multiplying, so a bf16 tensor is

@@ -1,19 +1,23 @@
-"""NN lowerings: conv2d, depthwise_conv2d, pool2d, batch_norm and its
-grad, layer_norm, dropout and its grad, and fused_attention (the port's
-counterpart of ``paddle_tpu/fluid/ops/nn_ops.py``).
+"""NN lowerings: the convolutions (conv2d, depthwise_conv2d,
+conv2d_transpose, conv3d), pool2d and pool3d, batch_norm and its grad,
+layer_norm, group_norm, data_norm, affine_channel, lrn, dropout and its
+grad, fused_attention, the resizes and grid_sampler, im2sequence,
+bilinear_tensor_product, row_conv and conv_shift (the port's counterpart
+of ``paddle_tpu/fluid/ops/nn_ops.py``).
 
-conv2d is ``F.conv2d`` (cuDNN on the card), as the JAX package's is XLA's
-convolution; a float32 convolution runs in true f32 on the card, forward
-and backward (``_Conv2dF32``). pool2d pads explicitly, as the JAX
-package's ``reduce_window`` does, so every attribute (ceil_mode's extra
-right and bottom padding, exclusive counts, global and adaptive windows)
-keeps its windows. batch_norm follows the JAX lowering's formula in plain
-torch ops, not ``F.batch_norm``: f32 batch statistics as E[x^2] - E[x]^2
-(the biased variance), running statistics blended with ``momentum``, and
-SavedVariance = rsqrt(var + eps). Its grad op ``batch_norm_grad`` is the
-gradient of that formula; the executor pairs it with its forward op and
-hands it that op's SavedMean and SavedVariance, so no statistic is
-computed twice.
+Every convolution is ``aten.convolution`` (cuDNN on the card), as the JAX
+package's is XLA's; a float32 convolution, transposed or 3-D too, runs in
+true f32 on the card, forward and backward (``_ConvF32``). pool2d pads
+explicitly, as the JAX package's ``reduce_window`` does, so every
+attribute (ceil_mode's extra right and bottom padding, exclusive counts,
+global and adaptive windows) keeps its windows; pool3d reads only the
+window, stride and padding, as the JAX lowering. batch_norm follows the
+JAX lowering's formula in plain torch ops, not ``F.batch_norm``: f32 batch
+statistics as E[x^2] - E[x]^2 (the biased variance), running statistics
+blended with ``momentum``, and SavedVariance = rsqrt(var + eps). Its grad
+op ``batch_norm_grad`` is the gradient of that formula; the executor pairs
+it with its forward op and hands it that op's SavedMean and
+SavedVariance, so no statistic is computed twice.
 
 Dropout keeps the JAX package's semantics: the drop probability quantized
 to i/256, a byte-compare keep mask, the upscale by the realized keep
@@ -63,28 +67,43 @@ def _cudnn_fp32_precision():
         cudnn.conv.fp32_precision, cudnn.rnn.fp32_precision = saved
 
 
-class _Conv2dF32(torch.autograd.Function):
-    """A float32 ``F.conv2d`` whose forward and backward both run under
-    ``_cudnn_fp32_precision``: autograd runs a backward after the forward's
-    scope has closed, so the backward enters it again."""
+class _ConvF32(torch.autograd.Function):
+    """A float32 ``aten.convolution`` (2-D or 3-D, plain or transposed)
+    whose forward and backward both run under ``_cudnn_fp32_precision``:
+    autograd runs a backward after the forward's scope has closed, so the
+    backward enters it again."""
 
     @staticmethod
-    def forward(ctx, x, w, stride, padding, dilation, groups):
+    def forward(ctx, x, w, stride, padding, dilation, transposed, groups):
         ctx.save_for_backward(x, w)
-        ctx.conv = (stride, padding, dilation, groups)
+        ctx.conv = (stride, padding, dilation, transposed,
+                    [0] * len(stride), groups)
         with _cudnn_fp32_precision():
-            return F.conv2d(x, w, None, stride, padding, dilation, groups)
+            return torch.ops.aten.convolution(x, w, None, *ctx.conv)
 
     @staticmethod
     def backward(ctx, dout):
         x, w = ctx.saved_tensors
-        stride, padding, dilation, groups = ctx.conv
         with _cudnn_fp32_precision():
             dx, dw, _ = torch.ops.aten.convolution_backward(
-                dout, x, w, None, stride, padding, dilation, False, [0, 0],
-                groups, [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
-                         False])
-        return dx, dw, None, None, None, None
+                dout, x, w, None, *ctx.conv,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return dx, dw, None, None, None, None, None
+
+
+def convolution(x, w, stride, padding, dilation, groups, transposed=False):
+    """N-D convolution of NC... input by an O/I... filter (transposed: the
+    filter in Fluid's [in_c, out_c / groups, k...] layout, which is
+    ``F.conv_transpose*d``'s): float32 through ``_ConvF32``, other dtypes
+    through the plain call. The output keeps x's dtype."""
+    n = x.ndim - 2
+    conv = ([int(v) for v in _pair(stride, n)],
+            [int(v) for v in _pair(padding, n)],
+            [int(v) for v in _pair(dilation, n)])
+    if x.dtype == torch.float32:
+        return _ConvF32.apply(x, w, *conv, transposed, groups)
+    return torch.ops.aten.convolution(x, w, None, *conv, transposed,
+                                      [0] * n, groups).to(x.dtype)
 
 
 @register_lowering("conv2d")
@@ -92,24 +111,44 @@ def _conv2d(ctx, inputs, attrs):
     """NCHW input, OIHW filter, symmetric padding; output in the input's
     dtype. Its gradient is the generic ``grad_of`` on the taped forward."""
     x, w = one(inputs, "Input"), one(inputs, "Filter")
-    conv = (_pair(attrs.get("strides", [1, 1])),
-            _pair(attrs.get("paddings", [0, 0])),
-            _pair(attrs.get("dilations", [1, 1])),
-            attrs.get("groups", 1) or 1)
-    if x.dtype == torch.float32:
-        out = _Conv2dF32.apply(x, w, *conv)
-    else:
-        out = F.conv2d(x, w, None, *conv)
-    return {"Output": [out.to(x.dtype)]}
+    out = convolution(x, w, attrs.get("strides", [1, 1]),
+                      attrs.get("paddings", [0, 0]),
+                      attrs.get("dilations", [1, 1]),
+                      attrs.get("groups", 1) or 1)
+    return {"Output": [out]}
 
 
 @register_lowering("depthwise_conv2d")
 def _depthwise_conv2d(ctx, inputs, attrs):
     """conv2d with groups set to the input's channels (a channel multiplier
     of num_filters / channels): the same routes, float32 through
-    ``_Conv2dF32``."""
+    ``_ConvF32``."""
     return _conv2d(ctx, inputs,
                    dict(attrs, groups=one(inputs, "Input").shape[1]))
+
+
+@register_lowering("conv2d_transpose")
+def _conv2d_transpose(ctx, inputs, attrs):
+    """The transposed convolution of ``conv_transpose_nd`` (the JAX
+    package's input-dilated convolution by the flipped filter): output
+    size (in - 1) * stride - 2 * pad + dilation * (k - 1) + 1."""
+    x, w = one(inputs, "Input"), one(inputs, "Filter")
+    out = convolution(x, w, attrs.get("strides", [1, 1]),
+                      attrs.get("paddings", [0, 0]),
+                      attrs.get("dilations", [1, 1]),
+                      attrs.get("groups", 1) or 1, transposed=True)
+    return {"Output": [out]}
+
+
+@register_lowering("conv3d")
+def _conv3d(ctx, inputs, attrs):
+    """NCDHW input, OIDHW filter, symmetric padding; the input's dtype."""
+    x, w = one(inputs, "Input"), one(inputs, "Filter")
+    out = convolution(x, w, attrs.get("strides", [1, 1, 1]),
+                      attrs.get("paddings", [0, 0, 0]),
+                      attrs.get("dilations", [1, 1, 1]),
+                      attrs.get("groups", 1) or 1)
+    return {"Output": [out]}
 
 
 def _pool_out_size(in_size, k, s, p, ceil_mode):
@@ -491,3 +530,221 @@ def _fused_attention(ctx, inputs, attrs):
     fn = fused_attention_bthd if attrs.get("layout", "bhtd") == "bthd" \
         else fused_attention
     return {"Out": [fn(q, k, v, attrs.get("causal", False), scale)]}
+
+
+@register_lowering("pool3d")
+def _pool3d(ctx, inputs, attrs):
+    """Max or average pooling over NCDHW windows, as the JAX lowering: the
+    windows padded by hand (max with -inf, so any padding is taken, where
+    ``F.max_pool3d`` refuses one over half the window), average always
+    divided by the window's size, and ``exclusive``, ``ceil_mode`` and
+    ``adaptive`` not read (so ``adaptive_pool3d`` pools by a window of
+    ``pool_size`` at stride 1). Average sums in float32, rounded once."""
+    x = one(inputs, "X")
+    ksize = _pair(attrs.get("ksize", [2, 2, 2]), 3)
+    strides = _pair(attrs.get("strides", [1, 1, 1]), 3)
+    pads = _pair(attrs.get("paddings", [0, 0, 0]), 3)
+    if attrs.get("global_pooling", False):
+        ksize, pads, strides = list(x.shape[2:]), [0, 0, 0], [1, 1, 1]
+    padding = (pads[2], pads[2], pads[1], pads[1], pads[0], pads[0])
+    if attrs.get("pooling_type", "max") == "max":
+        xp = F.pad(x, padding, value=-math.inf) if any(pads) else x
+        return {"Out": [F.max_pool3d(xp, ksize, strides)]}
+    xf = x.float()
+    xp = F.pad(xf, padding) if any(pads) else xf
+    summed = F.avg_pool3d(xp, ksize, strides, divisor_override=1)
+    return {"Out": [(summed / math.prod(ksize)).to(x.dtype)]}
+
+
+@register_lowering("group_norm")
+def _group_norm(ctx, inputs, attrs):
+    """Statistics over each group of C / groups channels and the spatial
+    axes, the variance two-pass and centered, computed in float32 and
+    rounded once; Y, Mean and Variance ([N, groups]) in X's dtype (the JAX
+    lowering promotes Y to float32 past a bf16 X's float32 Scale: ROADMAP
+    Queue 3)."""
+    x = one(inputs, "X")
+    scale, bias = one(inputs, "Scale"), one(inputs, "Bias")
+    eps = attrs.get("epsilon", 1e-5)
+    groups = attrs.get("groups", 1)
+    n, c = x.shape[0], x.shape[1]
+    xg = x.float().reshape((n, groups, c // groups) + tuple(x.shape[2:]))
+    axes = tuple(range(2, xg.ndim))
+    mean = xg.mean(dim=axes, keepdim=True)
+    var = (xg - mean).square().mean(dim=axes, keepdim=True)
+    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    cshape = (1, c) + (1,) * (x.ndim - 2)
+    if scale is not None:
+        y = y * scale.reshape(cshape)
+    if bias is not None:
+        y = y + bias.reshape(cshape)
+    return {"Y": [y.to(x.dtype)],
+            "Mean": [mean.reshape(n, groups).to(x.dtype)],
+            "Variance": [var.reshape(n, groups).to(x.dtype)]}
+
+
+@register_lowering("data_norm")
+def _data_norm(ctx, inputs, attrs):
+    """(X - BatchSum / BatchSize) * sqrt(BatchSize / BatchSquareSum); the
+    three statistics are parameters, and the gradient reaches them."""
+    x = one(inputs, "X")
+    bsize = one(inputs, "BatchSize")
+    means = one(inputs, "BatchSum") / bsize
+    scales = torch.sqrt(bsize / one(inputs, "BatchSquareSum"))
+    return {"Y": [(x - means) * scales], "Means": [means],
+            "Scales": [scales]}
+
+
+@register_lowering("affine_channel")
+def _affine_channel(ctx, inputs, attrs):
+    x = one(inputs, "X")
+    scale, bias = one(inputs, "Scale"), one(inputs, "Bias")
+    shape = ((1, -1) + (1,) * (x.ndim - 2)) \
+        if attrs.get("data_layout", "NCHW") == "NCHW" \
+        else ((1,) * (x.ndim - 1) + (-1,))
+    return {"Out": [x * scale.reshape(shape) + bias.reshape(shape)]}
+
+
+@register_lowering("lrn")
+def _lrn(ctx, inputs, attrs):
+    """Across-channel LRN as the JAX lowering: MidOut = k + alpha * (the
+    sum of x^2 over n channels centred on each, zero-padded; alpha not
+    divided by n, as ``F.local_response_norm`` divides it), Out = x /
+    MidOut^beta. The n shifted squares add in order."""
+    x = one(inputs, "X")
+    n = attrs.get("n", 5)
+    k = attrs.get("k", 2.0)
+    alpha, beta = attrs.get("alpha", 1e-4), attrs.get("beta", 0.75)
+    half = n // 2
+    sq = F.pad(x.square(), (0, 0, 0, 0, half, half))
+    c = x.shape[1]
+    acc = sum(sq[:, i:i + c] for i in range(n))
+    mid = k + alpha * acc
+    return {"Out": [x / mid.pow(beta)], "MidOut": [mid]}
+
+
+def _resize(x, oh, ow, mode, **kw):
+    """F.interpolate to [oh, ow]; half precision resized in float32 (the
+    CPU has no bfloat16 antialiasing kernel) and rounded once."""
+    out = F.interpolate(x.to(common.compute_dtype(x)), (int(oh), int(ow)),
+                        mode=mode, **kw)
+    return out.to(x.dtype)
+
+
+@register_lowering("bilinear_interp")
+def _bilinear_interp(ctx, inputs, attrs):
+    """``jax.image.resize(..., "bilinear")``: half-pixel centres, and an
+    antialiasing triangle filter when it shrinks, which is
+    ``F.interpolate(align_corners=False, antialias=True)``; the layer's
+    align_corners is not passed (ROADMAP Queue 3)."""
+    if one(inputs, "OutSize") is not None:
+        raise NotImplementedError("dynamic OutSize is not supported; set "
+                                  "out_h/out_w statically")
+    x = one(inputs, "X")
+    return {"Out": [_resize(x, attrs.get("out_h"), attrs.get("out_w"),
+                            "bilinear", align_corners=False,
+                            antialias=True)]}
+
+
+@register_lowering("nearest_interp")
+def _nearest_interp(ctx, inputs, attrs):
+    """``jax.image.resize(..., "nearest")``: the source pixel whose
+    half-pixel centre is nearest, ``mode="nearest-exact"``."""
+    x = one(inputs, "X")
+    return {"Out": [_resize(x, attrs.get("out_h"), attrs.get("out_w"),
+                            "nearest-exact")]}
+
+
+def grid_sample_border(x, grid):
+    """Bilinear sampling of NCHW x at grid [N, H', W', 2] (x, y in [-1, 1]
+    over the corners), the JAX lowering's formula op by op: coordinates
+    (g + 1) * (size - 1) / 2, the four corners' indices clamped into the
+    image, weights from the unclamped coordinates. Elementwise ops, each
+    rounded once on the card and on the CPU alike, so both take the same
+    side of a pixel centre, where the derivative in the coordinate jumps;
+    the picks' gradient adds rows in order (``_Gather``)."""
+    from .tensor_ops import _Gather
+    n, c, h, w = x.shape
+    gx = (grid[..., 0] + 1.0) * (w - 1) / 2.0
+    gy = (grid[..., 1] + 1.0) * (h - 1) / 2.0
+    x0, y0 = torch.floor(gx), torch.floor(gy)
+    x1, y1 = x0 + 1, y0 + 1
+    rows = x.permute(0, 2, 3, 1).reshape(n * h * w, c)
+    base = (torch.arange(n, device=x.device) * (h * w))[:, None, None]
+
+    def sample(yy, xx):
+        yy = torch.clamp(yy, 0, h - 1).long()
+        xx = torch.clamp(xx, 0, w - 1).long()
+        idx = (base + yy * w + xx).reshape(-1)
+        return _Gather.apply(rows, idx).reshape(tuple(grid.shape[:3]) + (c,))
+
+    wa = ((x1 - gx) * (y1 - gy))[..., None]
+    wb = ((x1 - gx) * (gy - y0))[..., None]
+    wc = ((gx - x0) * (y1 - gy))[..., None]
+    wd = ((gx - x0) * (gy - y0))[..., None]
+    out = wa * sample(y0, x0) + wb * sample(y1, x0) + \
+        wc * sample(y0, x1) + wd * sample(y1, x1)
+    return out.permute(0, 3, 1, 2)
+
+
+@register_lowering("grid_sampler")
+def _grid_sampler(ctx, inputs, attrs):
+    """``grid_sample_border``: bilinear, align-corners coordinates, the
+    border's value past the image (the Paddle reference pads with zeros:
+    ROADMAP Queue 3), as ``F.grid_sample(padding_mode="border",
+    align_corners=True)`` gives within rounding. Half precision samples in
+    float32 (a bfloat16 coordinate is off by up to a pixel over 128) and
+    is rounded once."""
+    x, grid = one(inputs, "X"), one(inputs, "Grid")
+    dtype = common.compute_dtype(x)
+    out = grid_sample_border(x.to(dtype), grid.to(dtype))
+    return {"Output": [out.to(x.dtype)]}
+
+
+@register_lowering("im2sequence")
+def _im2sequence(ctx, inputs, attrs):
+    """Each kernels-sized patch of the padded NCHW input (paddings: top,
+    left, bottom, right) as a row [C * kh * kw], C major (``F.unfold``'s
+    order); rows [N * oh * ow], no LoD."""
+    x = one(inputs, "X")
+    kh, kw = attrs["kernels"]
+    strides = attrs.get("strides", [1, 1])
+    p = attrs.get("paddings", [0, 0, 0, 0])
+    xp = F.pad(x, (p[1], p[3], p[0], p[2])) if any(p) else x
+    cols = F.unfold(xp, (kh, kw), stride=tuple(strides))
+    return {"Out": [cols.transpose(1, 2).reshape(-1, cols.shape[1])]}
+
+
+@register_lowering("bilinear_tensor_product")
+def _bilinear_tensor_product(ctx, inputs, attrs):
+    """out[b, o] = x[b] W[o] y[b] (+ bias), W [out, dx, dy]."""
+    x, y, w = one(inputs, "X"), one(inputs, "Y"), one(inputs, "Weight")
+    bias = one(inputs, "Bias")
+    out = torch.einsum("bi,oij,bj->bo", x, w, y)
+    if bias is not None:
+        out = out + bias
+    return {"Out": [out]}
+
+
+@register_lowering("row_conv")
+def _row_conv(ctx, inputs, attrs):
+    """Lookahead convolution over [B, T, D]: out[t] = sum_i x[t + i] *
+    Filter[i], i < future_context + 1, past the end zeros; the terms add
+    in order of i."""
+    x, w = one(inputs, "X"), one(inputs, "Filter")
+    k, t = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, 0, k - 1))
+    return {"Out": [sum(pad[:, i:i + t] * w[i] for i in range(k))]}
+
+
+@register_lowering("conv_shift")
+def _conv_shift(ctx, inputs, attrs):
+    """Circular convolution of each row of X [B, M] with its row of Y [B,
+    N]: out[:, i] = sum_j x[:, (i + j - (N - 1) // 2) % M] * y[:, j], the
+    shifted copies as rolls."""
+    x, y = one(inputs, "X"), one(inputs, "Y")
+    n = y.shape[1]
+    half = (n - 1) // 2
+    terms = torch.stack([torch.roll(x, half - j, 1) * y[:, j:j + 1]
+                         for j in range(n)], dim=-1)
+    return {"Out": [terms.sum(dim=-1)]}

@@ -141,7 +141,8 @@ def test_f32_conv2d_runs_in_ieee_precision_and_restores_the_setting(
     are back after each."""
     cudnn = torch.backends.cudnn
     seen = []
-    conv, conv_bwd = F.conv2d, torch.ops.aten.convolution_backward
+    conv, conv_bwd = torch.ops.aten.convolution, \
+        torch.ops.aten.convolution_backward
 
     def spy_conv(*args, **kw):
         seen.append(("forward", cudnn.conv.fp32_precision))
@@ -150,7 +151,7 @@ def test_f32_conv2d_runs_in_ieee_precision_and_restores_the_setting(
     def spy_bwd(*args, **kw):
         seen.append(("backward", cudnn.conv.fp32_precision))
         return conv_bwd(*args, **kw)
-    monkeypatch.setattr(F, "conv2d", spy_conv)
+    monkeypatch.setattr(torch.ops.aten, "convolution", spy_conv)
     monkeypatch.setattr(torch.ops.aten, "convolution_backward", spy_bwd)
     before = (cudnn.conv.fp32_precision, cudnn.rnn.fp32_precision)
     x = torch.from_numpy(_randn(1, 2, 5, 5)).requires_grad_(True)
