@@ -4,6 +4,7 @@ Run from the root of a checkout, on a machine with a CUDA card and the CUDA
 toolkit:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --control-flow   # build, then phases 42-45 only
 
 Phases, each printing one JSON line (any failure ends the script with a
 non-zero exit):
@@ -327,6 +328,35 @@ non-zero exit):
               sigma after 20 steps against float64 power iteration and the
               largest singular value. Control: the antialiasing shrink
               without antialiasing on the card.
+42. rnn_encoder_decoder - the Fluid book's RNN encoder-decoder
+              (tools/torch_control_flow_programs.py: two StaticRNNs, an fc
+              head, Adam(5e-3)) at the WMT-14 seq2seq's widths (dictionary
+              30,000, embedding and hidden 512, T 32, batch 64, f32): one
+              warm step and 4 through run_steps, one Adam launch a step
+              over its 6 admitted parameters, busy share; the trained model
+              saved, loaded and served a batch of 8 on the card and the CPU
+              (ms and host syncs a request); 30 lockstep steps at the book
+              test's widths, each recurrent op replayed as one op.
+              Control: the card's recurrent ops run their steps reversed.
+43. while_loop - benchmark/predictor_bench.py's While model (8 trips, fc
+              32) saved without the AOT export and served 20 requests (ms
+              and host syncs a request, the CPU serving the same
+              artifact); trained at width 1,024, batch 256 through
+              while_grad (the inferred bound): a window, busy share, 3
+              lockstep steps; a dropout body keeps one mask on every trip.
+              Control: max_trip_count two below the trips, every
+              parameter's gradient NaN on the card.
+44. switch_ifelse - the Switch programs of
+              tests/test_control_flow_grad.py (taken, untaken, default) at
+              width 1,024, batch 256, one lockstep step each (the untaken
+              case's x gradient exactly 0), and the IfElse regressor: a
+              window, busy share, 3 lockstep steps. Control: the untaken
+              branch given a gradient on the card.
+45. tensor_arrays - every array op at BERT-base's widths ([256, 128, 768]
+              bf16 hidden states, lengths 1-128), inputs made on the card
+              first: ms a run, peak memory, busy share; every output equals
+              the CPU's bit for bit, no port kernel launches. Control:
+              shrink_memory keeping the rows whose length equals the step.
 
 The kernel cases also time rows 1, 3, 8 and 11 at BERT-base's shapes
 (attention at batch 256, 12 heads, seq 128, D 64; LayerNorm on [32768,
@@ -338,11 +368,12 @@ phase runs at its float32 shapes: rows 1 and 3 at the tool's transformer's
 (batch 64, 8 heads, seq 128, D 64), row 11 over the parameters each zoo
 model's step gives the kernel (ZOO_ADAM_CASES), and row 11 over
 tensor_chain's 3 fc weights (TENSOR_ADAM_CASES) and over nn_chain's LM
-head (NN_ADAM_CASES). Then it prints the card's
+head (NN_ADAM_CASES) and over the encoder-decoder's 6 admitted parameters
+(ENC_DEC_ADAM_CASES). Then it prints the card's
 name and power limit (nvidia-smi), one JSON line with every kernel's
 numbers (with a "bert_base" entry where a kernel runs at BERT-base's
-shapes, "se_resnext50", "train256_recipe", "tensor_layers" and
-"nn_layers" ones for Adam, and a
+shapes, "se_resnext50", "train256_recipe", "tensor_layers",
+"nn_layers" and "rnn_encoder_decoder" ones for Adam, and a
 "zoo_<model>" one where a kernel runs in that zoo model), and last {"ok": true, "device": {...}}. It imports nothing of JAX or of the JAX package
 paddle_tpu.
 """
@@ -1679,6 +1710,8 @@ def phase_kernels():
                      "tensor_layers")
     _adam_multi_case(K, gen, summary, max_err, failed, NN_ADAM_CASES,
                      "nn_layers")
+    _adam_multi_case(K, gen, summary, max_err, failed, ENC_DEC_ADAM_CASES,
+                     "rnn_encoder_decoder")
     _ce_cases(CE, gen, summary, max_err, failed)
     _ln_cases(LN, gen, summary, max_err, failed)
     _emb_cases(EG, gen, summary, max_err, failed)
@@ -2723,8 +2756,11 @@ def _replay_on_card(fluid, main, fetch, state, feed, vals, after):
             t = vals[n]
         return t.to(device="cuda", dtype=to_torch_dtype(block.var(n).dtype))
 
-    # a generator for dropout's snapshot, which its grad op reads back
-    ctx = registry.LoweringContext("cuda", torch.Generator(device="cuda"))
+    # a generator for dropout's snapshot, which its grad op reads back; a
+    # while or conditional_block op runs its sub-block as one op
+    ctx = registry.LoweringContext(
+        "cuda", torch.Generator(device="cuda"),
+        block_runner=fluid.executor._BlockRunner(main))
     tape, errs = {}, {}
     with torch.no_grad():
         for k, (op, _) in enumerate(plan.steps):
@@ -2732,6 +2768,8 @@ def _replay_on_card(fluid, main, fetch, state, feed, vals, after):
                 continue
             run = plan.runs.get(k, (k,))
             ops = [plan.steps[j][0] for j in run]
+            for o in ops:
+                registry.fold_const(o, ctx)
             env = {n: value(n) for o in ops for n in o.input_arg_names
                    if n != "@EMPTY@"}
             if len(run) > 1:
@@ -5606,6 +5644,482 @@ def phase_checkpoint(fluid, transformer, counters):
     return launched
 
 
+# ---- control flow and tensor arrays (tools/torch_control_flow_programs.py)
+
+# rnn_encoder_decoder: the book's model at the WMT-14 seq2seq's widths
+# (ENC_DEC: dictionary 30,000, embedding and hidden 512, T 32, batch 64,
+# f32, Adam(5e-3)): one warm step and ENC_DEC_STEPS through run_steps, one
+# Adam launch a step over the 6 parameters the gate takes (the two
+# [30000, 512] tables and the four [512, 512] step weights:
+# ENC_DEC_ADAM_CASES); the trained model saved by save_inference_model,
+# loaded and served a batch of ENC_DEC_SERVE_BATCH on the card and on the
+# CPU from the same artifact (logits within SERVE_REL_MAX of the largest);
+# ENC_DEC_PARITY_STEPS lockstep steps at the book test's widths. Control:
+# the card's recurrent ops run their steps in reverse order.
+ENC_DEC_STEPS = 4
+ENC_DEC_PARITY_STEPS = 30
+ENC_DEC_SERVE_BATCH = 8
+ENC_DEC_ADAM_CASES = [((30000, 512), "float32", 2),
+                      ((512, 512), "float32", 4)]
+ENC_DEC_ADAM_TENSORS = sum(n for _, _, n in ENC_DEC_ADAM_CASES)
+SERVE_REL_MAX = 1e-4
+# while_loop: benchmark/predictor_bench.py's While model (8 trips, fc 32,
+# batch 4) saved without aot_example_inputs and served WHILE_REQUESTS
+# times from the artifact (ms and host syncs a request; the CPU serves the
+# same artifact); trained at WHILE_TRAIN (width 1,024, batch 256, SGD)
+# through while_grad with the inferred bound: a window of WHILE_STEPS and
+# WHILE_PARITY_STEPS lockstep steps; the dropout body at WHILE_TRAIN's
+# widths keeps one mask on every trip. Control: max_trip_count two below
+# the trips, where every parameter's gradient on the card must be NaN.
+WHILE_REQUESTS = 20
+WHILE_STEPS = 4
+WHILE_PARITY_STEPS = 3
+# switch_ifelse: the three Switch programs at BRANCHY (width 1,024, batch
+# 256) one lockstep step each (the gradients of x and w with them), the
+# untaken case's x gradient exactly 0; the IfElse regressor a window of
+# BRANCHY_STEPS and BRANCHY_PARITY_STEPS lockstep steps. Control: the
+# untaken branch given a gradient on the card.
+BRANCHY_STEPS = 8
+BRANCHY_PARITY_STEPS = 3
+# tensor_arrays: every array op at BERT-base's widths (ARRAYS: [256, 128,
+# 768] bf16, lengths 1-128), inputs made on the card first, ARRAY_RUNS
+# runs timed; every output the card makes equals the CPU's bit for bit.
+# Control: shrink_memory keeping the rows whose length equals the step.
+ARRAY_RUNS = 5
+
+
+def _cf_tool():
+    return _load_tool("torch_control_flow_programs")
+
+
+def _recurrent_reversed(ctx, inputs, attrs):
+    """recurrent on the card with its steps in the other order (a
+    control). CPU tensors take the real lowering."""
+    from paddle_tpu_torch.fluid.ops import rnn_ops
+    if ctx.device.type == "cuda":
+        attrs = dict(attrs, reverse=not attrs.get("reverse", False))
+    return rnn_ops._recurrent(ctx, inputs, attrs)
+
+
+def _untaken_branch_given_a_gradient(ctx, inputs, attrs):
+    """conditional_block_grad on the card replaying its block whatever
+    its predicate (a control). CPU tensors take the real lowering."""
+    from paddle_tpu_torch.fluid.ops import control_ops
+    if ctx.device.type == "cuda":
+        inputs = dict(inputs, Cond=[])
+    return control_ops._conditional_block_grad(ctx, inputs, attrs)
+
+
+def _shrink_keeps_the_step(ctx, inputs, attrs):
+    """shrink_rnn_memory on the card keeping the rows whose length equals
+    the step (an off-by-one; a control). CPU tensors take the real
+    lowering."""
+    from paddle_tpu_torch.fluid.ops import array_ops
+    x = inputs["X"][0]
+    if not x.is_cuda:
+        return array_ops._shrink_rnn_memory(ctx, inputs, attrs)
+    rt = inputs["RankTable"][0]
+    step = inputs["I"][0].reshape(-1)[0].to(rt.lengths.dtype)
+    alive = rt.lengths[rt.order.long()] >= step
+    return {"Out": [x * alive.reshape((-1,) + (1,) * (x.dim() - 1))
+                    .to(x.dtype)]}
+
+
+def _sync_places(run):
+    """(the result of run(), the places ("file:line") where it waits for
+    the card, as torch.cuda.set_sync_debug_mode("warn") reports them)."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, ["%s:%d" % (os.path.relpath(w.filename), w.lineno)
+                 for w in caught if "synchroniz" in str(w.message)]
+
+
+def _serve_artifact(fluid, model, scope, feed, name, requests=1):
+    """`model` saved from `scope` by save_inference_model (no AOT export),
+    loaded on the card and on the CPU, `feed` served: (card output, CPU
+    output, ms a request on the card over `requests`, the places a
+    request waits for the card, artifact bytes)."""
+    import shutil
+    import torch
+    root = os.path.join(IO_DIR, name)
+    shutil.rmtree(root, ignore_errors=True)
+    exe = fluid.Executor()
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(root, model.feeds, [model.out], exe,
+                                      main_program=model.main)
+    size = _artifact_bytes(root)
+    outs = {}
+    for place, ex in (("cuda", exe), ("cpu",
+                                      fluid.Executor(fluid.CPUPlace()))):
+        served = fluid.Scope()
+        with fluid.scope_guard(served):
+            prog, _, _ = fluid.io.load_inference_model(root, ex)
+        outs[place] = (ex, prog, served)
+    ex, prog, served = outs["cuda"]
+    card = ex.run(prog, feed=feed, scope=served)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(requests):
+        ex.run(prog, feed=feed, scope=served, return_numpy=False)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / requests
+    _, syncs = _sync_places(lambda: ex.run(prog, feed=feed, scope=served,
+                                           return_numpy=False))
+    ex, prog, served = outs["cpu"]
+    cpu = ex.run(prog, feed=feed, scope=served)[0]
+    shutil.rmtree(root, ignore_errors=True)
+    return card, cpu, ms, syncs, size
+
+
+def _step_busy(fluid, model, feed):
+    """Startup and one warm step on the card, then _busy_share of a step
+    through Executor.run: (wall ms, busy ms, by kind)."""
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(model.startup, scope=scope)
+    fetch = [model.loss] if model.loss is not None else [model.out]
+    exe.run(model.main, feed=feed, fetch_list=fetch, scope=scope)
+    return _busy_share(lambda: exe.run(model.main, feed=feed,
+                                       fetch_list=fetch, scope=scope,
+                                       return_numpy=False))
+
+
+def _step_syncs(fluid, model, stacked):
+    """The places where a training step of `model` through run_steps
+    (after the startup and one step) waits for the card (_host_syncs), by
+    place: {"count": n, "places": {place: times}}."""
+    import collections
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(model.startup, scope=scope)
+    one = {k: v[:1] for k, v in stacked.items()}
+    exe.run_steps(model.main, feed=one, n_steps=1, fetch_list=[model.loss],
+                  scope=scope)
+    places = _host_syncs(fluid, model.main, one, model.loss, scope)
+    return {"count": len(places),
+            "places": dict(collections.Counter(places))}
+
+
+def _busy_rec(wall, busy, by_kind):
+    return {"profiled_wall_ms": wall, "device_busy_ms": busy,
+            "busy_share": busy / wall, "device_ms_by_kind": by_kind}
+
+
+def phase_rnn_encoder_decoder(fluid, counters):
+    """The book's RNN encoder-decoder at ENC_DEC: a _window, its busy
+    share, the trained model served from its artifact on the card and the
+    CPU, the lockstep at the book test's widths and its control. Returns
+    the window's launches."""
+    import numpy as np
+    from unittest import mock
+    from paddle_tpu_torch.fluid.ops import registry
+    tool = _cf_tool()
+    t0 = time.perf_counter()
+    w = tool.ENC_DEC
+    m = tool.rnn_encoder_decoder(fluid, seed=SEED)
+    block = m.main.global_block()
+    stacked = _stack_feeds([tool.enc_dec_batch(SEED + k)
+                            for k in range(ENC_DEC_STEPS + 1)])
+    launched = _window(
+        "rnn_encoder_decoder", fluid, counters, m[:3],
+        {k: v[:1] for k, v in stacked.items()},
+        {k: v[1:] for k, v in stacked.items()}, ENC_DEC_STEPS,
+        dict(dict.fromkeys(counters, 0), adam=1), ENC_DEC_ADAM_TENSORS,
+        {"widths": w, "ops": len(block.ops),
+         "step_ops": len(m.main.block(1).ops),
+         "adam_parameters": sum(op.type == "adam" for op in block.ops),
+         "build_seconds": time.perf_counter() - t0},
+        {"tokens": w["batch"] * w["seq"]})
+    t0 = time.perf_counter()
+    one = tool.enc_dec_batch(SEED + 50)
+    results = {"busy": _busy_rec(*_step_busy(fluid, m, one)),
+               "step_host_syncs": _step_syncs(fluid, m, stacked)}
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(m.startup, scope=scope)
+    exe.run_steps(m.main, feed={k: v[:2] for k, v in stacked.items()},
+                  n_steps=2, fetch_list=[m.loss], scope=scope)
+    feed = {k: one[k][:ENC_DEC_SERVE_BATCH] for k in m.feeds}
+    card, cpu, ms, syncs, size = _serve_artifact(
+        fluid, m, scope, feed, "rnn_encoder_decoder")
+    rel = _rel_max(card, cpu)
+    results["serve"] = {
+        "batch": ENC_DEC_SERVE_BATCH, "shape": list(card.shape),
+        "ms_a_request": ms, "host_syncs_a_request": len(syncs),
+        "host_sync_places": syncs, "artifact_bytes": size,
+        "rel_max_card_vs_cpu": rel,
+        "limit": SERVE_REL_MAX,
+        "ok": card.shape == (ENC_DEC_SERVE_BATCH, w["seq"], w["vocab"]) and
+        bool(np.isfinite(card).all()) and rel <= SERVE_REL_MAX}
+    del exe, scope
+    narrow = tool.rnn_encoder_decoder(fluid, seed=SEED,
+                                      **tool.ENC_DEC_NARROW)
+    feeds = [tool.enc_dec_batch(SEED + 100, **tool.ENC_DEC_NARROW)] * \
+        ENC_DEC_PARITY_STEPS
+    _, rec, ok = _lockstep(fluid, narrow[:3], feeds)
+    results["lockstep"] = dict(rec, ok=ok)
+    with mock.patch.dict(registry._LOWERINGS, recurrent=_recurrent_reversed):
+        _, rec, passed = _lockstep(fluid, narrow[:3], feeds[:1])
+    results["control_steps_reversed_on_the_card"] = dict(rec, ok=not passed)
+    failed = [k for k, r in results.items() if not r.get("ok", True)]
+    emit({"phase": "rnn_encoder_decoder_parity", "ok": not failed,
+          "parity_steps": ENC_DEC_PARITY_STEPS,
+          "parity_widths": tool.ENC_DEC_NARROW, "results": results,
+          "phase_seconds": time.perf_counter() - t0})
+    if failed:
+        raise AssertionError("rnn_encoder_decoder: %s failed" % failed)
+    return launched
+
+
+def phase_while_loop(fluid, counters):
+    """predictor_bench.py's While model served from its artifact, trained
+    at WHILE_TRAIN (a _window, its busy share, the lockstep), the control
+    bound and the dropout body. Returns the window's launches."""
+    import numpy as np
+    import torch
+    tool = _cf_tool()
+    t0 = time.perf_counter()
+    results = {}
+    serve = tool.while_loop(fluid, seed=SEED)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(serve.startup, scope=scope)
+    feed = {"x": tool.while_batch(SEED)["x"]}
+    card, cpu, ms, syncs, size = _serve_artifact(
+        fluid, serve, scope, feed, "while_loop", WHILE_REQUESTS)
+    rel = _rel_max(card, cpu)
+    results["serve"] = {
+        "widths": tool.WHILE_SERVE, "ms_a_request": ms,
+        "host_syncs_a_request": len(syncs), "host_sync_places": syncs,
+        "artifact_bytes": size,
+        "rel_max_card_vs_cpu": rel, "limit": SERVE_REL_MAX,
+        "ok": card.shape == (tool.WHILE_SERVE["batch"],
+                             tool.WHILE_SERVE["width"]) and
+        rel <= SERVE_REL_MAX}
+    del exe, scope
+    w = tool.WHILE_TRAIN
+    m = tool.while_loop(fluid, seed=SEED, train=True, **w)
+    stacked = _stack_feeds([tool.while_batch(SEED + k, **w)
+                            for k in range(WHILE_STEPS + 1)])
+    launched = _window(
+        "while_loop", fluid, counters, m[:3],
+        {k: v[:1] for k, v in stacked.items()},
+        {k: v[1:] for k, v in stacked.items()}, WHILE_STEPS,
+        dict.fromkeys(counters, 0), None,
+        {"widths": w, "ops": [len(b.ops) for b in m.main.blocks],
+         "build_seconds": time.perf_counter() - t0},
+        {"examples": w["batch"]})
+    t1 = time.perf_counter()
+    one = tool.while_batch(SEED + 50, **w)
+    results["busy"] = _busy_rec(*_step_busy(fluid, m, one))
+    results["step_host_syncs"] = _step_syncs(fluid, m, stacked)
+    feeds = [tool.while_batch(SEED + 100 + k, **w)
+             for k in range(WHILE_PARITY_STEPS)]
+    _, rec, ok = _lockstep(fluid, m[:3], feeds)
+    results["lockstep"] = dict(rec, ok=ok)
+    bounded = tool.while_loop(fluid, seed=SEED, train=True,
+                              max_trip_count=w["trips"] - 2, **w)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(bounded.startup, scope=scope)
+    grads = [p.name + "@GRAD" for p in bounded.main.all_parameters()]
+    got = exe.run(bounded.main, feed=one, fetch_list=[bounded.loss] + grads,
+                  scope=scope)
+    nan = [bool(np.isnan(g).all()) for g in got[1:]]
+    results["control_bound_two_below_the_trips"] = {
+        "max_trip_count": w["trips"] - 2, "trips": w["trips"],
+        "gradients": grads, "all_nan": nan,
+        "ok": len(nan) == 4 and all(nan) and bool(np.isfinite(got[0]))}
+    drop = tool.while_dropout(fluid, **w)
+    exe.run(drop.startup, scope=scope)
+    acc, = exe.run(drop.main, fetch_list=[drop.out], scope=scope,
+                   return_numpy=False)
+    values = torch.unique(acc).cpu().tolist()
+    kept = float((acc != 0).float().mean())
+    results["dropout_body_one_mask_every_trip"] = {
+        "values": values, "kept_share": kept,
+        "ok": values == [0.0, float(w["trips"])] and 0.45 < kept < 0.55}
+    del exe, scope
+    torch.cuda.empty_cache()
+    failed = [k for k, r in results.items() if not r.get("ok", True)]
+    emit({"phase": "while_loop_parity", "ok": not failed,
+          "parity_steps": WHILE_PARITY_STEPS, "results": results,
+          "phase_seconds": time.perf_counter() - t1})
+    if failed:
+        raise AssertionError("while_loop: %s failed" % failed)
+    return launched
+
+
+def _grads_lockstep(fluid, m, feed, fetch):
+    """One run of `m` fetching `fetch`, card against CPU from the CPU's
+    startup state: every op of the card's plan replayed on the card from
+    the CPU's values (_replay_on_card) within RESNET_OP_TOL, and each value
+    the card's whole run fetches within OPT_LOSS_REL_MAX of the CPU's
+    largest. Returns (readings, ok, the card's values by name)."""
+    block = m.main.global_block()
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(m.startup, scope=scope)
+    state = {n: scope.get(n) for n, v in block.vars.items()
+             if v.persistable and scope.get(n) is not None}
+    vals, after = _cpu_step(fluid, m.main, state, feed,
+                            sorted(set(_step_names(m.main)) | set(fetch)))
+    card_scope = fluid.Scope()
+    for n, t in state.items():
+        card_scope.set(n, t.to("cuda", copy=True))
+    card = dict(zip(fetch, fluid.Executor().run(
+        m.main, feed=feed, fetch_list=fetch, scope=card_scope)))
+    errs = _replay_on_card(fluid, m.main, fetch, state, feed, vals, after)
+    ok, worst = _op_verdict(errs)
+    whole = {n: _rel_max(card[n], fluid.executor.as_numpy(vals[n]))
+             for n in fetch}
+    ok = ok and max(whole.values()) <= OPT_LOSS_REL_MAX
+    return {"worst_op": worst, "ops": len(errs), "fetched_rel_max": whole,
+            "limit": OPT_LOSS_REL_MAX}, ok, card
+
+
+def phase_switch_ifelse(fluid, counters):
+    """The Switch programs (one lockstep run each with the gradients of x
+    and w; the untaken case's exactly 0, and its control) and the IfElse
+    regressor (a _window, its busy share, the lockstep) at BRANCHY.
+    Returns the window's launches."""
+    from unittest import mock
+    from paddle_tpu_torch.fluid.ops import registry
+    tool = _cf_tool()
+    t0 = time.perf_counter()
+    w = tool.BRANCHY
+    results = {}
+    feed = {"x": tool.branchy_batch(SEED + 100, **w)["x"]}
+    for case in tool.SWITCH_CASES:
+        m = tool.switch(fluid, case, **w)
+        fetch = [m.loss.name, "x@GRAD", "w@GRAD"]
+        rec, ok, card = _grads_lockstep(fluid, m, feed, fetch)
+        if case == "untaken":
+            zero = not card["x@GRAD"].any() and not card["w@GRAD"].any()
+            rec["grads_zero"] = zero
+            ok = ok and zero
+            with mock.patch.dict(
+                    registry._LOWERINGS,
+                    conditional_block_grad=_untaken_branch_given_a_gradient):
+                control, _, card = _grads_lockstep(fluid, m, feed, fetch)
+            control["grads_zero"] = not card["x@GRAD"].any() and \
+                not card["w@GRAD"].any()
+            results["control_untaken_branch_given_a_gradient"] = dict(
+                control, ok=not control["grads_zero"])
+        results["switch_" + case] = dict(rec, ok=ok)
+    m = tool.ifelse(fluid, **w)
+    stacked = _stack_feeds([tool.branchy_batch(SEED + k, **w)
+                            for k in range(BRANCHY_STEPS + 1)])
+    launched = _window(
+        "switch_ifelse", fluid, counters, m[:3],
+        {k: v[:1] for k, v in stacked.items()},
+        {k: v[1:] for k, v in stacked.items()}, BRANCHY_STEPS,
+        dict.fromkeys(counters, 0), None,
+        {"program": "ifelse", "widths": w,
+         "ops": len(m.main.global_block().ops)}, {"examples": w["batch"]})
+    results["ifelse_busy"] = _busy_rec(*_step_busy(
+        fluid, m, tool.branchy_batch(SEED + 50, **w)))
+    feeds = [tool.branchy_batch(SEED + 200 + k, **w)
+             for k in range(BRANCHY_PARITY_STEPS)]
+    _, rec, ok = _lockstep(fluid, m[:3], feeds)
+    results["ifelse_lockstep"] = dict(rec, ok=ok)
+    failed = [k for k, r in results.items() if not r.get("ok", True)]
+    emit({"phase": "switch_ifelse_parity", "ok": not failed,
+          "results": results, "phase_seconds": time.perf_counter() - t0})
+    if failed:
+        raise AssertionError("switch_ifelse: %s failed" % failed)
+    return launched
+
+
+def _arrays_run(fluid, m, feed, device):
+    """A run of the tensor_arrays program on `device`'s executor from
+    `feed`: run() -> {output name: tensor}."""
+    exe = fluid.Executor() if device == "cuda" else \
+        fluid.Executor(fluid.CPUPlace())
+    names = list(m.out)
+    fetch = [m.out[n] for n in names]
+
+    def run():
+        return dict(zip(names, exe.run(
+            m.main, feed=feed, fetch_list=fetch, return_numpy=False,
+            scope=fluid.Scope())))
+    return run
+
+
+def phase_tensor_arrays(fluid, counters):
+    """Every array op at ARRAYS on the card against the CPU, bit for bit,
+    inputs made on the card first; its control. No port kernel may
+    launch."""
+    import torch
+    from unittest import mock
+    from paddle_tpu_torch.fluid.ops import registry
+    tool = _cf_tool()
+    t0 = time.perf_counter()
+    w = tool.ARRAYS
+    m = tool.tensor_arrays(fluid)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    feed = {"hidden": torch.randn(w["batch"], w["seq"], w["hidden"],
+                                  generator=gen, device="cuda")
+            .to(torch.bfloat16),
+            "lens": torch.randint(1, w["seq"] + 1, (w["batch"], 1),
+                                  generator=gen, device="cuda",
+                                  dtype=torch.int32),
+            "mask": torch.rand(w["batch"], 1, generator=gen,
+                               device="cuda") < 0.5}
+    # a row of length `step`, where the control's off-by-one shows
+    feed["lens"][0] = w["step"]
+    card_run = _arrays_run(fluid, m, feed, "cuda")
+    card_run()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    t1 = time.perf_counter()
+    for _ in range(ARRAY_RUNS):
+        card = card_run()
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t1) * 1e3 / ARRAY_RUNS
+    launched = _read(counters)
+    peak = torch.cuda.max_memory_allocated()
+    cpu = _arrays_run(fluid, m, {k: v.cpu() for k, v in feed.items()},
+                      "cpu")()
+    unequal = [n for n in card if not torch.equal(card[n].cpu(), cpu[n])]
+    busy = _busy_rec(*_busy_share(card_run))
+    with mock.patch.dict(registry._LOWERINGS,
+                         shrink_rnn_memory=_shrink_keeps_the_step):
+        control = card_run()
+    control_unequal = [n for n in control
+                       if not torch.equal(control[n].cpu(), cpu[n])]
+    ok = not unequal and not any(launched.values()) and \
+        control_unequal == ["shrunk"]
+    rec = {"phase": "tensor_arrays", "ok": ok, "widths": w,
+           "ops": len(m.main.global_block().ops),
+           "outputs": {n: [list(v.shape), str(v.dtype)[6:]]
+                       for n, v in card.items()},
+           "runs": ARRAY_RUNS, "run_ms": run_ms, "peak_memory_bytes": peak,
+           "launches": launched, "unequal_to_cpu": unequal,
+           "control_shrink_keeps_the_step_on_the_card": {
+               "unequal_to_cpu": control_unequal,
+               "ok": control_unequal == ["shrunk"]},
+           "phase_seconds": time.perf_counter() - t0}
+    rec.update(busy)
+    emit(rec)
+    if not ok:
+        raise AssertionError("tensor_arrays failed: %s" % rec)
+    return launched
+
+
+def control_flow_phases(fluid, counters, add):
+    """The control-flow slice's phases, each with its launches added."""
+    with fluid.unique_name.guard():
+        add(phase_rnn_encoder_decoder(fluid, counters))
+    add(phase_while_loop(fluid, counters))
+    add(phase_switch_ifelse(fluid, counters))
+    add(phase_tensor_arrays(fluid, counters))
+
+
 def _path_numbers(s, path):
     """A kernel's numbers over a path's mix of cases (weighted means)."""
     w = s["weight"]
@@ -5633,13 +6147,20 @@ def main():
         return 2
 
     phase_build()
-    summary, max_err = phase_kernels()
     counters = _counters()
     launches = dict.fromkeys(counters, 0)
 
     def add(launched):
         for k, n in launched.items():
             launches[k] += n
+
+    if sys.argv[1:] == ["--control-flow"]:
+        # the control-flow slice's phases alone (no kernel line, no
+        # contract line)
+        control_flow_phases(fluid, counters, add)
+        emit({"phase": "control_flow_only", "launches": launches})
+        return 0
+    summary, max_err = phase_kernels()
 
     exe, scope = fluid.Executor(), fluid.Scope()   # CUDAPlace(0)
     _zero(counters)
@@ -5776,6 +6297,11 @@ def main():
     add(phase_stn_digits(fluid, counters))
     add(phase_word2vec_hsigmoid(fluid, counters))
     add(phase_nn_layers(fluid, counters))
+    # control flow and tensor arrays: the book's RNN encoder-decoder at the
+    # WMT-14 seq2seq's widths (one Adam launch a step), a While model
+    # served and trained, the Switch and IfElse programs, the array ops at
+    # BERT-base's widths
+    control_flow_phases(fluid, counters, add)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5815,7 +6341,8 @@ def main():
                          ("se_resnext50", "se_resnext50"),
                          ("train256_recipe", "train256_recipe"),
                          ("tensor_layers", "tensor_layers"),
-                         ("nn_layers", "nn_layers")] + \
+                         ("nn_layers", "nn_layers"),
+                         ("rnn_encoder_decoder", "rnn_encoder_decoder")] + \
                 [("zoo_" + m,) * 2 for m in ZOO_ADAM_CASES]:
             extra = summary.get((name, sub))
             if extra:

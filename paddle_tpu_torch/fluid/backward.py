@@ -207,6 +207,16 @@ def _append_grad_ops(block, op_path, start_grads, no_grad_set):
     for op in reversed(op_path):
         if op_registry.is_no_grad(op.type) and \
                 not op_registry.has_grad_maker(op.type):
+            # a gradient into a tensor-array op would vanish: the JAX
+            # package refuses it with this message
+            if op_registry.is_env_op(op.type) and \
+                    any(o in acc.produced for o in op.output_arg_names):
+                raise NotImplementedError(
+                    "append_backward: op %r is on the gradient path but "
+                    "tensor-array ops are not differentiable in the TPU "
+                    "build; express the loop with StaticRNN/DynamicRNN "
+                    "(lowered to one lax.scan, fully differentiable)"
+                    % op.type)
             continue
         if not any(o in acc.produced for o in op.output_arg_names):
             continue

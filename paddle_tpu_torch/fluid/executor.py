@@ -23,9 +23,19 @@ did for free is done here by a per-(program, fetch list) plan:
 ``run_steps`` runs a training program over stacked feeds, one eager step
 after another.
 
-Host ops (``feed`` and ``fetch`` here; ``save`` and ``load`` in io.py) run
-on the host through ``register_host_handler``, always, in their place in
-the block, as the JAX executor runs them between its device segments.
+Host ops (``feed``, ``fetch`` and ``print`` here; ``save`` and ``load`` in
+io.py) run on the host through ``register_host_handler``, always, in their
+place in the block, as the JAX executor runs them between its device
+segments.
+
+Control flow (``_BlockRunner``, the JAX executor's ``_BlockLowerer``): a
+while op runs its sub-block a trip at a time on a child env and reads its
+condition on the host once a trip (one device-to-host sync a trip); a
+conditional_block reads its predicate on the host and runs its sub-block
+or passes its outputs through. Every trip of a while draws what the first
+drew (the generator is set back at each trip), as the JAX package's body,
+traced once, does. The plan counts what a sub-block reads, and a
+``write_to_array`` op reads the array it writes.
 
 ``Executor()`` runs on ``CUDAPlace(0)`` and raises when there is no card;
 the CPU is used only when the caller passes ``CPUPlace()``.
@@ -42,10 +52,11 @@ from . import flags, framework
 from .core_types import to_torch_dtype
 from .framework import Variable, default_main_program
 from .interop import tensor_from_numpy
+from .ops.control_ops import NESTED_BOUND_MESSAGE, as_condition
 from .ops.grad_ops import record_forward
-from .ops.registry import (LoweringContext, group_key, is_host_op,
-                           lower_group, lower_op, mark_host_op,
-                           paired_forward)
+from .ops.registry import (CONTROL_OPS, LoweringContext, fold_const,
+                           group_key, is_host_op, lower_group, lower_op,
+                           lower_op_list, mark_host_op, paired_forward)
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard", "as_numpy",
            "register_host_handler"]
@@ -165,6 +176,117 @@ def _handle_feed(exe, op, st):
 @register_host_handler("fetch")
 def _handle_fetch(exe, op, st):
     st.fetch_results.append(exe._fetch(st.env, st.scope, op.input("X")[0]))
+
+
+@register_host_handler("print")
+def _handle_print(exe, op, st):
+    name = op.input("In")[0]
+    val = st.env.get(name, st.scope.get(name))
+    print("%s %s %s" % (op.attr("message", ""), name, as_numpy(val)))
+    outs = op.output("Out")
+    if outs:
+        st.env[outs[0]] = val
+
+
+class _BlockRunner(object):
+    """Runs the sub-block of a while or conditional_block op (registry
+    ``lower_op`` hands it the op) eagerly on a child env of the run's
+    values; a name the sub-block writes reaches the outer env only as an
+    output of the op (a while's X, a conditional_block's Out)."""
+
+    def __init__(self, program):
+        self.program = program
+
+    def run_control_op(self, op, env, ctx):
+        if op.type == "while":
+            self._while(op, env, ctx)
+        else:
+            self._conditional_block(op, env, ctx)
+
+    @staticmethod
+    def _snapshot(ctx, op):
+        state = ctx.generator.get_state() if ctx.generator is not None \
+            else None
+        ctx.ctrl_rng[op.attr("sub_block")] = state
+        return state
+
+    def _while(self, op, env, ctx):
+        """The carried names are the op's X that hold a value; a condition
+        the body does not carry comes back a 0-d bool. In a grad op's
+        replay a nested
+        while runs at most its max_trip_count trips, and a condition that
+        still holds after them makes its floating carries NaN (the JAX
+        executor's multiplicative poison)."""
+        sub = self.program.block(op.attr("sub_block"))
+        cond_name = op.input("Condition")[0]
+        ext = [n for n in op.input("X") if n in env]
+        bound = None
+        if ctx.grad_replay:
+            bound = int(op.attr("max_trip_count") or 0)
+            if not bound:
+                raise NotImplementedError(NESTED_BOUND_MESSAGE)
+        state = self._snapshot(ctx, op)
+        vals = [env[n] for n in ext]
+        cond = as_condition(env[cond_name])
+        trips = 0
+        while (bound is None or trips < bound) and bool(cond):
+            if state is not None:
+                ctx.generator.set_state(state)
+            inner = dict(env)
+            inner.update(zip(ext, vals))
+            lower_op_list(sub.ops, inner, ctx)
+            vals = [inner[n] for n in ext]
+            cond = as_condition(inner[cond_name])
+            trips += 1
+        if bound is not None and bool(cond):
+            vals = [v * float("nan") if isinstance(v, torch.Tensor) and
+                    v.is_floating_point() else v for v in vals]
+        env[cond_name] = cond
+        env.update(zip(ext, vals))
+
+    def _conditional_block(self, op, env, ctx):
+        """Run the sub-block when the predicate holds (or there is none);
+        else each output keeps its value, zeros of the sub-block's shape
+        for an output that has none yet."""
+        sub = self.program.block(op.attr("sub_block"))
+        self._snapshot(ctx, op)
+        conds = op.input("Cond")
+        outs = op.output("Out")
+        if not conds or bool(as_condition(env[conds[0]])):
+            inner = dict(env)
+            lower_op_list(sub.ops, inner, ctx)
+            env.update((n, inner[n]) for n in outs)
+            return
+        missing = [n for n in outs if n not in env]
+        if missing:
+            meta = {n: v.to("meta") if isinstance(v, torch.Tensor) else v
+                    for n, v in env.items()}
+            mctx = LoweringContext("meta", block_runner=self)
+            mctx.const_env = dict(ctx.const_env)
+            lower_op_list(sub.ops, meta, mctx)
+            for n in missing:
+                env[n] = torch.zeros(meta[n].shape, dtype=meta[n].dtype,
+                                     device=ctx.device)
+
+
+def _sub_block_reads(program, idx):
+    """Every name an op of block ``idx`` or of a block nested in it reads
+    (an array that write_to_array extends among them)."""
+    names = []
+    for op in program.block(idx).ops:
+        names.extend(_op_reads(op, program))
+    return names
+
+
+def _op_reads(op, program):
+    """The names op reads: its inputs, the array a write_to_array op
+    extends, and what the sub-block of a control op reads."""
+    names = [n for n in op.input_arg_names if n != "@EMPTY@"]
+    if op.type == "write_to_array":
+        names.extend(op.output_arg_names)
+    if op.type in CONTROL_OPS:
+        names.extend(_sub_block_reads(program, op.attr("sub_block")))
+    return names
 
 
 def _fetch_names(fetch_list):
@@ -312,12 +434,13 @@ class _Plan(object):
                     any(o in needed or persistable(o)
                         for o in op.output_arg_names):
                 kept_idx.append(i)
-                needed.update(n for n in op.input_arg_names if n != "@EMPTY@")
+                needed.update(_op_reads(op, program))
                 if i in pairs:
                     forced.add(pairs[i])
         kept_idx.reverse()
         pos = {i: k for k, i in enumerate(kept_idx)}
         kept = [ops[i] for i in kept_idx]
+        reads = [_op_reads(op, program) for op in kept]
         keep = set(fetch_names)
         # walking back: does the next op after step k that touches a name
         # read it? A name written again before any read (a second backward
@@ -327,14 +450,15 @@ class _Plan(object):
         for k in range(len(kept) - 1, -1, -1):
             op = kept[k]
             needed_after = lambda n: n in keep or read_next.get(n, False)
-            touched = set(op.input_arg_names) | set(op.output_arg_names)
+            touched = set(reads[k]) | set(op.output_arg_names)
             steps.append((op, [n for n in touched if not needed_after(n)]))
             live.append(frozenset(
                 slot for slot, names in op.outputs.items()
                 if any(needed_after(n) or persistable(n) for n in names)))
             read_next.update(dict.fromkeys(op.output_arg_names, False))
-            read_next.update(dict.fromkeys(op.input_arg_names, True))
+            read_next.update(dict.fromkeys(reads[k], True))
         self.steps, self.live = steps[::-1], live[::-1]
+        self.reads = reads
         # step of a grad op -> step of its forward op; step of a taped
         # forward op -> the union of its grad_of ops' need_grad flags ({}
         # for a paired grad op, which reads the forward op's outputs and no
@@ -468,7 +592,8 @@ class Executor(object):
         record until their grad_of consumes it, each run of grouped ops
         goes through its group lowering in one call, and each host op
         through its handler on the run's state ``st``."""
-        ctx = LoweringContext(self.device, gen, is_test=is_test)
+        ctx = LoweringContext(self.device, gen, is_test=is_test,
+                              block_runner=_BlockRunner(block.program))
         tape = {}
         with torch.no_grad():
             for k, (op, drop) in enumerate(plan.steps):
@@ -485,7 +610,15 @@ class Executor(object):
                         env.pop(n, None)
                     continue
                 for j in run:
-                    for n in plan.steps[j][0].input_arg_names:
+                    op_j = plan.steps[j][0]
+                    fold_const(op_j, ctx)
+                    if op_j.type in CONTROL_OPS:
+                        # a carried name may have no value yet
+                        for n in plan.reads[j]:
+                            if n not in env and scope.has(n):
+                                env[n] = self._read_state(scope, n, block)
+                        continue
+                    for n in op_j.input_arg_names:
                         if n not in env and n != "@EMPTY@":
                             env[n] = self._read_state(scope, n, block)
                 ctx.live_outputs = plan.live[k]

@@ -371,6 +371,27 @@ class Program(object):
     def block(self, index):
         return self.blocks[index]
 
+    @property
+    def num_blocks(self):
+        return len(self.blocks)
+
+    def create_block(self, parent_idx=None):
+        """Append a block whose parent is ``parent_idx`` (the current block
+        by default) and make it the current block: the sub-block of a
+        While, a Switch case or a StaticRNN step."""
+        prev = self.current_block_idx
+        parent = prev if parent_idx is None else parent_idx
+        b = Block(self, len(self.blocks), parent_idx=parent)
+        self.blocks.append(b)
+        self.current_block_idx = b.idx
+        self._bump_version()
+        return b
+
+    def rollback(self):
+        """Make the current block's parent the current block again."""
+        self.current_block_idx = self.current_block().parent_idx
+        self._bump_version()
+
     def list_vars(self):
         for b in self.blocks:
             for v in b.vars.values():

@@ -12,8 +12,8 @@ mul, ...) and the rest of the NN layers (the transposed and 3-D
 convolutions, 3-D and adaptive pooling, group, data and spectral norms,
 LRN, the resizes, the spatial transformer's affine_grid and
 grid_sampler, the sequence-shaped and pairwise layers, hsigmoid and
-sampled softmax), with the same signatures and the same ops, slots and
-attrs. switch_moe waits for ROADMAP Queue 1 item 7, spp and unpool for
+sampled softmax) and lod_reset, with the same signatures and the same
+ops, slots and attrs. switch_moe waits for ROADMAP Queue 1 item 7, spp and unpool for
 item 6: they raise."""
 import numpy as np
 
@@ -53,6 +53,7 @@ __all__ = [
     "im2sequence", "bilinear_tensor_product", "row_conv", "spectral_norm",
     "fsp_matrix", "similarity_focus", "tree_conv", "hsigmoid",
     "sampled_softmax_with_cross_entropy", "switch_moe", "spp", "unpool",
+    "lod_reset",
 ]
 
 
@@ -1401,6 +1402,24 @@ def affine_grid(theta, out_shape, name=None):
         attrs["output_shape"] = list(out_shape)
     helper.append_op(type="affine_grid", inputs=inputs,
                      outputs={"Output": [out]}, attrs=attrs)
+    return out
+
+
+def lod_reset(x, y=None, target_lod=None):
+    """Re-attach sequence structure (reference lod_reset_op). In the padded
+    layout this re-binds the length vector."""
+    helper = LayerHelper("lod_reset", input=x)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    inputs = {"X": [x]}
+    attrs = {}
+    if y is not None:
+        inputs["Y"] = [y]
+    elif target_lod is not None:
+        attrs["target_lod"] = list(target_lod)
+    else:
+        raise ValueError("lod_reset needs y or target_lod")
+    helper.append_op(type="lod_reset", inputs=inputs,
+                     outputs={"Out": [out]}, attrs=attrs)
     return out
 
 

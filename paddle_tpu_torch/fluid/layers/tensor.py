@@ -1,8 +1,8 @@
 """Tensor layers (the port's counterpart of
 ``paddle_tpu/fluid/layers/tensor.py``): variable and parameter creation,
 cast, concat, sums, assign (of a Variable or a numpy array), the fills,
-argmin, argmax, argsort, reverse, has_inf, has_nan, isfinite and range.
-``tensor_array_to_tensor`` comes with the tensor arrays."""
+argmin, argmax, argsort, reverse, has_inf, has_nan, isfinite, range and
+tensor_array_to_tensor."""
 import numpy as np
 
 from ..core_types import convert_dtype
@@ -11,6 +11,7 @@ from ..initializer import Constant
 from ..layer_helper import LayerHelper
 
 __all__ = [
+    "tensor_array_to_tensor",
     "create_tensor", "create_parameter", "create_global_var", "cast",
     "concat", "sums", "assign", "fill_constant_batch_size_like",
     "fill_constant", "argmin", "argmax", "argsort", "ones", "zeros",
@@ -224,3 +225,19 @@ def ones_like(x, out=None):
                      attrs={"shape": list(x.shape), "dtype": x.dtype,
                             "value": 1.0})
     return out
+
+
+def tensor_array_to_tensor(input, axis=1, name=None):
+    """Concat a tensor array into one tensor (reference
+    tensor_array_to_tensor_op.cc). Returns (out, out_index: per-entry sizes
+    along axis)."""
+    helper = LayerHelper("tensor_array_to_tensor", input=input, name=name)
+    out = helper.create_variable_for_type_inference(
+        getattr(input, "dtype", "float32"))
+    out_index = helper.create_variable_for_type_inference(
+        "int32", stop_gradient=True)
+    helper.append_op(type="tensor_array_to_tensor",
+                     inputs={"X": [input]},
+                     outputs={"Out": [out], "OutIndex": [out_index]},
+                     attrs={"axis": axis})
+    return out, out_index

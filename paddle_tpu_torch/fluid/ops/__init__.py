@@ -15,6 +15,9 @@ from . import metric_ops      # noqa: F401
 from . import nn_ops          # noqa: F401
 from . import misc_nn_ops     # noqa: F401
 from . import optimizer_ops   # noqa: F401
+from . import control_ops     # noqa: F401
+from . import array_ops       # noqa: F401
+from . import rnn_ops         # noqa: F401
 from . import grad_ops        # noqa: F401
 
 __all__ = ["register_lowering", "get_lowering", "has_lowering",

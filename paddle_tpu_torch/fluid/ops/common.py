@@ -10,6 +10,11 @@ def one(inputs, slot, idx=0):
     return lst[idx]
 
 
+def many(inputs, slot):
+    """Every value bound to an input slot (a list, empty if absent)."""
+    return list(inputs.get(slot) or [])
+
+
 def on_card(x):
     """The port's ``_use_pallas()`` for the flag-gated kernels (CE,
     LayerNorm backward, embedding grad): the tensor lies on a CUDA card."""

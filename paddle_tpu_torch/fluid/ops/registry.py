@@ -20,7 +20,17 @@ op's outputs (batch_norm_grad reads batch_norm's batch statistics).
 Randomness: where the JAX package folds a step key into per-op
 ``jax.random`` keys, the ``LoweringContext`` carries one
 ``torch.Generator`` on the run's device; ``next_rng`` hands it out.
+
+Control flow and tensor arrays: ``while`` and ``conditional_block`` run
+their sub-block through the executor's block runner (``ctx.block_runner``,
+executor.py ``_BlockRunner``); the tensor-array ops are env lowerings
+(``register_env_lowering``: ``fn(ctx, env, op)``, which read and write the
+run's values by name, an array being a Python list of tensors). An array
+index must be a constant that ``fold_const`` recovers from the program
+(fill_constant / increment chains), as in the JAX package, where
+everything inside jit is a tracer.
 """
+import numpy as np
 import torch
 
 __all__ = [
@@ -29,10 +39,14 @@ __all__ = [
     "register_grad_maker", "get_grad_maker", "has_grad_maker",
     "maker_wants_og", "register_paired_grad", "paired_forward",
     "mark_no_grad", "is_no_grad", "mark_host_op", "is_host_op",
-    "LoweringContext", "infer_outputs", "lower_op",
+    "register_env_lowering", "is_env_op", "OpProxy",
+    "LoweringContext", "infer_outputs", "lower_op", "lower_op_list",
 ]
 
 _LOWERINGS = {}
+_ENV_LOWERINGS = {}      # ops that read and write the run's env (arrays)
+# ops whose sub-block the executor's block runner runs
+CONTROL_OPS = ("while", "conditional_block")
 _GRAD_MAKERS = {}
 _OG_MAKERS = set()       # makers that take the og_avail 4th argument
 _NO_GRAD_OPS = set()     # ops with no gradient
@@ -50,9 +64,20 @@ class LoweringContext(object):
     grad op of the same forward op consumes it too (``retain_graph``), and
     the output slots of the running op that a later op or a fetch reads or
     that are persistable (``live_outputs``; None = all). The executor sets
-    the last three just before each op."""
+    the last three just before each op.
 
-    def __init__(self, device, generator=None, is_test=False):
+    For control flow: the runner of while / conditional_block sub-blocks
+    (``block_runner``), the generator state at each control op by its
+    sub-block (``ctrl_rng``, which a grad op's replay restores so that it
+    draws what the forward drew), whether this context replays a sub-block
+    for a gradient (``grad_replay``: a nested while then needs its
+    ``max_trip_count``), the scalar constants folded so far
+    (``const_env``: var name -> numpy value, which address tensor arrays),
+    and ``keyless``: a StaticRNN step's context, which draws as the JAX
+    package's keyless context does (one fixed stream for each seed)."""
+
+    def __init__(self, device, generator=None, is_test=False,
+                 block_runner=None):
         self.device = torch.device(device)
         self.generator = generator
         self.is_test = is_test
@@ -60,6 +85,11 @@ class LoweringContext(object):
         self.record = None
         self.retain_graph = False
         self.live_outputs = None
+        self.block_runner = block_runner
+        self.ctrl_rng = {}
+        self.grad_replay = False
+        self.const_env = {}
+        self.keyless = False
 
     def output_live(self, slot):
         """Is output ``slot`` of the running op read by a later op or a
@@ -70,11 +100,12 @@ class LoweringContext(object):
     def next_rng(self, seed=0):
         """Generator for the next random op. seed!=0 -> a fresh generator
         seeded with it, independent of the run's stream (the reference's
-        fixed-seed uniform_random semantics). None under shape inference,
-        where no values are drawn."""
+        fixed-seed uniform_random semantics); in a ``keyless`` context a
+        fresh generator seeded with seed, 0 too. None under shape
+        inference, where no values are drawn."""
         if self.device.type == "meta":
             return None
-        if seed:
+        if seed or self.keyless:
             g = torch.Generator(device=self.device)
             g.manual_seed(int(seed))
             return g
@@ -117,6 +148,22 @@ def lower_group(ops, env, ctx):
                for slot, names in op.inputs.items()} for op in ops]
     for op, outs in zip(ops, fn(ctx, inputs, [op.attrs for op in ops])):
         write_outputs(op, outs, env)
+
+
+def register_env_lowering(op_type, no_grad=True):
+    """Decorator: ``fn(ctx, env, op)`` for an op that reads and writes the
+    run's values by name (the tensor-array ops: an array is an op output
+    that is read, changed and written back)."""
+    def deco(fn):
+        _ENV_LOWERINGS[op_type] = fn
+        if no_grad:
+            _NO_GRAD_OPS.add(op_type)
+        return fn
+    return deco
+
+
+def is_env_op(op_type):
+    return op_type in _ENV_LOWERINGS
 
 
 def get_lowering(op_type):
@@ -183,8 +230,97 @@ def is_host_op(op_type):
     return op_type in _HOST_OPS
 
 
+class OpProxy(object):
+    """An op rebuilt from its ``to_dict`` form (the step ops a ``recurrent``
+    op carries in its ``sub_ops_desc`` attr)."""
+
+    __slots__ = ("type", "inputs", "outputs", "attrs")
+
+    def __init__(self, d):
+        self.type = d["type"]
+        self.inputs = d.get("inputs", {})
+        self.outputs = d.get("outputs", {})
+        self.attrs = d.get("attrs", {})
+
+    @property
+    def input_arg_names(self):
+        return [n for vs in self.inputs.values() for n in vs]
+
+    @property
+    def output_arg_names(self):
+        return [n for vs in self.outputs.values() for n in vs]
+
+    def attr(self, name, default=None):
+        return self.attrs.get(name, default)
+
+    def input(self, slot):
+        return self.inputs.get(slot, [])
+
+    def output(self, slot):
+        return self.outputs.get(slot, [])
+
+
+def fold_const(op, ctx):
+    """Carry scalar constants through a program's index arithmetic
+    (fill_constant, increment, assign, cast, scale) in ``ctx.const_env``;
+    any other writer of a folded name drops it. The JAX package's
+    ``_fold_const``: a while op drops the names its body writes, so an
+    array index that a loop changes is no constant."""
+    c = ctx.const_env
+    t = op.type
+    try:
+        if t == "fill_constant":
+            shape = tuple(op.attrs.get("shape") or (1,))
+            if int(np.prod(shape)) == 1:
+                c[op.output("Out")[0]] = np.asarray(
+                    op.attrs.get("value", 0.0)).reshape(shape)
+            else:
+                c.pop(op.output("Out")[0], None)
+        elif t == "increment":
+            src = op.input("X")[0]
+            if src in c:
+                c[op.output("Out")[0]] = c[src] + op.attrs.get("step", 1.0)
+            else:
+                c.pop(op.output("Out")[0], None)
+        elif t in ("assign", "cast", "scale"):
+            src = op.input("X")[0]
+            if src in c:
+                v = c[src]
+                if t == "scale":
+                    v = v * op.attrs.get("scale", 1.0) + \
+                        op.attrs.get("bias", 0.0)
+                c[op.output("Out")[0]] = v
+            else:
+                c.pop(op.output("Out")[0], None)
+        else:
+            for n in op.output_arg_names:
+                c.pop(n, None)
+    except Exception:
+        pass
+
+
+def lower_op_list(ops, env, ctx):
+    """Run ops one after another on env (a sub-block's, a StaticRNN
+    step's), folding constants as it goes."""
+    for op in ops:
+        fold_const(op, ctx)
+        lower_op(op, env, ctx)
+
+
 def lower_op(op, env, ctx):
-    """Run one op: read its inputs from env, write its outputs into env."""
+    """Run one op: read its inputs from env, write its outputs into env.
+    A while or conditional_block op goes to the block runner, an env op to
+    its env lowering."""
+    if op.type in CONTROL_OPS:
+        if ctx.block_runner is None:
+            raise NotImplementedError(
+                "%s op requires a block runner (the executor's)" % op.type)
+        ctx.block_runner.run_control_op(op, env, ctx)
+        return
+    env_fn = _ENV_LOWERINGS.get(op.type)
+    if env_fn is not None:
+        env_fn(ctx, env, op)
+        return
     inputs = {}
     for slot, names in op.inputs.items():
         inputs[slot] = [None if n == "@EMPTY@" else env[n] for n in names]

@@ -184,14 +184,18 @@ def replay(tm, fetch, inputs, before, after, vals):
         t = tensor_from_numpy(np.asarray(v)).to(to_torch_dtype(meta.dtype))
         return t.reshape(()) if meta.shape == () else t
 
-    # a generator for dropout's snapshot, which its grad op reads back
-    ctx = registry.LoweringContext("cpu", torch.Generator())
+    # a generator for dropout's snapshot, which its grad op reads back; a
+    # while or conditional_block op runs its sub-block as one op
+    ctx = registry.LoweringContext(
+        "cpu", torch.Generator(), block_runner=texecutor._BlockRunner(tm))
     tape, errs = {}, []
     for k, (op, _) in enumerate(plan.steps):
         if k in plan.in_run:
             continue
         run = plan.runs.get(k, (k,))
         ops = [plan.steps[j][0] for j in run]
+        for o in ops:
+            registry.fold_const(o, ctx)
         env = {n: value(n) for o in ops for n in o.input_arg_names
                if n != "@EMPTY@"}
         if len(run) > 1:
