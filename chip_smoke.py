@@ -7,6 +7,7 @@ toolkit:
     python3 chip_smoke.py --control-flow   # build, then phases 42-45 only
     python3 chip_smoke.py --sequences      # build, then phases 46-49 only
     python3 chip_smoke.py --recurrent      # build, then phases 49a-51 only
+    python3 chip_smoke.py --decoding       # build, then phases 52-55 only
 
 Phases, each printing one JSON line (any failure ends the script with a
 non-zero exit):
@@ -411,6 +412,43 @@ non-zero exit):
               lowering. Controls: cudnn_lstm's backward direction run
               forward on the card, and its input's gradient 0.1% too
               large there (which must be named the worst output).
+52. book_machine_translation - the Fluid book's machine translation
+              (tools/torch_decode_programs.py: an fc encoder, a DynamicRNN
+              decoder, Adam(5e-3)) at the WMT-14 seq2seq's widths
+              (dictionary 30,000, embedding and hidden 512, T 32, batch
+              64, f32): a window with one Adam launch a step over its 4
+              admitted parameters, busy share, host syncs a step; trained
+              2 steps, saved by save_persistables, loaded into a fresh
+              scope, and 4 beam-search requests (fluid.contrib's
+              BeamSearchDecoder: 8 sources of 2 rows, top-k 50, 32 steps,
+              then beam_search_decode): ms, tokens a second, no port
+              launch, device kernels and busy share, no host sync inside
+              the search.
+53. book_label_semantic_roles - the book's chapter 7 (eight ragged
+              features, depth 8 of dynamic_lstm, linear_chain_crf,
+              crf_decoding, SGD) at its widths (batch 10, sentences of 5-50
+              words): one warm step and 4 through Executor.run, busy share,
+              host syncs a step; 4 tagging requests (the is_test program
+              whose crf_decoding outputs the tags) from the trained scope.
+54. word2vec_nce - the book's word2vec with nce (dictionary 2,073, 10
+              negatives, batch 100): a window; the nce lowering's draws on
+              the card held by their invariants (labels first, in range,
+              the same on every call, another for another seed, logits and
+              cost against float64, uniform by chi-square).
+55. decode_lockstep - the three programs' steps in lockstep with the CPU
+              (every op replayed within 1e-4, ints exactly, losses within
+              1e-5; the card's nce drawing the CPU generator's negatives);
+              the beam and tagging requests replayed op by op from the
+              CPU's values, and both whole on the card against the CPU,
+              a beam's ids or a Viterbi path differing only after a
+              decision whose CPU candidates lie within 2^-20 of each
+              other (counted; a beam's ids exact and its scores within
+              1e-4 before its source's first). Controls, each named
+              the worst output: beam_search taking each row's best, not
+              the source's top 2; beam_search_decode following each
+              parent one step late; the CRF forward without its stop row;
+              Viterbi's last tag without stop; nce without the negatives'
+              bias (0 at the first step: its gradient is named).
 
 The kernel cases also time rows 1, 3, 8 and 11 at BERT-base's shapes
 (attention at batch 256, 12 heads, seq 128, D 64; LayerNorm on [32768,
@@ -425,12 +463,13 @@ tensor_chain's 3 fc weights (TENSOR_ADAM_CASES) and over nn_chain's LM
 head (NN_ADAM_CASES) and over the encoder-decoder's 6 admitted parameters
 (ENC_DEC_ADAM_CASES) and over sequence_chain's sequence_conv filter
 (SEQ_CHAIN_ADAM_CASES) and over rnn_chain's LSTMP weights
-(RNN_CHAIN_ADAM_CASES). Then it prints the card's
+(RNN_CHAIN_ADAM_CASES) and over the book MT's 4 admitted parameters
+(DEC_ADAM_CASES). Then it prints the card's
 name and power limit (nvidia-smi), one JSON line with every kernel's
 numbers (with a "bert_base" entry where a kernel runs at BERT-base's
 shapes, "se_resnext50", "train256_recipe", "tensor_layers",
-"nn_layers", "rnn_encoder_decoder", "sequence_chain" and "rnn_chain"
-ones for Adam,
+"nn_layers", "rnn_encoder_decoder", "sequence_chain", "rnn_chain" and
+"dec" ones for Adam,
 and a
 "zoo_<model>" one where a kernel runs in that zoo model), and last {"ok": true, "device": {...}}. It imports nothing of JAX or of the JAX package
 paddle_tpu.
@@ -1783,6 +1822,8 @@ def phase_kernels():
                      "sequence_chain")
     _adam_multi_case(K, gen, summary, max_err, failed, RNN_CHAIN_ADAM_CASES,
                      "rnn_chain")
+    _adam_multi_case(K, gen, summary, max_err, failed, DEC_ADAM_CASES,
+                     "book_machine_translation")
     _ce_cases(CE, gen, summary, max_err, failed)
     _ln_cases(LN, gen, summary, max_err, failed)
     _emb_cases(EG, gen, summary, max_err, failed)
@@ -2809,6 +2850,12 @@ def _cpu_step(fluid, main, state, feed, names):
     return dict(zip(names, got)), {n: scope.get(n) for n in state}
 
 
+def _op_name(op):
+    """An op's type, a grad_of op's with its forward's ("grad_of:nce")."""
+    return op.type + (":" + op.attr("fwd_type") if op.type == "grad_of"
+                      else "")
+
+
 def _replay_on_card(fluid, main, fetch, state, feed, vals, after,
                     scales=None):
     """Every op of the card's plan of the step on the card, each from the
@@ -2825,7 +2872,7 @@ def _replay_on_card(fluid, main, fetch, state, feed, vals, after,
     sums the parameters the optimizer just updated). An output named in
     `scales` is measured against the larger of its own size and its scale
     there (_lockstep_step: an output that cancels to rounding noise).
-    Returns {name: (op type, dtype, error)}."""
+    Returns {name: (op type (_op_name), dtype, error)}."""
     import torch
     from paddle_tpu_torch.fluid.core_types import to_torch_dtype
     from paddle_tpu_torch.fluid.interop import tensor_from_numpy
@@ -2888,7 +2935,7 @@ def _replay_on_card(fluid, main, fetch, state, feed, vals, after,
                     scale = scales.get(n)
                     if scale is None and n in after and n in state:
                         scale = fluid.executor.as_numpy(state[n])
-                    errs[n] = (o.type, str(env[n].dtype)[6:],
+                    errs[n] = (_op_name(o), str(env[n].dtype)[6:],
                                _rel_max(got, want, scale))
     return errs
 
@@ -6940,6 +6987,697 @@ def recurrent_phases(fluid, counters, add):
     add(phase_rnn_chain(fluid, counters))
 
 
+# ---- decoding: beam search, the linear-chain CRF, NCE ----
+
+# book_machine_translation: tools/torch_decode_programs.py's MT at its
+# WMT-14 widths (dictionary 30,000, embedding and hidden 512, T 32, batch
+# 64): a _window of DEC_STEPS with one Adam launch a step over the 4
+# parameters the kernel takes (DEC_ADAM_CASES), busy share, host syncs a
+# step; then DEC_TRAIN_STEPS steps, save_persistables, load_persistables
+# into a fresh scope and DEC_REQUESTS beam-search requests (MT_BEAM: 8
+# sources of 2 rows, top-k 50, 32 steps): ms, generated tokens a second,
+# port launches (none), device kernels and busy share a request, host
+# syncs inside the search (none).
+DEC_STEPS = 4
+DEC_TRAIN_STEPS = 2
+DEC_REQUESTS = 4
+DEC_ADAM_CASES = [((30000, 512), "float32", 2), ((512, 512), "float32", 2)]
+DEC_ADAM_TENSORS = sum(n for _, _, n in DEC_ADAM_CASES)
+# book_label_semantic_roles: the book's chapter 7 at its widths (SRL:
+# batch 10, sentences of 5-50 words, depth 8, SGD: no port kernel): one
+# warm step and SRL_STEPS through Executor.run (each batch its own T),
+# busy share, host syncs a step; DEC_REQUESTS tagging requests from the
+# trained scope (the is_test program whose crf_decoding outputs the tags,
+# tool.srl_tagger).
+SRL_STEPS = 4
+# word2vec_nce: a _window of W2V_NCE_STEPS at the book's widths (batch
+# 100, no port kernel); the nce lowering's draws on the card held by their
+# invariants (NCE_REL_MAX against float64, chi-square p > 1e-4 on
+# SAMPLE_CHI_DRAWS draws).
+W2V_NCE_STEPS = 4
+NCE_REL_MAX = 1e-5
+# decode_lockstep: each program's DEC_PARITY_STEPS steps in lockstep with
+# the CPU (_lockstep: every op replayed within RESNET_OP_TOL, ints
+# exactly; losses within OPT_LOSS_REL_MAX; the card's nce takes the CPU
+# generator's negatives, as its invariants are held in word2vec_nce); the
+# beam-search and tagging requests replayed op by op; and both requests
+# whole on the card against the CPU, where a beam's ids or a Viterbi path
+# may differ only after a decision whose CPU candidates lie within
+# NEAR_TIE_REL of each other (counted), and a beam's ids are exact and its
+# scores within RESNET_OP_TOL before its source's first such decision.
+DEC_PARITY_STEPS = {"book_machine_translation": 1,
+                    "book_label_semantic_roles": 2, "word2vec_nce": 3}
+NEAR_TIE_REL = 2.0 ** -20
+
+
+def _dec_tool():
+    return _load_tool("torch_decode_programs")
+
+
+def _beam_ops(program):
+    return [op for op in program.global_block().ops
+            if op.type == "beam_search"]
+
+
+def _decode_request(fluid, dec, exe, scope, feed, extra=()):
+    """One request: {name: numpy} of ids, scores, sentences and `extra`."""
+    names = [dec.ids.name, dec.scores.name, dec.sentences.name] + \
+        list(extra)
+    return dict(zip(names, exe.run(dec.main, feed=feed, fetch_list=names,
+                                   scope=scope)))
+
+
+def _serve_requests(fluid, counters, program, scope, feeds, fetch, tokens):
+    """`feeds` requests of `program` on the card (fetching `fetch`), each
+    timed, with every port launch counted; busy share, device kernels and
+    host syncs of one more. `tokens`: the tokens a request makes (the beam
+    search's) or labels (the CRF's)."""
+    import torch
+    exe = fluid.Executor()
+    exe.run(program, feed=feeds[0], fetch_list=fetch, scope=scope)
+    torch.cuda.synchronize()
+    _zero(counters)
+    ms = []
+    for f in feeds:
+        t0 = time.perf_counter()
+        exe.run(program, feed=f, fetch_list=fetch, scope=scope,
+                return_numpy=False)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launched = _read(counters)
+    wall, busy, by_kind = _busy_share(lambda: exe.run(
+        program, feed=feeds[0], fetch_list=fetch, scope=scope,
+        return_numpy=False))
+    _, syncs = _sync_places(lambda: exe.run(
+        program, feed=feeds[0], fetch_list=fetch, scope=scope,
+        return_numpy=False))
+    mean = sum(ms) / len(ms)
+    rec = {"requests": len(feeds), "ms_a_request": ms, "ms_mean": mean,
+           "tokens_a_request": tokens,
+           "tokens_per_s": tokens / mean * 1e3,
+           "port_launches": launched,
+           "device_kernels_a_request": sum(c for _, c in by_kind.values()),
+           "busy": _busy_rec(wall, busy, by_kind),
+           "host_syncs_a_request": len(syncs), "host_sync_places": syncs,
+           # those in the port's lowerings, not the executor's feed copies
+           "host_syncs_in_the_search": sum(
+               "paddle_tpu_torch/" in p and "/executor.py" not in p
+               for p in syncs)}
+    rec["ok"] = not any(launched.values()) and \
+        not rec["host_syncs_in_the_search"]
+    return rec
+
+
+def phase_book_machine_translation(fluid, counters):
+    """The book's MT at the WMT-14 widths: a _window (one Adam launch a
+    step over its 4 admitted parameters), busy share, host syncs a step,
+    then trained, saved, loaded into a fresh scope and served
+    DEC_REQUESTS beam-search requests. Returns the window's launches."""
+    import shutil
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import adam_kernel
+    tool = _dec_tool()
+    t0 = time.perf_counter()
+    w = tool.MT
+    m = tool.book_machine_translation(fluid, seed=SEED)
+    block = m.main.global_block()
+    admitted = sorted(op.input("Param")[0] for op in block.ops
+                      if op.type == "adam" and adam_kernel.adam_ok(
+                          tuple(block.var(op.input("Param")[0]).shape)))
+    stacked = _stack_feeds([tool.mt_batch(SEED + k)
+                            for k in range(DEC_STEPS + 1)])
+    launched = _window(
+        "book_machine_translation", fluid, counters, m[:3],
+        {k: v[:1] for k, v in stacked.items()},
+        {k: v[1:] for k, v in stacked.items()}, DEC_STEPS,
+        dict(dict.fromkeys(counters, 0), adam=1), DEC_ADAM_TENSORS,
+        {"build_seconds": time.perf_counter() - t0, "card": _card(),
+         "widths": w, "ops": len(block.ops),
+         "step_ops": len(m.main.block(1).ops),
+         "adam_admitted": {n: list(block.var(n).shape) for n in admitted}},
+        {"examples": w["batch"], "tokens": w["batch"] * w["seq"]})
+    t0 = time.perf_counter()
+    results = {"busy": _busy_named(fluid, m, tool.mt_batch(SEED + 50)),
+               "step_host_syncs": _step_syncs(fluid, m, stacked)}
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(m.startup, scope=scope)
+    exe.run_steps(m.main, feed={k: v[:DEC_TRAIN_STEPS]
+                                for k, v in stacked.items()},
+                  n_steps=DEC_TRAIN_STEPS, fetch_list=[m.loss], scope=scope)
+    root = os.path.join(IO_DIR, "book_machine_translation")
+    shutil.rmtree(root, ignore_errors=True)
+    t1 = time.perf_counter()
+    with fluid.scope_guard(scope):
+        fluid.io.save_persistables(exe, root, main_program=m.main)
+    saved = time.perf_counter() - t1
+    served = fluid.Scope()
+    t1 = time.perf_counter()
+    with fluid.scope_guard(served):
+        fluid.io.load_persistables(exe, root, main_program=m.main)
+    loaded = time.perf_counter() - t1
+    size = _artifact_bytes(root)
+    shutil.rmtree(root, ignore_errors=True)
+    same = all(torch.equal(served.get(n), scope.get(n)) for n in
+               ("src_emb", "tgt_emb", "proj", "dec_fc", "proj.b"))
+    del exe, scope
+    beam = tool.MT_BEAM
+    dec = tool.mt_decoder(fluid)
+    feeds = [tool.mt_request(SEED + 60 + k) for k in range(DEC_REQUESTS)]
+    rows = beam["sources"] * beam["beam"]
+    rec = _serve_requests(fluid, counters, dec.main, served, feeds,
+                          [dec.ids, dec.scores, dec.sentences],
+                          rows * beam["max_len"])
+    out = _decode_request(fluid, dec, fluid.Executor(), served, feeds[0])
+    ids, scores, sent = (out[n] for n in (dec.ids.name, dec.scores.name,
+                                          dec.sentences.name))
+    rec.update({
+        "beam": beam, "ops": len(dec.main.global_block().ops),
+        "beam_search_ops": len(_beam_ops(dec.main)),
+        "sources_per_s": beam["sources"] / rec["ms_mean"] * 1e3,
+        "save_seconds": saved, "load_seconds": loaded,
+        "checkpoint_bytes": size, "loaded_equal_saved": same,
+        "ids_shape": list(ids.shape), "sentences_shape": list(sent.shape),
+        "ids_in_top_k": bool(((ids >= 0) & (ids < beam["topk"])).all()),
+        "scores_finite": bool(np.isfinite(scores).all())})
+    rec["ok"] = rec["ok"] and same and rec["ids_in_top_k"] and \
+        rec["scores_finite"] and \
+        list(ids.shape) == [rows, beam["max_len"], 1] and \
+        list(sent.shape) == [rows, beam["max_len"]]
+    results["beam_search_requests"] = rec
+    failed = [k for k, r in results.items() if not r.get("ok", True)]
+    emit({"phase": "book_machine_translation_decode", "ok": not failed,
+          "card": _card(), "results": results,
+          "phase_seconds": time.perf_counter() - t0})
+    if failed:
+        raise AssertionError("book_machine_translation: %s failed" % failed)
+    return launched
+
+
+def phase_book_label_semantic_roles(fluid, counters):
+    """The book's SRL at its widths: SRL_STEPS ragged batches through
+    Executor.run (no port kernel), busy share, host syncs a step, and
+    DEC_REQUESTS tagging requests (crf_decoding's tags) from the trained
+    scope. Returns the window's launches."""
+    import numpy as np
+    tool = _dec_tool()
+    t0 = time.perf_counter()
+    w = tool.SRL
+    m = tool.book_label_semantic_roles(fluid, seed=SEED)
+    block = m.main.global_block()
+    draws = [tool.srl_batch(SEED + k) for k in range(SRL_STEPS + 1)]
+    launched, scope = _ragged_window(
+        "book_label_semantic_roles", fluid, counters, m, draws[0],
+        draws[1:], "word_data", dict.fromkeys(counters, 0),
+        {"widths": w, "ops": len(block.ops),
+         "lstm_ops": sum(op.type == "dynamic_lstm" for op in block.ops),
+         "build_seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    results = {"busy": _busy_named(fluid, m, draws[1]),
+               "step_host_syncs": _step_syncs(
+                   fluid, m, _stack_feeds([draws[1], draws[1]]))}
+    test = tool.srl_tagger(m)
+    feeds = [tool.srl_batch(SEED + 60 + k) for k in range(DEC_REQUESTS)]
+    real = sum(int(f["word_data@LEN"].sum()) for f in feeds) / len(feeds)
+    rec = _serve_requests(fluid, counters, test, scope, feeds, [m.out],
+                          real)
+    out, = fluid.Executor().run(test, feed=feeds[0], fetch_list=[m.out],
+                                scope=scope)
+    rec.update({"path_shape": list(out.shape),
+                "tags_in_range": bool(((out >= 0) &
+                                       (out < w["label_dict"])).all())})
+    rec["ok"] = rec["ok"] and rec["tags_in_range"] and \
+        list(out.shape) == list(feeds[0]["word_data"].shape[:2])
+    results["tagging_requests"] = rec
+    failed = [k for k, r in results.items() if not r.get("ok", True)]
+    emit({"phase": "book_label_semantic_roles_decode", "ok": not failed,
+          "card": _card(), "results": results,
+          "phase_seconds": time.perf_counter() - t0})
+    if failed:
+        raise AssertionError("book_label_semantic_roles: %s failed"
+                             % failed)
+    return launched
+
+
+def _nce_draws_check(tool):
+    """The nce lowering on the card at word2vec_nce's shapes: the labels
+    first, the negatives in [0, V), the same draw on every call and
+    another for another seed, SampleLogits the picked rows' products plus
+    biases and Cost the NCE formula over SampleLogits (each within
+    NCE_REL_MAX of float64), the negatives uniform (chi-square p > 1e-4
+    on SAMPLE_CHI_DRAWS draws); ms a call. Returns (readings, ok)."""
+    import math
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.fluid.ops import decode_ops, registry
+    w = tool.W2V
+    b, d, v = w["batch"], w["hidden"], w["dict_size"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 5)
+    ins = {"Input": [torch.rand(b, d, generator=gen, device="cuda")],
+           "Label": [torch.randint(0, v, (b, 1), generator=gen,
+                                   device="cuda")],
+           "Weight": [torch.randn(v, d, generator=gen, device="cuda") * 0.05],
+           "Bias": [torch.randn(v, generator=gen, device="cuda") * 0.05]}
+    attrs = {"num_neg_samples": 10, "seed": 12345, "num_total_classes": v}
+    ctx = registry.LoweringContext("cuda")
+    lower = registry.get_lowering("nce")
+    out, again = lower(ctx, ins, attrs), lower(ctx, ins, attrs)
+    other = lower(ctx, ins, dict(attrs, seed=54321))
+    labels = out["SampleLabels"][0]
+    x64, w64, b64 = (ins[k][0].double() for k in ("Input", "Weight",
+                                                   "Bias"))
+    picked = (x64[:, None, :] * w64[labels]).sum(-1) + b64[labels]
+    logits = out["SampleLogits"][0].double()
+    log_q = -math.log(v)
+    cost = (torch.nn.functional.softplus(-(logits[:, 0] - log_q)) +
+            torch.nn.functional.softplus(logits[:, 1:] - log_q).sum(1))
+    drawn = decode_ops.nce_negatives("cuda", 12345, SAMPLE_CHI_DRAWS // 10,
+                                     10, v).reshape(-1).cpu().numpy()
+    rec = {"rows": b, "classes": v, "negatives": 10,
+           "labels_first": bool(torch.equal(labels[:, :1],
+                                             ins["Label"][0])),
+           "in_range": bool(((labels >= 0) & (labels < v)).all()),
+           "same_every_call": all(torch.equal(out[s][0], again[s][0])
+                                  for s in out),
+           "other_seed_differs": not torch.equal(
+               other["SampleLabels"][0], labels),
+           "logits_rel_err": float((logits - picked).abs().max() /
+                                   picked.abs().max()),
+           "cost_rel_err": float((out["Cost"][0].double().reshape(-1) -
+                                  cost).abs().max() / cost.abs().max()),
+           "uniform_p": _chi_square_p(drawn, np.full(v, 1.0 / v)),
+           "nce_ms": time_ms(lambda: lower(ctx, ins, attrs), iters=10,
+                             warmup=2)}
+    ok = rec["labels_first"] and rec["in_range"] and \
+        rec["same_every_call"] and rec["other_seed_differs"] and \
+        rec["logits_rel_err"] <= NCE_REL_MAX and \
+        rec["cost_rel_err"] <= NCE_REL_MAX and rec["uniform_p"] > 1e-4
+    return rec, ok
+
+
+def phase_word2vec_nce(fluid, counters):
+    """The book's word2vec with NCE: a _window (no port kernel) and the
+    nce draws' invariants on the card. Returns the window's launches."""
+    tool = _dec_tool()
+    t0 = time.perf_counter()
+    prog = tool.word2vec_nce(fluid, seed=SEED)
+    batch = tool.W2V["batch"]
+    stacked = _stack_feeds([tool.w2v_batch(SEED + k)
+                            for k in range(W2V_NCE_STEPS + 1)])
+    launched = _window(
+        "word2vec_nce", fluid, counters, prog[:3],
+        {k: v[:1] for k, v in stacked.items()},
+        {k: v[1:] for k, v in stacked.items()}, W2V_NCE_STEPS,
+        dict.fromkeys(counters, 0), None,
+        {"build_seconds": time.perf_counter() - t0, "card": _card(),
+         "batch": batch, "widths": tool.W2V,
+         "ops": len(prog.main.global_block().ops)}, {"examples": batch})
+    t0 = time.perf_counter()
+    rec, ok = _nce_draws_check(tool)
+    emit({"phase": "word2vec_nce_draws", "ok": ok, "card": _card(),
+          "results": rec, "phase_seconds": time.perf_counter() - t0})
+    if not ok:
+        raise AssertionError("word2vec_nce: the draws failed %s" % rec)
+    return launched
+
+
+def _on_cpu_draws(bias_on_negatives=True):
+    """nce on the card drawing the negatives that the CPU's generator
+    draws for the same seed and batch (the lockstep's teacher-forced
+    draws); without `bias_on_negatives` (a control) the negatives' logits
+    lack their bias. CPU tensors take the real lowering."""
+    from paddle_tpu_torch.fluid.ops import decode_ops
+
+    def lower(ctx, inputs, attrs):
+        x, w = inputs["Input"][0], inputs["Weight"][0]
+        if not x.is_cuda:
+            return decode_ops._nce(ctx, inputs, attrs)
+        neg = decode_ops.nce_negatives(
+            "cpu", attrs.get("seed", 12345) or 12345, x.shape[0],
+            attrs.get("num_neg_samples", 10), w.shape[0]).to(x.device)
+        label, bias = inputs["Label"][0], inputs["Bias"][0]
+        if bias_on_negatives:
+            return decode_ops.nce_forward(x, label, w, bias, neg)
+        out = decode_ops.nce_forward(x, label, w, None, neg)
+        logits = out["SampleLogits"][0]
+        pos = logits[:, 0] + bias.reshape(-1)[label.reshape(-1).long()]
+        out["SampleLogits"] = [logits.clone()]
+        out["SampleLogits"][0][:, 0] = pos
+        out["Cost"] = [decode_ops.nce_cost(pos, logits[:, 1:], w.shape[0])]
+        return out
+    return lower
+
+
+def _per_row_top1(ctx, inputs, attrs):
+    """beam_search on the card taking each row's own best candidate, not
+    the top beam_size of the source's rows (a control). CPU tensors take
+    the real lowering."""
+    import torch
+    from paddle_tpu_torch.fluid.ops import decode_ops
+    scores = inputs["scores"][0]
+    if not scores.is_cuda:
+        return decode_ops._beam_search(ctx, inputs, attrs)
+    total = scores + inputs["pre_scores"][0]
+    val, idx = total.max(dim=1)
+    return {"selected_ids": [idx.reshape(-1, 1)],
+            "selected_scores": [val.reshape(-1, 1)],
+            "parent_idx": [torch.arange(total.shape[0],
+                                        device=scores.device)]}
+
+
+def _backtrack_one_step_late(ctx, inputs, attrs):
+    """beam_search_decode on the card following each parent one step late
+    (a control). CPU tensors take the real lowering."""
+    import torch
+    from paddle_tpu_torch.fluid.ops import decode_ops
+    ids, parents = inputs["Ids"][0], inputs["ParentIdx"][0]
+    if not ids.is_cuda:
+        return decode_ops._beam_search_decode(ctx, inputs, attrs)
+    t, bw = parents.shape[0], parents.shape[1]
+    ids2 = ids.reshape(t, bw)
+    pos = prev = torch.arange(bw, device=ids.device)
+    toks = [None] * t
+    for s in reversed(range(t)):
+        toks[s] = ids2[s][prev]
+        prev, pos = pos, parents[s].long()[pos]
+    return {"SentenceIds": [torch.stack(toks, dim=1).long()],
+            "SentenceScores": inputs["Scores"]}
+
+
+def _stop_row_zeroed(tr):
+    """The transition [n + 2, n] with its stop row (row 1) zeroed."""
+    import torch
+    mask = torch.ones_like(tr[:, :1])
+    mask[1] = 0.0
+    return tr * mask
+
+
+def _ll_without_stop(e, tr, label, lens):
+    """path - logZ with logZ's forward left without the stop row (the path
+    score keeps it)."""
+    from paddle_tpu_torch.fluid.ops import decode_ops
+    e, tr = e.float(), tr.float()
+    return decode_ops.crf_path_score(e, tr, label, lens) - \
+        decode_ops.crf_log_z(e, _stop_row_zeroed(tr), lens)
+
+
+def _crf_without_stop(ctx, inputs, attrs):
+    """linear_chain_crf on the card whose forward leaves out the stop row
+    (a control). CPU tensors take the real lowering."""
+    from paddle_tpu_torch.fluid.ops import decode_ops
+    outs = decode_ops._linear_chain_crf(ctx, inputs, attrs)
+    e, tr, label, lens = decode_ops._crf_operands(inputs)
+    if e.is_cuda:
+        outs["LogLikelihood"] = [_ll_without_stop(e, tr, label, lens)
+                                 .reshape(-1, 1)]
+    return outs
+
+
+def _crf_grad_without_stop(ctx, inputs, attrs):
+    """linear_chain_crf_grad on the card by autograd over the forward
+    without the stop row (the control's gradient). CPU tensors take the
+    real lowering."""
+    import torch
+    from paddle_tpu_torch.fluid.ops import decode_ops
+    e, tr, label, lens = decode_ops._crf_operands(inputs)
+    if not e.is_cuda:
+        return decode_ops._linear_chain_crf_grad(ctx, inputs, attrs)
+    cot = inputs["LL@GRAD"][0].reshape(-1).float().expand(e.shape[0])
+    with torch.enable_grad():
+        el = e.detach().float().requires_grad_(True)
+        tl = tr.detach().float().requires_grad_(True)
+        de, dt = torch.autograd.grad(_ll_without_stop(el, tl, label, lens),
+                                     (el, tl), cot)
+    return {"Emission@GRAD": [de.to(e.dtype)],
+            "Transition@GRAD": [dt.to(tr.dtype)]}
+
+
+def _viterbi_without_stop(ctx, inputs, attrs):
+    """crf_decoding on the card taking its last tag without the stop row
+    (a control). CPU tensors take the real lowering."""
+    from paddle_tpu_torch.fluid.ops import decode_ops
+    e = inputs["Emission"][0]
+    if not e.is_cuda:
+        return decode_ops._crf_decoding(ctx, inputs, attrs)
+    b, t = e.shape[0], e.shape[1]
+    lens = decode_ops._lengths((inputs.get("Length") or [None])[0], b, t,
+                               e.device)
+    path = decode_ops.viterbi(
+        e.float(), _stop_row_zeroed(inputs["Transition"][0].float()), lens)
+    label = (inputs.get("Label") or [None])[0]
+    if label is not None:
+        path = (path == label.reshape(b, t).long()).long()
+    return {"ViterbiPath": [path]}
+
+
+def _named_miss(rec, passed, dtype, op_types):
+    """Did a one-step control fail, with an output of one of `op_types`
+    the worst of `dtype` in its replay?"""
+    worst = rec["worst_op"][0].get(dtype)
+    return not passed and worst is not None and worst[1] in op_types
+
+
+def _replay_program(fluid, program, fetch, state, feed):
+    """Every op of `program` (no training step: the state stays) replayed
+    on the card from the CPU's values: (readings, ok, the CPU's values)."""
+    names = _step_names(program)
+    vals, _ = _cpu_step(fluid, program, state, feed, names)
+    errs = _replay_on_card(fluid, program, fetch, state, feed, vals, state)
+    ok, worst = _op_verdict(errs)
+    return {"worst_op": [worst], "outputs": len(errs),
+            "op_tol": RESNET_OP_TOL}, ok, vals
+
+
+def _beam_near_ties(dec, vals, feed, beam):
+    """[steps, sources] bools: at that step the CPU's candidates of that
+    source that decide its selections (its top beam_size + 1 totals)
+    include two within NEAR_TIE_REL of each other."""
+    import numpy as np
+    def value(n):
+        return np.asarray(vals[n] if n in vals else feed[n], np.float64)
+    ties = []
+    for op in _beam_ops(dec.main):
+        total = value(op.input("scores")[0]) + \
+            value(op.input("pre_scores")[0])
+        top = -np.sort(-total.reshape(total.shape[0] // beam, -1),
+                       axis=1)[:, :beam + 1]
+        gaps = top[:, :-1] - top[:, 1:]
+        ties.append((gaps <= NEAR_TIE_REL * np.abs(top[:, :-1])).any(1))
+    return np.array(ties)
+
+
+def _clean_steps(ties, beam):
+    """Each source's steps before its first near tie at the CPU, and a
+    [rows, steps] mask of them."""
+    import numpy as np
+    steps, sources = ties.shape
+    clean = [int(np.argmax(ties[:, g])) if ties[:, g].any() else steps
+             for g in range(sources)]
+    mask = np.zeros((sources * beam, steps), bool)
+    for g, n in enumerate(clean):
+        mask[g * beam:(g + 1) * beam, :n] = True
+    return clean, mask
+
+
+def _compare_beams(card, cpu, ties, beam):
+    """A source whose card ids first differ from the CPU's at a step
+    where the CPU's candidates tie within rounding is excused from there
+    on (its ids before its first near tie are therefore equal): (excused
+    places, unexcused sources)."""
+    import numpy as np
+    card = card.reshape(card.shape[0], -1)
+    cpu = cpu.reshape(cpu.shape[0], -1)
+    excused, bad = [], []
+    for g in range(ties.shape[1]):
+        rows = slice(g * beam, (g + 1) * beam)
+        diff = np.nonzero((card[rows] != cpu[rows]).any(0))[0]
+        if not diff.size:
+            continue
+        s = int(diff[0])
+        (excused if ties[s, g] else bad).append([g, s])
+    return excused, bad
+
+
+def _viterbi_margins(emission, transition, lens):
+    """Per row, the least gap between the CPU's best and second-best
+    candidates over the decisions its Viterbi path takes (each step's
+    predecessor of the path's tag, and the last tag), relative to the
+    larger, in float64."""
+    import numpy as np
+    e = np.asarray(emission, np.float64)
+    tr = np.asarray(transition, np.float64)
+    margins = []
+    for b in range(e.shape[0]):
+        n = max(int(lens[b]), 1)
+        alpha, gaps, bps = tr[0] + e[b, 0], [], []
+        for t in range(1, n):
+            s = alpha[:, None] + tr[2:]
+            bps.append(s)
+            alpha = s.max(0) + e[b, t]
+        fin = np.sort(alpha + tr[1])[::-1]
+        gaps.append((fin[0] - fin[1]) / max(abs(fin[0]), 1e-30))
+        tag = int(np.argmax(alpha + tr[1]))
+        for s in reversed(bps):
+            col = np.sort(s[:, tag])[::-1]
+            gaps.append((col[0] - col[1]) / max(abs(col[0]), 1e-30))
+            tag = int(np.argmax(s[:, tag]))
+        margins.append(min(gaps))
+    return np.array(margins)
+
+
+def phase_decode_lockstep(fluid):
+    """The three decoding programs in lockstep with the CPU, the beam and
+    tagging requests replayed op by op and run whole, and the five
+    controls (checks: no launch counted)."""
+    import numpy as np
+    import torch
+    from unittest import mock
+    from paddle_tpu_torch.fluid.ops import registry
+    tool = _dec_tool()
+    t0 = time.perf_counter()
+    results = {}
+    patch = lambda **kw: mock.patch.dict(registry._LOWERINGS, **kw)
+    # the book's MT: training steps, then the beam search from the CPU's
+    # startup state
+    mt = tool.book_machine_translation(fluid, seed=SEED)
+    feeds = [tool.mt_batch(SEED + 200 + k)
+             for k in range(DEC_PARITY_STEPS["book_machine_translation"])]
+    _, rec, ok = _lockstep(fluid, mt[:3], feeds)
+    results["book_machine_translation"] = dict(rec, ok=ok)
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(mt.startup, scope=scope)
+    beam = tool.MT_BEAM
+    dec = tool.mt_decoder(fluid)
+    state = {n: scope.get(n) for n, v in dec.main.global_block().vars.items()
+             if v.persistable and scope.get(n) is not None}
+    feed = tool.mt_request(SEED + 210)
+    fetch = [dec.ids.name, dec.scores.name, dec.sentences.name]
+    rec, ok, vals = _replay_program(fluid, dec.main, fetch, state, feed)
+    results["beam_search_replayed"] = dict(rec, ok=ok)
+    for name, lowering, op_type in (
+            ("beam_search_top_1_of_each_row", _per_row_top1, "beam_search"),
+            ("beam_search_decode_one_step_late", _backtrack_one_step_late,
+             "beam_search_decode")):
+        with patch(**{op_type: lowering}):
+            rec, passed, _ = _replay_program(fluid, dec.main, fetch, state,
+                                             feed)
+        results["control_" + name] = dict(rec, ok=_named_miss(
+            rec, passed, "int64", (op_type,)))
+    card_scope = fluid.Scope()
+    for n, t in state.items():
+        card_scope.set(n, t.to("cuda", copy=True))
+    card = _decode_request(fluid, dec, fluid.Executor(), card_scope, feed)
+    ties = _beam_near_ties(dec, vals, feed, beam["beam"])
+    ids = [a.reshape(a.shape[0], -1) for a in (
+        card[dec.ids.name], np.asarray(vals[dec.ids.name]))]
+    scores = [a.reshape(a.shape[0], -1) for a in (
+        card[dec.scores.name], np.asarray(vals[dec.scores.name]))]
+    excused, bad = _compare_beams(ids[0], ids[1], ties, beam["beam"])
+    # before a source's first near tie its ids are held exactly and its
+    # scores within the float tolerance; after it, only a difference that
+    # starts at a non-tie is caught
+    clean, mask = _clean_steps(ties, beam["beam"])
+    clean_rel = _rel_max(scores[0][mask], scores[1][mask]) \
+        if mask.any() else 0.0
+    same = ~(ids[0] != ids[1]).any(1)
+    score_rel = _rel_max(scores[0][same], scores[1][same]) \
+        if same.any() else 0.0
+    tol = RESNET_OP_TOL["float32"]
+    results["beam_search_whole_request"] = {
+        "decisions": int(ties.size),
+        "near_tie_places_at_the_cpu": int(ties.sum()),
+        "near_tie_rel": NEAR_TIE_REL,
+        "steps_before_each_sources_first_near_tie": clean,
+        "ids_equal_before_the_first_near_tie": bool(
+            (ids[0][mask] == ids[1][mask]).all()),
+        "scores_rel_err_before_the_first_near_tie": clean_rel,
+        "sources_differing_after_a_near_tie": excused,
+        "sources_differing_otherwise": bad,
+        "rows_with_equal_ids": int(same.sum()),
+        "scores_rel_err_on_equal_rows": score_rel,
+        "ok": not bad and sum(clean) > 0 and clean_rel <= tol and
+        score_rel <= tol and bool((ids[0][mask] == ids[1][mask]).all())}
+    del scope, card_scope, state, vals
+    torch.cuda.empty_cache()
+    # the book's SRL: training steps, the controls, the crf_decoding
+    # request whole
+    srl = tool.book_label_semantic_roles(fluid, seed=SEED)
+    feeds = [tool.srl_batch(SEED + 220 + k)
+             for k in range(DEC_PARITY_STEPS["book_label_semantic_roles"])]
+    _, rec, ok = _lockstep(fluid, srl[:3], feeds)
+    results["book_label_semantic_roles"] = dict(rec, ok=ok)
+    with patch(linear_chain_crf=_crf_without_stop,
+               linear_chain_crf_grad=_crf_grad_without_stop):
+        _, rec, passed = _lockstep(fluid, srl[:3], feeds[:1])
+    results["control_crf_forward_without_stop"] = dict(rec, ok=_named_miss(
+        rec, passed, "float32", ("linear_chain_crf",
+                                 "linear_chain_crf_grad")))
+    # the tagging request: replayed, its control, and whole
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(srl.startup, scope=scope)
+    state = {n: scope.get(n) for n, v in srl.main.global_block().vars.items()
+             if v.persistable and scope.get(n) is not None}
+    tagger = tool.srl_tagger(srl)
+    feed = tool.srl_batch(SEED + 230)
+    rec, ok, vals = _replay_program(fluid, tagger, [srl.out.name], state,
+                                    feed)
+    results["tagging_replayed"] = dict(rec, ok=ok)
+    with patch(crf_decoding=_viterbi_without_stop):
+        rec, passed, _ = _replay_program(fluid, tagger, [srl.out.name],
+                                         state, feed)
+    results["control_viterbi_without_stop"] = dict(rec, ok=_named_miss(
+        rec, passed, "int64", ("crf_decoding",)))
+    crf = next(op for op in tagger.global_block().ops
+               if op.type == "crf_decoding")
+    cpu_path = np.asarray(vals[srl.out.name])
+    emission = np.asarray(vals[crf.input("Emission")[0]])
+    card_scope = fluid.Scope()
+    for n, t in state.items():
+        card_scope.set(n, t.to("cuda", copy=True))
+    card_path, = fluid.Executor().run(tagger, feed=feed,
+                                      fetch_list=[srl.out.name],
+                                      scope=card_scope)
+    margins = _viterbi_margins(emission, scope.get("crfw").numpy(),
+                               feed["word_data@LEN"])
+    differ = np.nonzero((card_path != cpu_path).any(1))[0]
+    results["tagging_whole_request"] = {
+        "rows": int(card_path.shape[0]),
+        "rows_differing": differ.tolist(),
+        "least_margin": float(margins.min()),
+        "near_tie_rows_at_the_cpu": int((margins <= NEAR_TIE_REL).sum()),
+        "ok": all(margins[r] <= NEAR_TIE_REL for r in differ)}
+    del scope, card_scope, state, vals
+    # word2vec with NCE, the card drawing the CPU's negatives
+    w2v = tool.word2vec_nce(fluid, seed=SEED)
+    feeds = [tool.w2v_batch(SEED + 240 + k)
+             for k in range(DEC_PARITY_STEPS["word2vec_nce"])]
+    with patch(nce=_on_cpu_draws()):
+        _, rec, ok = _lockstep(fluid, w2v[:3], feeds)
+    results["word2vec_nce"] = dict(rec, ok=ok)
+    with patch(nce=_on_cpu_draws(bias_on_negatives=False)):
+        _, rec, passed = _lockstep(fluid, w2v[:3], feeds[:1])
+    # the bias starts at 0, so the forward is the same at the first step
+    # and the nce op's gradient (the bias's, which the negatives' terms
+    # feed) shows it
+    results["control_nce_without_the_negatives_bias"] = dict(
+        rec, ok=_named_miss(rec, passed, "float32", ("nce", "grad_of:nce")))
+    failed = [k for k, r in results.items() if not r["ok"]]
+    emit({"phase": "decode_lockstep", "ok": not failed, "card": _card(),
+          "steps": DEC_PARITY_STEPS, "results": results,
+          "phase_seconds": time.perf_counter() - t0})
+    if failed:
+        raise AssertionError("decode_lockstep: %s failed" % failed)
+
+
+def decoding_phases(fluid, counters, add):
+    """The decoding slice's phases, each with its launches added."""
+    add(phase_book_machine_translation(fluid, counters))
+    add(phase_book_label_semantic_roles(fluid, counters))
+    add(phase_word2vec_nce(fluid, counters))
+    phase_decode_lockstep(fluid)
+
+
 def _path_numbers(s, path):
     """A kernel's numbers over a path's mix of cases (weighted means)."""
     w = s["weight"]
@@ -6976,7 +7714,8 @@ def main():
 
     slices = {"--control-flow": control_flow_phases,
               "--sequences": sequence_phases,
-              "--recurrent": recurrent_phases}
+              "--recurrent": recurrent_phases,
+              "--decoding": decoding_phases}
     if len(sys.argv) == 2 and sys.argv[1] in slices:
         # one slice's phases alone (no kernel line, no contract line)
         slices[sys.argv[1]](fluid, counters, add)
@@ -7135,6 +7874,11 @@ def main():
     # machine_translation, both in lockstep, and every recurrent lowering
     # at the PTB medium LSTM's widths (one Adam launch a step)
     recurrent_phases(fluid, counters, add)
+    # decoding: the book's machine translation (trained with one Adam
+    # launch a step, saved, loaded and beam-searched), its semantic role
+    # labelling (the CRF and Viterbi), word2vec with NCE, and all three in
+    # lockstep with the CPU
+    decoding_phases(fluid, counters, add)
 
     print(_card())
     sources = {"onepass": "attention.cu", "flash": "attention.cu",
@@ -7173,7 +7917,8 @@ def main():
                          ("nn_layers", "nn_layers"),
                          ("rnn_encoder_decoder", "rnn_encoder_decoder"),
                          ("sequence_chain", "sequence_chain"),
-                         ("rnn_chain", "rnn_chain")] + \
+                         ("rnn_chain", "rnn_chain"),
+                         ("dec", "book_machine_translation")] + \
                 [("zoo_" + m,) * 2 for m in ZOO_ADAM_CASES]:
             extra = summary.get((name, sub))
             if extra:

@@ -3,7 +3,8 @@ fluid.layers, trained through append_backward and fluid.optimizer, run by an
 Executor on one torch.device (the card by default), saved, loaded and served
 through fluid.io, fluid.transpiler and fluid.inference. Ragged batches are
 padded data with lengths (fluid.layers.data(lod_level=1), the sequence
-layers, fluid.create_lod_tensor)."""
+layers, fluid.create_lod_tensor). fluid.contrib holds the seq2seq
+decoders."""
 from . import core_types
 from . import unique_name
 from . import framework
@@ -36,6 +37,7 @@ from . import inference
 from . import nets
 from . import lod_tensor
 from .lod_tensor import create_lod_tensor, create_random_int_lodtensor
+from . import contrib
 
 __all__ = framework.__all__ + [
     "ops", "initializer", "ParamAttr", "layers", "LayerHelper", "backward",
@@ -48,5 +50,5 @@ __all__ = framework.__all__ + [
     "load_params", "load_persistables", "save_inference_model",
     "load_inference_model", "transpiler", "memory_optimize",
     "release_memory", "inference", "nets", "lod_tensor",
-    "create_lod_tensor", "create_random_int_lodtensor",
+    "create_lod_tensor", "create_random_int_lodtensor", "contrib",
 ]

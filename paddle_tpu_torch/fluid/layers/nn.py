@@ -13,8 +13,9 @@ convolutions, 3-D and adaptive pooling, group, data and spectral norms,
 LRN, the resizes, the spatial transformer's affine_grid and
 grid_sampler, the sequence-shaped and pairwise layers, hsigmoid and
 sampled softmax), lod_reset and the recurrent layers (dynamic_lstm,
-dynamic_lstmp, dynamic_gru, gru_unit, lstm_unit, the cuDNN-style lstm),
-with the same signatures and the same ops, slots and attrs. switch_moe waits for ROADMAP Queue 1 item 7, spp and unpool for
+dynamic_lstmp, dynamic_gru, gru_unit, lstm_unit, the cuDNN-style lstm)
+and the decoding layers (linear_chain_crf, crf_decoding, nce, beam_search,
+beam_search_decode), with the same signatures and the same ops, slots and attrs. switch_moe waits for ROADMAP Queue 1 item 7, spp and unpool for
 item 6: they raise."""
 import numpy as np
 
@@ -55,7 +56,8 @@ __all__ = [
     "fsp_matrix", "similarity_focus", "tree_conv", "hsigmoid",
     "sampled_softmax_with_cross_entropy", "switch_moe", "spp", "unpool",
     "lod_reset", "dynamic_lstm", "dynamic_lstmp", "dynamic_gru", "gru_unit",
-    "lstm_unit", "lstm",
+    "lstm_unit", "lstm", "linear_chain_crf", "crf_decoding", "nce",
+    "beam_search", "beam_search_decode",
 ]
 
 
@@ -1626,6 +1628,136 @@ def lstm(input, init_h, init_c, max_len, hidden_size, num_layers,
                "is_bidirec": is_bidirec, "dropout_prob": dropout_prob,
                "is_test": is_test, "seed": seed})
     return out, last_h, last_c
+
+
+def linear_chain_crf(input, label, param_attr=None, length=None):
+    """CRF log-likelihood over padded [B, T, num_tags] emissions (reference:
+    layers/nn.py linear_chain_crf / linear_chain_crf_op.h; transition rows
+    [0] start, [1] stop, [2:] pairwise), over the input's lengths."""
+    from .sequence import get_sequence_length
+    helper = LayerHelper("linear_chain_crf", input=input,
+                         param_attr=param_attr)
+    length = get_sequence_length(input, length)
+    num_tags = input.shape[-1]
+    transition = helper.create_parameter(attr=helper.param_attr,
+                                         shape=[num_tags + 2, num_tags],
+                                         dtype=helper.input_dtype())
+    ll = helper.create_variable_for_type_inference(input.dtype)
+    alpha = helper.create_variable_for_type_inference(input.dtype,
+                                                      stop_gradient=True)
+    e_exps = helper.create_variable_for_type_inference(input.dtype,
+                                                       stop_gradient=True)
+    t_exps = helper.create_variable_for_type_inference(input.dtype,
+                                                       stop_gradient=True)
+    inputs = {"Emission": [input], "Transition": [transition],
+              "Label": [label]}
+    if length is not None:
+        inputs["Length"] = [length]
+    helper.append_op(type="linear_chain_crf", inputs=inputs,
+                     outputs={"LogLikelihood": [ll], "Alpha": [alpha],
+                              "EmissionExps": [e_exps],
+                              "TransitionExps": [t_exps]})
+    return ll
+
+
+def crf_decoding(input, param_attr, label=None, length=None):
+    """Viterbi decoding over the input's lengths (reference:
+    crf_decoding_op.h): the path, or with ``label`` its 0/1 agreement."""
+    from .sequence import get_sequence_length
+    helper = LayerHelper("crf_decoding", input=input, param_attr=param_attr)
+    length = get_sequence_length(input, length)
+    transition = helper.create_parameter(
+        attr=helper.param_attr, shape=[input.shape[-1] + 2, input.shape[-1]],
+        dtype=helper.input_dtype())
+    path = helper.create_variable_for_type_inference("int64",
+                                                     stop_gradient=True)
+    inputs = {"Emission": [input], "Transition": [transition]}
+    if label is not None:
+        inputs["Label"] = [label]
+    if length is not None:
+        inputs["Length"] = [length]
+    helper.append_op(type="crf_decoding", inputs=inputs,
+                     outputs={"ViterbiPath": [path]})
+    return path
+
+
+def nce(input, label, num_total_classes, sample_weight=None, param_attr=None,
+        bias_attr=None, num_neg_samples=10, name=None, sampler="uniform",
+        custom_dist=None, seed=12345, is_sparse=False):
+    """Noise-contrastive estimation against uniform noise (reference:
+    nce_op.h). As in the JAX package, sample_weight, sampler, custom_dist
+    and is_sparse are taken and not passed on (ROADMAP Queue 3)."""
+    helper = LayerHelper("nce", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    dtype = helper.input_dtype()
+    dim = input.shape[-1]
+    w = helper.create_parameter(attr=helper.param_attr,
+                                shape=[num_total_classes, dim], dtype=dtype)
+    bias = helper.create_parameter(attr=helper.bias_attr,
+                                   shape=[num_total_classes], dtype=dtype,
+                                   is_bias=True)
+    cost = helper.create_variable_for_type_inference(dtype)
+    s_logits = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    s_labels = helper.create_variable_for_type_inference(
+        "int64", stop_gradient=True)
+    helper.append_op(type="nce",
+                     inputs={"Input": [input], "Label": [label],
+                             "Weight": [w], "Bias": [bias]},
+                     outputs={"Cost": [cost], "SampleLogits": [s_logits],
+                              "SampleLabels": [s_labels]},
+                     attrs={"num_neg_samples": num_neg_samples,
+                            "seed": seed or 12345,
+                            "num_total_classes": num_total_classes})
+    return cost
+
+
+def beam_search(pre_ids, pre_scores, ids, scores, beam_size, end_id,
+                level=0, is_accumulated=True, name=None,
+                return_parent_idx=False):
+    """One beam-search step over a source's beam_size rows (reference:
+    beam_search_op). As in the JAX package, ``ids`` is not passed to the
+    op (ROADMAP Queue 3)."""
+    helper = LayerHelper("beam_search", input=scores, name=name)
+    selected_ids = helper.create_variable_for_type_inference(
+        "int64", stop_gradient=True)
+    selected_scores = helper.create_variable_for_type_inference(
+        scores.dtype, stop_gradient=True)
+    parent_idx = helper.create_variable_for_type_inference(
+        "int64", stop_gradient=True)
+    # downstream layers (embedding, fc in decode loops) need static ranks
+    selected_ids.shape = (-1, 1)
+    selected_scores.shape = (-1, 1)
+    parent_idx.shape = (-1,)
+    helper.append_op(type="beam_search",
+                     inputs={"pre_ids": [pre_ids],
+                             "pre_scores": [pre_scores],
+                             "scores": [scores]},
+                     outputs={"selected_ids": [selected_ids],
+                              "selected_scores": [selected_scores],
+                              "parent_idx": [parent_idx]},
+                     attrs={"beam_size": beam_size, "end_id": end_id})
+    if return_parent_idx:
+        return selected_ids, selected_scores, parent_idx
+    return selected_ids, selected_scores
+
+
+def beam_search_decode(ids, parent_idx, scores, beam_size=None, end_id=1,
+                       name=None):
+    """The hypotheses backtracked from the stacked steps' ids and parents
+    (reference: beam_search_decode_op)."""
+    helper = LayerHelper("beam_search_decode", input=ids, name=name)
+    sent_ids = helper.create_variable_for_type_inference(
+        "int64", stop_gradient=True)
+    sent_scores = helper.create_variable_for_type_inference(
+        scores.dtype, stop_gradient=True)
+    helper.append_op(type="beam_search_decode",
+                     inputs={"Ids": [ids], "ParentIdx": [parent_idx],
+                             "Scores": [scores]},
+                     outputs={"SentenceIds": [sent_ids],
+                              "SentenceScores": [sent_scores]},
+                     attrs={"beam_size": beam_size or 0, "end_id": end_id})
+    return sent_ids, sent_scores
 
 
 def switch_moe(input, num_experts, expert_hidden, capacity_factor=2.0,

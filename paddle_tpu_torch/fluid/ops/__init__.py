@@ -19,6 +19,7 @@ from . import control_ops     # noqa: F401
 from . import array_ops       # noqa: F401
 from . import rnn_ops         # noqa: F401
 from . import sequence_ops    # noqa: F401
+from . import decode_ops      # noqa: F401
 from . import grad_ops        # noqa: F401
 
 __all__ = ["register_lowering", "get_lowering", "has_lowering",
