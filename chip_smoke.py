@@ -8,6 +8,7 @@ toolkit:
     python3 chip_smoke.py --sequences      # build, then phases 46-49 only
     python3 chip_smoke.py --recurrent      # build, then phases 49a-51 only
     python3 chip_smoke.py --decoding       # build, then phases 52-55 only
+    python3 chip_smoke.py --ctc            # build, then phases 56-60 only
 
 Phases, each printing one JSON line (any failure ends the script with a
 non-zero exit):
@@ -449,6 +450,38 @@ non-zero exit):
               parent one step late; the CRF forward without its stop row;
               Viterbi's last tag without stop; nce without the negatives'
               bias (0 at the first step: its gradient is named).
+56. crnn_ctc  - PaddlePaddle/models' CRNN-CTC text recognizer
+              (tools/torch_ctc_pool_programs.py: gray 48 x 512 images, 95
+              classes and the blank, two GRUs of 200 over T 64, warpctc,
+              Momentum, batch 32): a run_steps window, the
+              evaluator.EditDistance's eval() and the true edit distance
+              after it, busy share, kernels and host syncs a step (none in
+              the slice's lowerings); then 4 decode requests of 32 images
+              from the trained scope (ctc_greedy_decoder).
+57. segnet_basic - SegNet-Basic at CamVid's 3 x 352 x 480, 11 classes,
+              batch 12 (four index pools and four unpools): a window,
+              mean_iou each step (its counts add up to the pixels),
+              images/s, model TFLOP/s, busy share, host syncs.
+58. spp_net   - SPP-net ZF-5 at 224, batch 64 (spp's 4 x 4, 2 x 2, 1 x 1
+              levels): a window, images/s, model TFLOP/s, busy share.
+59. ctc_pool_chain - every case the three models do not reach, each at
+              its named shape (C3D's pool1 by max_pool3d_with_index,
+              SegNet's uncropped 45 x 60 -> 23 x 30 adaptive bins,
+              ResNet-50's padded stem and global pools, unpool over
+              repeated indices, spp by average, warpctc with an infeasible
+              row, ctc_align and edit_distance at CRNN's decode,
+              precision_recall over 1,000 classes): a window, its outputs
+              checked, busy share, kernels and host syncs a step.
+60. ctc_pool_lockstep - the four programs (with ctc_pool_chain: every
+              case the models do not reach) at narrow widths in lockstep
+              with the CPU: every op replayed within 1e-4, Masks, the
+              aligned ids, the edit distances and mean_iou's counts exact,
+              losses within 1e-5, the tied windows counted. Controls, each
+              named the worst output: CTC with the skip between equal
+              labels allowed, the index pools' gradient sent whole to the
+              first maximum, unpool's first write winning, edit_distance
+              normalized by the hypothesis's length, ctc_align without
+              merging.
 
 The kernel cases also time rows 1, 3, 8 and 11 at BERT-base's shapes
 (attention at batch 256, 12 heads, seq 128, D 64; LayerNorm on [32768,
@@ -7678,6 +7711,459 @@ def decoding_phases(fluid, counters, add):
     phase_decode_lockstep(fluid)
 
 
+# ---- CTC and index pooling: CRNN-CTC, SegNet-Basic, SPP-net ----
+
+# crnn_ctc: tools/torch_ctc_pool_programs.py's CRNN at the public model's
+# widths (CRNN: gray images 1 x 48 x 512, 95 classes and the blank, T 64,
+# labels up to 24, batch 32, Momentum: no port kernel): a _window of
+# CTC_STEPS, the evaluator.EditDistance states and eval() after it (the
+# warm step and the window: (CTC_STEPS + 1) * 32 sequences), the true
+# distance (edit_distance with both lengths) over the window; busy share
+# and device kernels a step, host syncs a step (none in ctc_pool_ops.py
+# or metric_ops.py: the CTC recursion and the edit distances' DP run on
+# the card); then CTC_REQUESTS decode requests of a batch from the trained
+# scope (the for_test program pruned to the decoder, tool.crnn_decoder).
+CTC_STEPS = 4
+CTC_REQUESTS = 4
+# segnet_basic: SegNet-Basic at CamVid's shapes (3 x 352 x 480, 11
+# classes, batch 12): a _window of SEG_STEPS with mean_iou each step (its
+# wrong and correct counts must add up to the batch's pixels), images/s,
+# model TFLOP/s (convolutions, forward x 3); busy share, host syncs.
+SEG_STEPS = 3
+# spp_net: SPP-net ZF-5 at 224 (batch 64): a _window of SPP_STEPS,
+# images/s, model TFLOP/s (convolutions and fc, forward x 3), busy share.
+SPP_STEPS = 4
+# ctc_pool_chain: tools/torch_ctc_pool_programs.py's chain of the cases the
+# three models do not reach, each at its named shape (tool.CHAIN: C3D's
+# pool1, SegNet's uncropped 45 x 60 -> 23 x 30 map, ResNet-50's stem and
+# last maps, unpool over repeated indices, spp by average at SPP-net's
+# conv5, warpctc, ctc_align and edit_distance at CRNN's shapes,
+# precision_recall over 1,000 classes; SGD: no port kernel): a _window of
+# CHAIN_STEPS with its outputs checked (every Mask inside its plane, the
+# infeasible CTC row within CHAIN_INFEASIBLE of 1e5 and the others below
+# it, the unnormalized distances whole numbers, precision_recall's states
+# counting every example of the warm step and the window); busy share,
+# device kernels and host syncs a step.
+CHAIN_STEPS = 3
+CHAIN_INFEASIBLE = (1e5, 1.01e5)
+# ctc_pool_lockstep: each program at CTC_PARITY's widths, CTC_PARITY_STEPS
+# steps in lockstep with the CPU (_lockstep: every op replayed within
+# RESNET_OP_TOL, ints exact, the outputs of CTC_EXACT_OPS bit for bit,
+# losses within OPT_LOSS_REL_MAX), the windows with tied maxima at the
+# CPU counted for each index pool (the Mask is held exact there too);
+# the gradients of a convolution's bias that a batch_norm follows, which
+# cancel to rounding noise, held to CANCEL_NOISE times the CPU's own error
+# against float64. Controls, each of which must miss with its op's output
+# the worst of its dtype: CTC allowing the skip between equal labels (the
+# chain's labels repeat in row 1), the index pools' gradient sent whole
+# to the first maximum (the chain's inputs hold tied positive maxima),
+# unpool where the first write wins, edit_distance normalized by the
+# hypothesis's length, ctc_align not merging repeats.
+CTC_PARITY_STEPS = 2
+CTC_PARITY = {
+    "crnn_ctc": dict(image=[1, 48, 128], channels=[8, 16, 16, 32],
+                     hidden=32, classes=95, max_label=8, batch=4),
+    "segnet_basic": dict(image=[3, 64, 96], channels=16, kernel=7,
+                         classes=11, batch=2),
+    "spp_net": dict(image=[3, 112, 112], channels=[16, 32, 32, 32, 32],
+                    fc=64, classes=100, pyramid=3, dropout=0.0, batch=4),
+    "ctc_pool_chain": dict(pool3d=[1, 8, 4, 16, 16], adaptive=[2, 8, 45, 60],
+                           adaptive_out=[23, 30], padded=[2, 8, 16, 16],
+                           global_=[2, 16, 7, 7], unpool=[2, 8, 14, 14],
+                           spp=[2, 16, 13, 13], ctc=[4, 16, 12], ctc_in=8,
+                           max_label=6, short=4, ignored=[1, 2],
+                           pr_classes=1000, pr_batch=16, pr_in=16)}
+CTC_EXACT_OPS = ("max_pool2d_with_index", "max_pool3d_with_index", "unpool",
+                 "ctc_align", "edit_distance", "arg_max")
+INDEX_POOLS = ("max_pool2d_with_index", "max_pool3d_with_index")
+# the slice's lowerings, where no host read may be
+SLICE_LOWERINGS = ("paddle_tpu_torch/fluid/ops/ctc_pool_ops.py",
+                   "paddle_tpu_torch/fluid/ops/metric_ops.py")
+
+
+def _ctc_tool():
+    return _load_tool("torch_ctc_pool_programs")
+
+
+def _slice_syncs(places):
+    """The places of `places` inside the slice's lowerings."""
+    return [p for p in places if p.startswith(SLICE_LOWERINGS)]
+
+
+def phase_crnn_ctc(fluid, counters):
+    """CRNN-CTC at the public model's widths: a _window with the
+    evaluator's and the true edit distances, the step's busy share and
+    host syncs, then CTC_REQUESTS decode requests from the trained scope.
+    Returns the window's launches."""
+    import numpy as np
+    tool = _ctc_tool()
+    t0 = time.perf_counter()
+    w = tool.CRNN
+    m = tool.crnn_ctc(fluid, seed=SEED)
+    ev = m.extra["evaluator"]
+    stacked = _stack_feeds([tool.crnn_batch(SEED + k)
+                            for k in range(CTC_STEPS + 1)])
+    kept = {}
+
+    def scores(scope, extra):
+        true, = extra
+        kept["scope"] = scope
+        with fluid.scope_guard(scope):
+            avg, err = ev.eval(None)
+        seqs = int(fluid.executor.as_numpy(scope.get(ev.seq_num.name))
+                   .sum())
+        true = true.float().cpu().numpy()
+        rec = {"evaluator_avg_distance": float(avg[0]),
+               "evaluator_instance_error": float(err[0]),
+               "evaluator_sequences": seqs,
+               "true_distance_mean": float(true.mean())}
+        ok = seqs == (CTC_STEPS + 1) * w["batch"] and \
+            bool(np.isfinite(true).all()) and 0.0 <= err[0] <= 1.0 and \
+            bool(np.isfinite(avg[0]))
+        return {"scores": rec}, bool(ok)
+    launched = _window(
+        "crnn_ctc", fluid, counters, m[:3],
+        {k: v[:1] for k, v in stacked.items()},
+        {k: v[1:] for k, v in stacked.items()}, CTC_STEPS,
+        dict.fromkeys(counters, 0), None,
+        {"build_seconds": time.perf_counter() - t0, "card": _card(),
+         "widths": w, "frames": tool.crnn_frames(w)[0],
+         "ops": len(m.main.global_block().ops)},
+        {"images": w["batch"]}, ([m.extra["distance"]], scores))
+    _ctc_step_phase("crnn_ctc", fluid, m, stacked)
+    t0 = time.perf_counter()
+    dec = tool.crnn_decoder(m)
+    feeds = [{"pixel": tool.crnn_batch(SEED + 60 + k)["pixel"]}
+             for k in range(CTC_REQUESTS)]
+    fetch = [m.out, m.extra["decoded_length"]]
+    rec = _serve_requests(fluid, counters, dec, kept["scope"], feeds, fetch,
+                          w["batch"])
+    ids, lens = fluid.Executor().run(dec, feed=feeds[0], fetch_list=fetch,
+                                     scope=kept["scope"])
+    frames = tool.crnn_frames(w)[0]
+    rec.update({"ops": len(dec.global_block().ops),
+                "images_per_s": w["batch"] / rec["ms_mean"] * 1e3,
+                "in_the_slices_lowerings": _slice_syncs(
+                    rec["host_sync_places"]),
+                "ids_shape": list(ids.shape),
+                "lengths": [int(v) for v in lens],
+                "ids_in_range": bool(((ids >= 0) & (ids < w["classes"]))
+                                     .all()),
+                "lengths_in_range": bool(((lens >= 0) & (lens <= frames))
+                                         .all())})
+    rec["ok"] = rec["ok"] and rec["ids_in_range"] and \
+        rec["lengths_in_range"] and list(ids.shape) == [w["batch"], frames]
+    del kept
+    emit(dict({"phase": "crnn_ctc_decode", "card": _card(),
+               "phase_seconds": time.perf_counter() - t0}, **rec))
+    if not rec["ok"]:
+        raise AssertionError("crnn_ctc: the decode requests failed %s" % rec)
+    return launched
+
+
+def phase_segnet_basic(fluid, counters):
+    """SegNet-Basic at CamVid's shapes: a _window with mean_iou each step,
+    images/s and model TFLOP/s, busy share, host syncs. Returns the
+    window's launches."""
+    import numpy as np
+    tool = _ctc_tool()
+    t0 = time.perf_counter()
+    w = tool.SEGNET
+    m = tool.segnet_basic(fluid, seed=SEED)
+    flops = conv_flops_per_image(m.main)
+    stacked = _stack_feeds([tool.segnet_batch(SEED + k)
+                            for k in range(SEG_STEPS + 1)])
+    pixels = w["batch"] * w["image"][1] * w["image"][2]
+
+    def scores(scope, extra):
+        miou, wrong, correct = (v.cpu().numpy() for v in extra)
+        counted = (wrong.astype(np.int64) + correct).sum(axis=-1)
+        rec = {"mean_iou": miou.tolist(),
+               "pixels_counted_a_step": counted.tolist()}
+        ok = bool((counted == pixels).all()) and \
+            bool(((miou >= 0) & (miou <= 1)).all())
+        return {"scores": rec}, ok
+    launched = _window(
+        "segnet_basic", fluid, counters, m[:3],
+        {k: v[:1] for k, v in stacked.items()},
+        {k: v[1:] for k, v in stacked.items()}, SEG_STEPS,
+        dict.fromkeys(counters, 0), None,
+        {"build_seconds": time.perf_counter() - t0, "card": _card(),
+         "widths": w, "ops": len(m.main.global_block().ops),
+         "forward_gflop_per_image": flops / 1e9},
+        {"images": w["batch"], "model_tflops": 3 * flops * w["batch"] / 1e12},
+        ([m.out, m.extra["wrong"], m.extra["correct"]], scores))
+    _ctc_step_phase("segnet_basic", fluid, m, stacked)
+    return launched
+
+
+def phase_spp_net(fluid, counters):
+    """SPP-net ZF-5 at 224: a _window with images/s and model TFLOP/s,
+    busy share, host syncs. Returns the window's launches."""
+    tool = _ctc_tool()
+    t0 = time.perf_counter()
+    w = tool.SPP
+    m = tool.spp_net(fluid, seed=SEED)
+    flops = conv_flops_per_image(m.main)
+    stacked = _stack_feeds([tool.spp_batch(SEED + k)
+                            for k in range(SPP_STEPS + 1)])
+    launched = _window(
+        "spp_net", fluid, counters, m[:3],
+        {k: v[:1] for k, v in stacked.items()},
+        {k: v[1:] for k, v in stacked.items()}, SPP_STEPS,
+        dict.fromkeys(counters, 0), None,
+        {"build_seconds": time.perf_counter() - t0, "card": _card(),
+         "widths": w, "ops": len(m.main.global_block().ops),
+         "pyramid_features": m.extra["features"].shape[1],
+         "forward_gflop_per_image": flops / 1e9},
+        {"images": w["batch"], "model_tflops": 3 * flops * w["batch"] / 1e12})
+    _ctc_step_phase("spp_net", fluid, m, stacked)
+    return launched
+
+
+def phase_ctc_pool_chain(fluid, counters):
+    """The chain at CHAIN's widths: a _window with its outputs checked,
+    then its _step phase. Returns the window's launches."""
+    import numpy as np
+    tool = _ctc_tool()
+    t0 = time.perf_counter()
+    w = tool.CHAIN
+    m = tool.ctc_pool_chain(fluid, seed=SEED)
+    ex = m.extra
+    stacked = _stack_feeds([tool.chain_batch(SEED + k)
+                            for k in range(CHAIN_STEPS + 1)])
+    planes = {k: int(np.prod(w[s][2:])) for k, s in (
+        ("pool3d_mask", "pool3d"), ("adaptive_mask", "adaptive"),
+        ("padded_mask", "padded"), ("global_mask", "global_"),
+        ("unpool_mask", "unpool"))}
+    fetch = [ex["ctc_infeasible"], ex["distance"], ex["pr_accum"]] + \
+        [ex[k] for k in planes]
+
+    def scores(scope, extra):
+        ctc, dist, accum, *masks = (v.cpu().numpy() for v in extra)
+        states = fluid.executor.as_numpy(scope.get("pr_states"))
+        inside = {k: bool(((v >= 0) & (v < planes[k])).all())
+                  for k, v in zip(planes, masks)}
+        rec = {"infeasible_row_loss": ctc[:, 0, 0].tolist(),
+               "feasible_rows_loss_max": float(ctc[:, 1:].max()),
+               "distance_max": float(dist.max()),
+               "pr_accum_metrics": accum[-1].tolist(),
+               "pr_examples_counted": float(states[:, :2].sum()),
+               "masks_inside_their_planes": inside}
+        lo, hi = CHAIN_INFEASIBLE
+        ok = all(inside.values()) and \
+            bool(((ctc[:, 0] > lo) & (ctc[:, 0] < hi)).all()) and \
+            bool((ctc[:, 1:] < lo).all()) and \
+            bool((dist == np.round(dist)).all()) and \
+            bool(((dist >= 0) & (dist <= max(w["ctc"][1], w["max_label"])))
+                 .all()) and \
+            bool(((accum >= 0) & (accum <= 1)).all()) and \
+            rec["pr_examples_counted"] == (CHAIN_STEPS + 1) * w["pr_batch"]
+        return {"scores": rec}, ok
+    launched = _window(
+        "ctc_pool_chain", fluid, counters, m[:3],
+        {k: v[:1] for k, v in stacked.items()},
+        {k: v[1:] for k, v in stacked.items()}, CHAIN_STEPS,
+        dict.fromkeys(counters, 0), None,
+        {"build_seconds": time.perf_counter() - t0, "card": _card(),
+         "widths": w, "ops": len(m.main.global_block().ops)},
+        {"chains": 1}, (fetch, scores))
+    _ctc_step_phase("ctc_pool_chain", fluid, m, stacked)
+    return launched
+
+
+def _ctc_step_phase(name, fluid, model, stacked):
+    """Phase `name`_step: busy share (with the top kernels), device kernels
+    and host syncs of a step of `model`; it fails if a sync lies in the
+    slice's lowerings."""
+    t0 = time.perf_counter()
+    busy = _busy_named(fluid, model, {k: v[0] for k, v in stacked.items()})
+    busy["device_kernels_a_step"] = sum(
+        c for _, c in busy["device_ms_by_kind"].values())
+    syncs = _step_syncs(fluid, model, stacked)
+    syncs["in_the_slices_lowerings"] = _slice_syncs(syncs["places"])
+    ok = not syncs["in_the_slices_lowerings"]
+    emit({"phase": name + "_step", "ok": ok, "card": _card(), "busy": busy,
+          "step_host_syncs": syncs,
+          "phase_seconds": time.perf_counter() - t0})
+    if not ok:
+        raise AssertionError("%s: host syncs in the slice's lowerings %s"
+                             % (name, syncs))
+
+
+def _on_card_patched(lowering, module, attr, replacement):
+    """`lowering` with module.`attr` replaced by `replacement` while it runs
+    on the card (a control). CPU tensors take the real lowering."""
+    from unittest import mock
+
+    def lower(ctx, inputs, attrs):
+        if ctx.device.type != "cuda":
+            return lowering(ctx, inputs, attrs)
+        with mock.patch.object(module, attr, replacement):
+            return lowering(ctx, inputs, attrs)
+    return lower
+
+
+def _no_repeats(label):
+    """label_repeats all 0: the skip between equal labels allowed."""
+    import torch
+    return torch.zeros(label.shape, device=label.device)
+
+
+def _first_max_only(windows, positions):
+    """max_with_index with each window's Out its first maximum alone, so
+    that the whole gradient goes there."""
+    import torch
+    arg = windows.argmax(dim=-1, keepdim=True)
+    mask = torch.gather(positions.expand(windows.shape), -1, arg)[..., 0]
+    return torch.gather(windows, -1, arg)[..., 0], mask.int()
+
+
+def _first_write_wins(idx, size):
+    """unpool_winners with the first source in input order winning."""
+    import torch
+    n, c, k = idx.shape
+    ordinal = torch.arange(k, device=idx.device).expand(n, c, k)
+    first = torch.full((n, c, size), k, dtype=torch.int64,
+                       device=idx.device).scatter_reduce(
+        2, idx.long(), ordinal, reduce="amin", include_self=True)
+    return torch.where(first < k, first, -1)
+
+
+def _edit_distance_by_hyp_length(ctx, inputs, attrs):
+    """edit_distance on the card normalized by the hypothesis's length (a
+    control). CPU tensors take the real lowering."""
+    from paddle_tpu_torch.fluid.ops import ctc_pool_ops as C
+    hyp = inputs["Hyps"][0]
+    if not hyp.is_cuda or not attrs.get("normalized", True):
+        return C._edit_distance(ctx, inputs, attrs)
+    out = C._edit_distance(ctx, inputs, dict(attrs, normalized=False))
+    hlen = C._lengths((inputs.get("HypsLength") or [None])[0],
+                      hyp.shape[0], hyp.shape[1], hyp.device)
+    out["Out"] = [out["Out"][0] / hlen.float().clamp(min=1.0)[:, None]]
+    return out
+
+
+def _ctc_controls():
+    """{program: {control: ({op type: lowering}, dtype, named op types)}}
+    for ctc_pool_lockstep."""
+    from paddle_tpu_torch.fluid.ops import ctc_pool_ops as C
+    pools = {op: _on_card_patched(C._max_pool2d_with_index if "2d" in op
+                                  else C._max_pool3d_with_index, C,
+                                  "max_with_index", _first_max_only)
+             for op in INDEX_POOLS}
+    no_merge = _on_the_card(C._ctc_align, lambda i, a: (
+        i, dict(a, merge_repeated=False)))
+    return {
+        "ctc_pool_chain": {
+            "ctc_skip_between_equal_labels": (
+                {"warpctc": _on_card_patched(C._warpctc, C, "label_repeats",
+                                             _no_repeats)},
+                "float32", ("warpctc", "grad_of:warpctc")),
+            "pool_gradient_to_the_first_maximum": (
+                pools, "float32",
+                tuple("grad_of:" + op for op in INDEX_POOLS)),
+            "unpool_first_write_wins": (
+                {"unpool": _on_card_patched(C._unpool, C, "unpool_winners",
+                                            _first_write_wins)},
+                "float32", ("unpool", "grad_of:unpool"))},
+        "crnn_ctc": {
+            "edit_distance_by_the_hypothesis_length": (
+                {"edit_distance": _edit_distance_by_hyp_length},
+                "float32", ("edit_distance",)),
+            "ctc_align_without_merging": (
+                {"ctc_align": no_merge}, "int32", ("ctc_align",))}}
+
+
+def _conv_biases_before_batch_norm(main):
+    """The gradients of each convolution bias that a batch_norm follows: 0
+    by construction, rounding noise in float32."""
+    block = main.global_block()
+    params = {p.name for p in main.all_parameters()}
+    bn_inputs = {op.input("X")[0] for op in block.ops
+                 if op.type == "batch_norm"}
+    return tuple(sorted(op.input("Y")[0] + "@GRAD" for op in block.ops
+                        if op.type == "elementwise_add" and
+                        op.output("Out")[0] in bn_inputs and
+                        op.input("Y")[0] in params))
+
+
+def _tied_windows(fluid, main, startup, feed):
+    """{Mask name: [windows, windows whose maximum the CPU sees more than
+    once]} for each index pool of one CPU step of `main` from the
+    startup."""
+    import torch
+    from paddle_tpu_torch.fluid.ops import ctc_pool_ops as C
+    block = main.global_block()
+    pools = [op for op in block.ops if op.type in INDEX_POOLS]
+    if not pools:
+        return {}
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(startup, scope=scope)
+    xs = exe.run(main, feed=feed, fetch_list=[op.input("X")[0]
+                                              for op in pools],
+                 scope=scope, return_numpy=False)
+    out = {}
+    for op, x in zip(pools, xs):
+        nd = x.dim() - 2
+        windows, _ = C.pool_windows(
+            x, list(op.attr("ksize")), list(op.attr("strides") or [1] * nd),
+            list(op.attr("paddings") or [0] * nd),
+            adaptive=op.attr("adaptive") or False,
+            global_pool=op.attr("global_pooling") or False)
+        top = windows.amax(dim=-1, keepdim=True)
+        ties = (windows == top).sum(dim=-1) > 1
+        out[op.output("Mask")[0]] = [int(ties.numel()), int(ties.sum())]
+    return out
+
+
+def phase_ctc_pool_lockstep(fluid):
+    """The slice's four programs in lockstep with the CPU at CTC_PARITY's
+    widths, with the five controls (checks: no launch counted)."""
+    from unittest import mock
+    from paddle_tpu_torch.fluid.ops import registry
+    tool = _ctc_tool()
+    t0 = time.perf_counter()
+    results = {}
+    controls = _ctc_controls()
+    for name, (build, batch, _) in tool.PROGRAMS.items():
+        widths = CTC_PARITY[name]
+        m = build(fluid, seed=SEED, **widths)
+        feeds = [batch(SEED + 300 + k, **widths)
+                 for k in range(CTC_PARITY_STEPS)]
+        cancelling = _conv_biases_before_batch_norm(m.main)
+        _, rec, ok = _lockstep(fluid, m[:3], feeds, exact_ops=CTC_EXACT_OPS,
+                               cancelling=cancelling)
+        ties = _tied_windows(fluid, m.main, m.startup, feeds[0])
+        results[name] = dict(rec, widths=widths, ok=ok,
+                             tied_windows_at_the_cpu=ties)
+        for cname, (lowerings, dtype, named) in controls.get(name,
+                                                             {}).items():
+            with mock.patch.dict(registry._LOWERINGS, **lowerings):
+                _, rec, passed = _lockstep(fluid, m[:3], feeds[:1],
+                                           exact_ops=CTC_EXACT_OPS,
+                                           cancelling=cancelling)
+            results["control_" + cname] = dict(rec, ok=_named_miss(
+                rec, passed, dtype, named))
+    failed = [k for k, r in results.items() if not r["ok"]]
+    emit({"phase": "ctc_pool_lockstep", "ok": not failed, "card": _card(),
+          "steps": CTC_PARITY_STEPS, "results": results,
+          "phase_seconds": time.perf_counter() - t0})
+    if failed:
+        raise AssertionError("ctc_pool_lockstep: %s failed" % failed)
+
+
+def ctc_pool_phases(fluid, counters, add):
+    """The CTC and index-pooling slice's phases, each with its launches
+    added."""
+    add(phase_crnn_ctc(fluid, counters))
+    add(phase_segnet_basic(fluid, counters))
+    add(phase_spp_net(fluid, counters))
+    add(phase_ctc_pool_chain(fluid, counters))
+    phase_ctc_pool_lockstep(fluid)
+
+
 def _path_numbers(s, path):
     """A kernel's numbers over a path's mix of cases (weighted means)."""
     w = s["weight"]
@@ -7715,7 +8201,8 @@ def main():
     slices = {"--control-flow": control_flow_phases,
               "--sequences": sequence_phases,
               "--recurrent": recurrent_phases,
-              "--decoding": decoding_phases}
+              "--decoding": decoding_phases,
+              "--ctc": ctc_pool_phases}
     if len(sys.argv) == 2 and sys.argv[1] in slices:
         # one slice's phases alone (no kernel line, no contract line)
         slices[sys.argv[1]](fluid, counters, add)
@@ -7879,6 +8366,11 @@ def main():
     # labelling (the CRF and Viterbi), word2vec with NCE, and all three in
     # lockstep with the CPU
     decoding_phases(fluid, counters, add)
+    # CTC and index pooling: the CRNN-CTC recognizer (trained, scored by
+    # evaluator.EditDistance, decoding requests), SegNet-Basic (index
+    # pooling and unpool, scored by mean_iou), SPP-net, and the four
+    # programs in lockstep with the CPU
+    ctc_pool_phases(fluid, counters, add)
 
     print(_card())
     sources = {"onepass": "attention.cu", "flash": "attention.cu",

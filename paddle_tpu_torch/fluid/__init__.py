@@ -4,7 +4,7 @@ Executor on one torch.device (the card by default), saved, loaded and served
 through fluid.io, fluid.transpiler and fluid.inference. Ragged batches are
 padded data with lengths (fluid.layers.data(lod_level=1), the sequence
 layers, fluid.create_lod_tensor). fluid.contrib holds the seq2seq
-decoders."""
+decoders; fluid.metrics and fluid.evaluator the metric accumulators."""
 from . import core_types
 from . import unique_name
 from . import framework
@@ -37,7 +37,9 @@ from . import inference
 from . import nets
 from . import lod_tensor
 from .lod_tensor import create_lod_tensor, create_random_int_lodtensor
+from . import metrics
 from . import contrib
+from . import evaluator
 
 __all__ = framework.__all__ + [
     "ops", "initializer", "ParamAttr", "layers", "LayerHelper", "backward",
@@ -50,5 +52,6 @@ __all__ = framework.__all__ + [
     "load_params", "load_persistables", "save_inference_model",
     "load_inference_model", "transpiler", "memory_optimize",
     "release_memory", "inference", "nets", "lod_tensor",
-    "create_lod_tensor", "create_random_int_lodtensor", "contrib",
+    "create_lod_tensor", "create_random_int_lodtensor", "metrics",
+    "contrib", "evaluator",
 ]

@@ -15,8 +15,10 @@ grid_sampler, the sequence-shaped and pairwise layers, hsigmoid and
 sampled softmax), lod_reset and the recurrent layers (dynamic_lstm,
 dynamic_lstmp, dynamic_gru, gru_unit, lstm_unit, the cuDNN-style lstm)
 and the decoding layers (linear_chain_crf, crf_decoding, nce, beam_search,
-beam_search_decode), with the same signatures and the same ops, slots and attrs. switch_moe waits for ROADMAP Queue 1 item 7, spp and unpool for
-item 6: they raise."""
+beam_search_decode), the CTC layers (warpctc, ctc_greedy_decoder,
+edit_distance), index pooling (adaptive_pool2d(require_index=True),
+unpool, spp) and mean_iou, with the same signatures and the same ops,
+slots and attrs. switch_moe waits for ROADMAP Queue 1 item 7: it raises."""
 import numpy as np
 
 from ..framework import Variable
@@ -57,7 +59,8 @@ __all__ = [
     "sampled_softmax_with_cross_entropy", "switch_moe", "spp", "unpool",
     "lod_reset", "dynamic_lstm", "dynamic_lstmp", "dynamic_gru", "gru_unit",
     "lstm_unit", "lstm", "linear_chain_crf", "crf_decoding", "nce",
-    "beam_search", "beam_search_decode",
+    "beam_search", "beam_search_decode", "warpctc", "ctc_greedy_decoder",
+    "edit_distance", "mean_iou",
 ]
 
 
@@ -1212,11 +1215,19 @@ def adaptive_pool2d(input, pool_size, pool_type="max", require_index=False,
                     name=None):
     """Adaptive 2D pooling to a target output size (reference
     adaptive_pool2d -> pool2d op with adaptive=True); require_index builds
-    max_pool2d_with_index, which waits for ROADMAP Queue 1 item 6."""
+    max_pool2d_with_index and returns (out, mask)."""
     if require_index:
-        raise NotImplementedError(
-            "adaptive_pool2d(require_index=True) builds max_pool2d_with_index, "
-            "which the port does not have yet (ROADMAP Queue 1 item 6)")
+        helper = LayerHelper("max_pool2d_with_index", input=input, name=name)
+        out = helper.create_variable_for_type_inference(input.dtype)
+        mask = helper.create_variable_for_type_inference("int32")
+        helper.append_op(type="max_pool2d_with_index",
+                         inputs={"X": [input]},
+                         outputs={"Out": [out], "Mask": [mask]},
+                         attrs={"ksize": list(pool_size)
+                                if isinstance(pool_size, (list, tuple))
+                                else [pool_size, pool_size],
+                                "adaptive": True, "pooling_type": "max"})
+        return out, mask
     helper = LayerHelper("adaptive_pool2d", input=input, name=name)
     out = helper.create_variable_for_type_inference(input.dtype)
     ks = list(pool_size) if isinstance(pool_size, (list, tuple)) else \
@@ -1768,14 +1779,113 @@ def switch_moe(input, num_experts, expert_hidden, capacity_factor=2.0,
                               "(multi-device)")
 
 
+def warpctc(input, label, blank=0, norm_by_times=False, use_cudnn=False,
+            input_length=None, label_length=None):
+    """CTC loss (reference: layers/nn.py warpctc / warpctc_op.cc). Dense
+    layout: input [B, T, C] logits + input_length, label [B, L] +
+    label_length; Loss [B, 1]."""
+    helper = LayerHelper("warpctc", input=input)
+    loss_out = helper.create_variable_for_type_inference("float32")
+    ins = {"Logits": [input], "Label": [label]}
+    if input_length is not None:
+        ins["LogitsLength"] = [input_length]
+    if label_length is not None:
+        ins["LabelLength"] = [label_length]
+    helper.append_op(type="warpctc", inputs=ins, outputs={"Loss": [loss_out]},
+                     attrs={"blank": blank, "norm_by_times": norm_by_times})
+    return loss_out
+
+
+def ctc_greedy_decoder(input, blank, input_length=None, name=None):
+    """top_k(1) + squeeze + ctc_align's merge and de-blank (reference:
+    layers/nn.py ctc_greedy_decoder). Returns (decoded [B, T] 0-padded,
+    length [B])."""
+    helper = LayerHelper("ctc_greedy_decoder", input=input, name=name)
+    topk_val = helper.create_variable_for_type_inference(input.dtype)
+    topk_idx = helper.create_variable_for_type_inference(
+        "int64", stop_gradient=True)
+    helper.append_op(type="top_k", inputs={"X": [input]},
+                     outputs={"Out": [topk_val], "Indices": [topk_idx]},
+                     attrs={"k": 1})
+    idx_flat = helper.create_variable_for_type_inference(
+        "int64", stop_gradient=True)
+    helper.append_op(type="squeeze", inputs={"X": [topk_idx]},
+                     outputs={"Out": [idx_flat]}, attrs={"axes": [-1]})
+    out = helper.create_variable_for_type_inference(
+        "int64", stop_gradient=True)
+    out_len = helper.create_variable_for_type_inference(
+        "int32", stop_gradient=True)
+    ins = {"Input": [idx_flat]}
+    if input_length is not None:
+        ins["Length"] = [input_length]
+    helper.append_op(type="ctc_align", inputs=ins,
+                     outputs={"Output": [out], "OutputLength": [out_len]},
+                     attrs={"blank": blank, "merge_repeated": True})
+    return out, out_len
+
+
+def edit_distance(input, label, normalized=True, ignored_tokens=None,
+                  input_length=None, label_length=None):
+    """Levenshtein distance (reference: layers/nn.py edit_distance):
+    (distances [B, 1], sequence count)."""
+    helper = LayerHelper("edit_distance", input=input)
+    out = helper.create_variable_for_type_inference(
+        "float32", stop_gradient=True)
+    seq_num = helper.create_variable_for_type_inference(
+        "int64", stop_gradient=True)
+    ins = {"Hyps": [input], "Refs": [label]}
+    if input_length is not None:
+        ins["HypsLength"] = [input_length]
+    if label_length is not None:
+        ins["RefsLength"] = [label_length]
+    helper.append_op(type="edit_distance", inputs=ins,
+                     outputs={"Out": [out], "SequenceNum": [seq_num]},
+                     attrs={"normalized": normalized,
+                            "ignored_tokens": [int(t) for t in
+                                               (ignored_tokens or [])]})
+    return out, seq_num
+
+
+def mean_iou(input, label, num_classes):
+    """Mean intersection over union (reference: layers/nn.py mean_iou):
+    (mean IoU, wrong and correct predictions by class)."""
+    helper = LayerHelper("mean_iou", input=input)
+    iou = helper.create_variable_for_type_inference("float32",
+                                                    stop_gradient=True)
+    wrong = helper.create_variable_for_type_inference("int32",
+                                                      stop_gradient=True)
+    correct = helper.create_variable_for_type_inference("int32",
+                                                        stop_gradient=True)
+    helper.append_op(type="mean_iou",
+                     inputs={"Predictions": [input], "Labels": [label]},
+                     outputs={"OutMeanIou": [iou], "OutWrong": [wrong],
+                              "OutCorrect": [correct]},
+                     attrs={"num_classes": num_classes})
+    return iou, wrong, correct
+
+
 def unpool(input, indices, unpool_type="max", ksize=None, strides=None,
            paddings=None, output_size=None, name=None):
-    """Max unpooling waits for ROADMAP Queue 1 item 6 (the rest of the op
-    zoo)."""
-    raise NotImplementedError("unpool waits for ROADMAP Queue 1 item 6")
+    """Max unpooling from recorded indices (reference: unpool_op.cc);
+    output_size is not passed to the op, as in the JAX package."""
+    helper = LayerHelper("unpool", input=input, name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="unpool",
+                     inputs={"X": [input], "Indices": [indices]},
+                     outputs={"Out": [out]},
+                     attrs={"unpooling_type": unpool_type,
+                            "ksize": list(ksize or [2, 2]),
+                            "strides": list(strides or [2, 2]),
+                            "paddings": list(paddings or [0, 0])})
+    return out
 
 
 def spp(input, pyramid_height=3, pool_type="max", name=None):
-    """Spatial pyramid pooling waits for ROADMAP Queue 1 item 6 (the rest
-    of the op zoo)."""
-    raise NotImplementedError("spp waits for ROADMAP Queue 1 item 6")
+    """Spatial pyramid pooling (reference: spp_op.cc)."""
+    helper = LayerHelper("spp", input=input, name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="spp", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"pyramid_height": pyramid_height,
+                            "pooling_type": pool_type})
+    return out

@@ -20,6 +20,7 @@ from . import array_ops       # noqa: F401
 from . import rnn_ops         # noqa: F401
 from . import sequence_ops    # noqa: F401
 from . import decode_ops      # noqa: F401
+from . import ctc_pool_ops    # noqa: F401
 from . import grad_ops        # noqa: F401
 
 __all__ = ["register_lowering", "get_lowering", "has_lowering",

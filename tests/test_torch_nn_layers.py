@@ -12,8 +12,10 @@ JAX package on the CPU.
   within 1e-5 (1e-4 past a convolution) of their largest JAX value.
   Sampled softmax's own draws differ between the packages: its loss is
   held by shape only and stays out of the program's loss.
-- The layers that build an op of a later item raise and name it:
-  adaptive_pool2d(require_index=True), switch_moe, spp, unpool.
+- The layer that builds an op of a later item raises and names it:
+  switch_moe; adaptive_pool2d(require_index=True), spp and unpool, which
+  raised before the CTC and index-pooling slice, now build the JAX
+  package's ops (held in tests/test_torch_ctc_pool_ops.py).
 - conv2d_transpose's output_size gives the JAX package's filter size;
   adaptive_pool3d's op carries the adaptive attr its lowering ignores.
 """
@@ -258,13 +260,14 @@ def test_layers_of_later_items_raise_and_name_the_item():
     L = tfluid.layers
     with tfluid.program_guard(main, startup):
         x = L.data(name="x", shape=[3, 4, 4], dtype="float32")
-        with pytest.raises(NotImplementedError, match="item 6"):
-            L.adaptive_pool2d(x, 2, require_index=True)
         with pytest.raises(NotImplementedError, match="item 7"):
             L.switch_moe(x, 4, 16)
-        with pytest.raises(NotImplementedError, match="item 6"):
-            L.spp(x)
-        with pytest.raises(NotImplementedError, match="item 6"):
-            L.unpool(x, x)
+        # item 6's index pooling builds its ops now
+        out, mask = L.adaptive_pool2d(x, 2, require_index=True)
+        assert mask.dtype == "int32"
+        assert L.spp(x).shape == (-1, 3 * (1 + 4 + 16))
+        assert L.unpool(out, mask).shape == (-1, 3, 4, 4)
+        assert [op.type for op in main.global_block().ops] == [
+            "max_pool2d_with_index", "spp", "unpool"]
         with pytest.raises(ValueError):
             L.conv3d_transpose(L.reshape(x, [-1, 3, 4, 2, 2]), 2)
