@@ -7785,9 +7785,9 @@ def _ctc_tool():
     return _load_tool("torch_ctc_pool_programs")
 
 
-def _slice_syncs(places):
-    """The places of `places` inside the slice's lowerings."""
-    return [p for p in places if p.startswith(SLICE_LOWERINGS)]
+def _slice_syncs(places, lowerings=SLICE_LOWERINGS):
+    """The places of `places` inside a slice's `lowerings`."""
+    return [p for p in places if p.startswith(lowerings)]
 
 
 def phase_crnn_ctc(fluid, counters):
@@ -7830,7 +7830,7 @@ def phase_crnn_ctc(fluid, counters):
          "widths": w, "frames": tool.crnn_frames(w)[0],
          "ops": len(m.main.global_block().ops)},
         {"images": w["batch"]}, ([m.extra["distance"]], scores))
-    _ctc_step_phase("crnn_ctc", fluid, m, stacked)
+    _slice_step_phase("crnn_ctc", fluid, m, stacked)
     t0 = time.perf_counter()
     dec = tool.crnn_decoder(m)
     feeds = [{"pixel": tool.crnn_batch(SEED + 60 + k)["pixel"]}
@@ -7893,7 +7893,7 @@ def phase_segnet_basic(fluid, counters):
          "forward_gflop_per_image": flops / 1e9},
         {"images": w["batch"], "model_tflops": 3 * flops * w["batch"] / 1e12},
         ([m.out, m.extra["wrong"], m.extra["correct"]], scores))
-    _ctc_step_phase("segnet_basic", fluid, m, stacked)
+    _slice_step_phase("segnet_basic", fluid, m, stacked)
     return launched
 
 
@@ -7917,7 +7917,7 @@ def phase_spp_net(fluid, counters):
          "pyramid_features": m.extra["features"].shape[1],
          "forward_gflop_per_image": flops / 1e9},
         {"images": w["batch"], "model_tflops": 3 * flops * w["batch"] / 1e12})
-    _ctc_step_phase("spp_net", fluid, m, stacked)
+    _slice_step_phase("spp_net", fluid, m, stacked)
     return launched
 
 
@@ -7968,20 +7968,21 @@ def phase_ctc_pool_chain(fluid, counters):
         {"build_seconds": time.perf_counter() - t0, "card": _card(),
          "widths": w, "ops": len(m.main.global_block().ops)},
         {"chains": 1}, (fetch, scores))
-    _ctc_step_phase("ctc_pool_chain", fluid, m, stacked)
+    _slice_step_phase("ctc_pool_chain", fluid, m, stacked)
     return launched
 
 
-def _ctc_step_phase(name, fluid, model, stacked):
+def _slice_step_phase(name, fluid, model, stacked, lowerings=SLICE_LOWERINGS):
     """Phase `name`_step: busy share (with the top kernels), device kernels
     and host syncs of a step of `model`; it fails if a sync lies in the
-    slice's lowerings."""
+    slice's `lowerings`."""
     t0 = time.perf_counter()
     busy = _busy_named(fluid, model, {k: v[0] for k, v in stacked.items()})
     busy["device_kernels_a_step"] = sum(
         c for _, c in busy["device_ms_by_kind"].values())
     syncs = _step_syncs(fluid, model, stacked)
-    syncs["in_the_slices_lowerings"] = _slice_syncs(syncs["places"])
+    syncs["in_the_slices_lowerings"] = _slice_syncs(syncs["places"],
+                                                    lowerings)
     ok = not syncs["in_the_slices_lowerings"]
     emit({"phase": name + "_step", "ok": ok, "card": _card(), "busy": busy,
           "step_host_syncs": syncs,
@@ -8164,6 +8165,476 @@ def ctc_pool_phases(fluid, counters, add):
     phase_ctc_pool_lockstep(fluid)
 
 
+# ---- object detection (tools/torch_detection_programs.py) -------------------
+# mobilenet_ssd: MobileNet-SSD at its published widths (VOC: 3 x 300 x 300,
+# 21 classes, batch 64, RMSProp): a _window of SSD_STEPS, images/s, then
+# its _step phase (busy share, kernels a step, host syncs: none may lie
+# in detection_ops.py); then SSD_REQUESTS detect requests of 64 images
+# from the trained scope through the inference program, timed, with
+# evaluator.DetectionMAP accumulating over them (its state reset first)
+# and metrics.DetectionMAP fed the fetched detections: the two mAPs must
+# agree, and every detection row must be padding (label -1) or a class
+# with a score in (0, 1] and a finite box.
+SSD_STEPS = 3
+SSD_REQUESTS = 4
+# faster_rcnn: Faster R-CNN ResNet-50-C4 on one 800 x 1216 image
+# (Momentum): a _window of FRCNN_STEPS, its _step phase, then one
+# inference request (generate_proposals 6,000 / 1,000, per-class decode,
+# multiclass_nms): detections [1, 100, 6], timed, busy share, syncs.
+FRCNN_STEPS = 2
+# detection_chain: the tool's chain at CHAIN's widths (SGD): a _window of
+# DET_CHAIN_STEPS with its outputs checked (finite yolo boxes and scores
+# in [0, 1], mask targets in {-1, 0, 1}, every proposal at a row of its
+# own in RestoreIndex), then its _step phase.
+DET_CHAIN_STEPS = 3
+# detection_lockstep: each program at DET_PARITY's widths, DET_PARITY_STEPS
+# steps in lockstep with the CPU (_lockstep: every op replayed within
+# RESNET_OP_TOL, integers exact, the outputs of DET_EXACT_OPS bit for bit,
+# the loss within OPT_LOSS_REL_MAX); the batch norms' scale and bias
+# gradients, sums that cancel to rounding noise, held to CANCEL_NOISE times
+# the CPU's own error against float64; the chain's outputs that its loss
+# does not read (which the step's plan leaves out) and each model's detect
+# program
+# replayed op by op from the CPU's values (_replay_program); MobileNet-
+# SSD's evaluator over DET_MAP_REQUESTS requests on the card and on the CPU
+# from the same state: its positive counts and tp / fp rows' classes
+# equal, the scores and mAPs within MAP_REL_MAX. Controls, each of which
+# must miss with its op's output the worst of its dtype:
+# generate_proposals without suppression, bipartite_match without its
+# per-prediction fill, roi_align sampling at the bins' corners, box_coder
+# without its +1 pixel (_box_coder_control: Faster R-CNN's decode alone on
+# inputs of a trained model's size), yolov3_loss with
+# ignore_thresh off (the chain's heads at 608, where some predictions
+# overlap a gt box by more than 0.7), roi_pool's Argmax the last of tied
+# maxima (the chain's map after ReLU holds tied zeros).
+DET_PARITY_STEPS = 1
+DET_MAP_REQUESTS = 2
+MAP_REL_MAX = 1e-4
+DET_PARITY = {
+    "mobilenet_ssd": dict(image=[3, 96, 96], classes=5, scale=0.25,
+                          repeats=2, max_gt=6, objects=4, batch=8),
+    "faster_rcnn": dict(image=[3, 128, 192], classes=9, gt=4, channels=8,
+                        depth=[1, 2, 2], head_depth=1, rpn_channels=32,
+                        pre_nms=600, post_nms=100, test_pre_nms=300,
+                        test_post_nms=50, rpn_batch=64, roi_batch=32,
+                        resolution=7, use_random=False),
+    "detection_chain": dict(pooled=3, yolo_batch=2, yolo_image=608,
+                            yolo_classes=80, yolo_gt=50, vgg=[2, 8, 12, 14],
+                            vgg_rois=10, rfcn=[1, 18, 12, 14],
+                            rfcn_classes=2, rfcn_rois=8, face_map=8,
+                            face_image=256, east=[2, 8, 16, 16],
+                            text=[1, 4, 16, 16], quads=6, text_out=[4, 8],
+                            cascade_rois=16, cascade_classes=6, fpn_rois=40,
+                            mask_rois=12, mask_gt=4, mask_vertices=8,
+                            mask_classes=6, mask_res=7, p2=[16, 24])}
+DET_EXACT_OPS = ("bipartite_match", "target_assign", "mine_hard_examples",
+                 "multiclass_nms", "distribute_fpn_proposals",
+                 "generate_mask_labels", "box_clip")
+DET_LOWERINGS = ("paddle_tpu_torch/fluid/ops/detection_ops.py",)
+
+
+def _det_tool():
+    return _load_tool("torch_detection_programs")
+
+
+def _det_window(name, fluid, counters, m, t0, batch, steps, work,
+                check=None):
+    """Model `m` (built since `t0`) at full width through _window (no port
+    kernel on the path), then its _step phase; returns (launches, the
+    trained scope)."""
+    stacked = _stack_feeds([batch(SEED + k) for k in range(steps + 1)])
+    kept = {}
+    fetch, fn = check or ([], None)
+
+    def keep(scope, extra):
+        kept["scope"] = scope
+        return fn(scope, extra) if fn else ({}, True)
+    launched = _window(
+        name, fluid, counters, m[:3], {k: v[:1] for k, v in stacked.items()},
+        {k: v[1:] for k, v in stacked.items()}, steps,
+        dict.fromkeys(counters, 0), None,
+        {"build_seconds": time.perf_counter() - t0, "card": _card(),
+         "ops": len(m.main.global_block().ops)}, work, (fetch, keep))
+    _slice_step_phase(name, fluid, m, stacked, DET_LOWERINGS)
+    return launched, kept["scope"]
+
+
+def _detect_requests(fluid, counters, program, scope, feeds, fetch, images):
+    """_serve_requests of an inference program, with its host syncs in the
+    slice's lowerings (none may be: the detection_map host op reads the
+    card by design, in fluid/host_ops.py)."""
+    rec = _serve_requests(fluid, counters, program, scope, feeds, fetch,
+                          images)
+    rec["in_the_slices_lowerings"] = _slice_syncs(rec["host_sync_places"],
+                                                  DET_LOWERINGS)
+    rec["images_per_s"] = rec.pop("tokens_per_s")
+    rec["images_a_request"] = rec.pop("tokens_a_request")
+    rec.pop("host_syncs_in_the_search")
+    rec["ok"] = not any(rec["port_launches"].values()) and \
+        not rec["in_the_slices_lowerings"]
+    return rec
+
+
+def _detections_ok(det, classes):
+    """Every row padding (label -1) or a class with a score in (0, 1] and
+    a finite box."""
+    import numpy as np
+    label, score = det[..., 0], det[..., 1]
+    real = label >= 0
+    return bool(np.isfinite(det).all()) and \
+        bool(((label == -1) | ((label < classes) & (label == np.round(
+            label)))).all()) and bool(((score[real] > 0) &
+                                       (score[real] <= 1)).all())
+
+
+def phase_mobilenet_ssd(fluid, counters):
+    """MobileNet-SSD: training window, step phase, SSD_REQUESTS detect
+    requests with both DetectionMAPs. Returns the window's launches."""
+    import numpy as np
+    tool = _det_tool()
+    w = tool.SSD
+    t0 = time.perf_counter()
+    m = tool.mobilenet_ssd(fluid, seed=SEED)
+    launched, scope = _det_window("mobilenet_ssd", fluid, counters, m, t0,
+                                  tool.ssd_batch, SSD_STEPS,
+                                  {"images": w["batch"]})
+    t0 = time.perf_counter()
+    infer = m.extra["infer"]
+    ev = infer.extra["evaluator"]
+    exe = fluid.Executor()
+    exe.run(infer.startup, scope=scope)
+    feeds = [tool.ssd_batch(SEED + 60 + k) for k in range(SSD_REQUESTS)]
+    fetch = [infer.out] + infer.extra["maps"]
+    rec = _detect_requests(fluid, counters, infer.main, scope, feeds, fetch,
+                           w["batch"])
+    with fluid.scope_guard(scope):
+        ev.reset(exe)
+    metric = fluid.metrics.DetectionMAP(overlap_threshold=0.5,
+                                        evaluate_difficult=False,
+                                        ap_version="11point")
+    dets_ok, maps = True, []
+    for f in feeds:
+        det, cur, accum = exe.run(infer.main, feed=f, fetch_list=fetch,
+                                  scope=scope)
+        gt = np.concatenate([f["gt_label"].astype(np.float32), f["gt_box"],
+                             f["difficult"].astype(np.float32)], -1)
+        metric.update(det, gt)
+        maps.append([float(cur[0]), float(accum[0]), metric.eval()])
+        dets_ok = dets_ok and _detections_ok(det, w["classes"]) and \
+            det.shape == (w["batch"], 200, 6)
+    agree = abs(maps[-1][1] - maps[-1][2]) <= 1e-6
+    rec.update({"ops": len(infer.main.global_block().ops),
+                "maps_batch_accum_metrics": maps,
+                "evaluator_equals_metrics": agree,
+                "detections_well_formed": dets_ok})
+    rec["ok"] = rec["ok"] and agree and dets_ok
+    emit(dict({"phase": "mobilenet_ssd_detect", "card": _card(),
+               "phase_seconds": time.perf_counter() - t0}, **rec))
+    if not rec["ok"]:
+        raise AssertionError("mobilenet_ssd: the detect requests failed %s"
+                             % rec)
+    return launched
+
+
+def phase_faster_rcnn(fluid, counters):
+    """Faster R-CNN: training window, step phase, one inference request.
+    Returns the window's launches."""
+    tool = _det_tool()
+    w = tool.FRCNN
+    t0 = time.perf_counter()
+    m = tool.faster_rcnn(fluid, seed=SEED)
+    launched, scope = _det_window("faster_rcnn", fluid, counters, m, t0,
+                                  tool.frcnn_batch, FRCNN_STEPS,
+                                  {"images": 1})
+    t0 = time.perf_counter()
+    infer = m.extra["infer"]
+    f = tool.frcnn_batch(SEED + 60)
+    feed = {k: f[k] for k in infer.feeds}
+    rec = _detect_requests(fluid, counters, infer.main, scope, [feed],
+                           [infer.out], 1)
+    det, = fluid.Executor().run(infer.main, feed=feed, fetch_list=[infer.out],
+                                scope=scope)
+    ok = det.shape == (1, 100, 6) and _detections_ok(det, w["classes"])
+    rec.update({"ops": len(infer.main.global_block().ops),
+                "detections_well_formed": ok,
+                "detections": int((det[..., 0] >= 0).sum())})
+    rec["ok"] = rec["ok"] and ok
+    emit(dict({"phase": "faster_rcnn_detect", "card": _card(),
+               "phase_seconds": time.perf_counter() - t0}, **rec))
+    if not rec["ok"]:
+        raise AssertionError("faster_rcnn: the inference request failed %s"
+                             % rec)
+    return launched
+
+
+def phase_detection_chain(fluid, counters):
+    """The chain at CHAIN's widths: a _window with its outputs checked,
+    then its _step phase. Returns the window's launches."""
+    import numpy as np
+    tool = _det_tool()
+    w = tool.CHAIN
+
+    def scores(scope, extra):
+        boxes, probs, masks, restore = (v.cpu().numpy() for v in extra)
+        rec = {"yolo_boxes_finite": bool(np.isfinite(boxes).all()),
+               "yolo_scores_in_range": bool(((probs >= 0) & (probs <= 1))
+                                            .all()),
+               "mask_values": sorted(int(v) for v in np.unique(masks)),
+               "every_roi_placed_once": all(
+                   (r >= 0).all() and len(set(r.reshape(-1).tolist())) ==
+                   w["fpn_rois"] for r in restore)}
+        ok = rec["yolo_boxes_finite"] and rec["yolo_scores_in_range"] and \
+            set(rec["mask_values"]) <= {-1, 0, 1} and \
+            rec["every_roi_placed_once"]
+        return {"scores": rec}, ok
+    t0 = time.perf_counter()
+    m = tool.detection_chain(fluid, seed=SEED)
+    ex = m.extra
+    fetch = [ex["yolo_boxes"][2], ex["yolo_scores"][2], ex["masks"][2],
+             ex["fpn_restore"]]
+    launched, _ = _det_window("detection_chain", fluid, counters, m, t0,
+                              tool.chain_batch, DET_CHAIN_STEPS,
+                              {"chains": 1}, (fetch, scores))
+    return launched
+
+
+def _bn_gradients(main):
+    """The scale and bias gradients of main's batch norms: sums over a
+    channel that cancel to rounding noise."""
+    block = main.global_block()
+    return tuple(sorted(op.input(s)[0] + "@GRAD" for op in block.ops
+                        if op.type == "batch_norm" for s in ("Scale", "Bias")
+                        if block.has_var(op.input(s)[0] + "@GRAD")))
+
+
+def _no_suppression(iou, thresh):
+    import torch
+    return torch.ones(iou.shape[:-1], dtype=torch.bool, device=iou.device)
+
+
+def _at_bin_corners(n, dtype, device):
+    import torch
+    return torch.arange(n, dtype=dtype, device=device) / n
+
+
+def _last_maximum(forward):
+    """roi_pool's `forward` with each bin's Argmax its last maximum in
+    row-major order (the first of the map turned half round)."""
+    def fn(x, bids, ymask, xmask):
+        out, arg = forward(x.flip(2, 3), bids, ymask.flip(-1),
+                           xmask.flip(-1))
+        last = x.shape[2] * x.shape[3] - 1
+        return out, arg.where(arg < 0, last - arg)
+    return fn
+
+
+def _box_coder_control(fluid, tool, widths):
+    """Faster R-CNN's decode alone (box_coder decode_center_size in pixels,
+    the regression weights as variances) replayed on the card from the
+    CPU's values, then with box_normalized on the card, which drops its
+    +1 pixel: {"box_coder_decode": readings, "control_box_coder_without_
+    the_pixel": readings}. The inputs are of a trained model's size: 64
+    RoIs of 16 to 96 pixels inside DET_PARITY's image and deltas N(0, 1)
+    for each class (shifts of 10 to 20% of a RoI). The pixel moves a
+    decoded corner by about var * delta of a pixel: replayed in the whole
+    detect program it missed by 1.41e-4 of the largest corner against the
+    1e-4 limit; on these inputs the CPU's two decodes differ by 2.7e-3 to
+    3.6e-3 of it (seeds 0 to 4)."""
+    import numpy as np
+    from unittest import mock
+    from paddle_tpu_torch.fluid.ops import detection_ops as D
+    from paddle_tpu_torch.fluid.ops import registry
+    L = fluid.layers
+    r, c = 64, widths["classes"]
+    h, w = widths["image"][1:]
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        rois = L.data(name="rois", shape=[r, 4], dtype="float32",
+                      append_batch_size=False)
+        deltas = L.data(name="deltas", shape=[c, r, 4], dtype="float32",
+                        append_batch_size=False)
+        weights = L.assign(np.tile(np.float32(tool.FRCNN_REG_WEIGHTS),
+                                   (r, 1)))
+        out = L.box_coder(rois, weights, deltas,
+                          code_type="decode_center_size",
+                          box_normalized=False)
+    rng = np.random.RandomState(SEED + 360)
+    sides = rng.uniform(16, 96, (r, 2))
+    x0, y0 = rng.uniform(0, w - sides[:, 0]), rng.uniform(0, h - sides[:, 1])
+    feed = {"rois": np.stack([x0, y0, x0 + sides[:, 0], y0 + sides[:, 1]],
+                             1).astype(np.float32),
+            "deltas": rng.randn(c, r, 4).astype(np.float32)}
+    rec, ok, _ = _replay_program(fluid, main, [out.name], {}, feed)
+    results = {"box_coder_decode": dict(rec, ok=ok)}
+    plus_one = _on_the_card(D._box_coder, lambda i, a: (
+        i, dict(a, box_normalized=True)))
+    with mock.patch.dict(registry._LOWERINGS, box_coder=plus_one):
+        rec, passed, _ = _replay_program(fluid, main, [out.name], {}, feed)
+    results["control_box_coder_without_the_pixel"] = dict(
+        rec, ok=_named_miss(rec, passed, "float32", ("box_coder",)))
+    return results
+
+
+def _det_controls():
+    """{program: {control: ({op type: lowering}, dtype, named op types)}}
+    for detection_lockstep."""
+    from paddle_tpu_torch.fluid.ops import detection_ops as D
+    return {
+        "faster_rcnn": {
+            "nms_without_suppression": (
+                {"generate_proposals": _on_card_patched(
+                    D._generate_proposals, D, "greedy_keep",
+                    _no_suppression)},
+                "float32", ("generate_proposals",)),
+            "roi_align_at_bin_corners": (
+                {"roi_align": _on_card_patched(D._roi_align, D,
+                                               "sample_offsets",
+                                               _at_bin_corners)},
+                "float32", ("roi_align", "grad_of:roi_align"))},
+        "mobilenet_ssd": {
+            "bipartite_match_without_the_per_prediction_fill": (
+                {"bipartite_match": _on_the_card(D._bipartite_match,
+                                                 lambda i, a: (i, dict(
+                                                     a, match_type=
+                                                     "bipartite")))},
+                "int32", ("bipartite_match",))},
+        "detection_chain": {
+            "yolov3_loss_without_ignore_thresh": (
+                {"yolov3_loss": _on_the_card(D._yolov3_loss, lambda i, a: (
+                    i, dict(a, ignore_thresh=1.0)))},
+                "float32", ("yolov3_loss",)),
+            "roi_pool_argmax_the_last_maximum": (
+                {"roi_pool": _on_card_patched(D._roi_pool, D,
+                                              "_roi_max_forward",
+                                              _last_maximum(
+                                                  D._roi_max_forward))},
+                "int64", ("roi_pool",))}}
+
+
+def _chain_side_outputs(m):
+    """The names of the chain's outputs that its loss does not read."""
+    ex = m.extra
+    out = ex["yolo_boxes"] + ex["yolo_scores"] + list(ex["masks"]) + \
+        ex["fpn_levels"] + [ex[k] for k in (
+            "density_boxes", "polygons", "decoded", "assigned",
+            "fpn_restore", "p2_anchors")]
+    return [v.name for v in out]
+
+
+def _detect_program(m):
+    """The model's inference program pruned to its detections (no host
+    op), and its feeds."""
+    infer = m.extra["infer"]
+    feeds = [n for n in infer.feeds if n in ("image", "im_info")]
+    return infer.main._prune(feeds, [infer.out.name]), feeds
+
+
+def _map_state_parity(fluid, tool, m, state, widths):
+    """MobileNet-SSD's evaluator over DET_MAP_REQUESTS requests on the card
+    and on the CPU from `state`: (readings, ok)."""
+    import numpy as np
+    infer = m.extra["infer"]
+    ev = infer.extra["evaluator"]
+    fetch = [infer.out] + infer.extra["maps"]
+    runs = {}
+    for place in ("cpu", "cuda"):
+        exe = fluid.Executor(fluid.CPUPlace() if place == "cpu" else None)
+        scope = fluid.Scope()
+        for n, t in state.items():
+            scope.set(n, t.to(place, copy=True))
+        exe.run(infer.startup, scope=scope)
+        maps = []
+        for k in range(DET_MAP_REQUESTS):
+            f = tool.ssd_batch(SEED + 400 + k, **widths)
+            _, cur, accum = exe.run(infer.main, feed=f, fetch_list=fetch,
+                                    scope=scope)
+            maps.append([float(cur[0]), float(accum[0])])
+        runs[place] = (maps, [fluid.executor.as_numpy(scope.get(v.name))
+                              for v in ev.states])
+    (cmaps, cstate), (gmaps, gstate) = runs["cpu"], runs["cuda"]
+    counts = all(c.shape == g.shape and (c[:, 0] == g[:, 0]).all()
+                 for c, g in zip(cstate, gstate)) and \
+        (cstate[0] == gstate[0]).all()
+    scores = max(float(np.abs(c[:, 1] - g[:, 1]).max(initial=0.0))
+                 for c, g in zip(cstate[1:], gstate[1:])) \
+        if counts else float("inf")
+    rel = max(abs(a - b) / max(abs(b), 1e-12) if b else abs(a)
+              for ca, ga in zip(cmaps, gmaps) for a, b in zip(ga, ca))
+    rec = {"maps_cpu": cmaps, "maps_card": gmaps,
+           "state_rows": [int(c.shape[0]) for c in cstate],
+           "counts_and_classes_equal": bool(counts),
+           "score_diff_max": scores, "map_rel_err": rel}
+    return rec, bool(counts) and scores <= MAP_REL_MAX and \
+        rel <= MAP_REL_MAX
+
+
+def phase_detection_lockstep(fluid):
+    """The slice's three programs in lockstep with the CPU at
+    DET_PARITY's widths, both detect programs replayed, MobileNet-SSD's
+    mAP state on both, and the six controls (checks: no launch counted)."""
+    from unittest import mock
+    from paddle_tpu_torch.fluid.ops import registry
+    tool = _det_tool()
+    t0 = time.perf_counter()
+    results = {}
+    controls = _det_controls()
+    for name, (build, batch, _) in tool.PROGRAMS.items():
+        widths = DET_PARITY[name]
+        m = build(fluid, seed=SEED, **widths)
+        feeds = [batch(SEED + 300 + k, **widths)
+                 for k in range(DET_PARITY_STEPS)]
+        cancelling = _bn_gradients(m.main)
+        _, rec, ok = _lockstep(fluid, m[:3], feeds, exact_ops=DET_EXACT_OPS,
+                               cancelling=cancelling)
+        results[name] = dict(rec, widths=widths, ok=ok)
+        scope = fluid.Scope()
+        fluid.Executor(fluid.CPUPlace()).run(m.startup, scope=scope)
+        state = {n: scope.get(n) for n, v in m.main.global_block().vars.items()
+                 if v.persistable and scope.get(n) is not None}
+        if name == "detection_chain":
+            # the outputs the loss does not read, which the step's plan
+            # leaves out
+            side = _chain_side_outputs(m)
+            rec, ok, _ = _replay_program(fluid, m.main._prune(m.feeds, side),
+                                         side, state, feeds[0])
+            results[name + "_side_outputs"] = dict(rec, ok=ok)
+        if "infer" in m.extra:
+            prog, names = _detect_program(m)
+            f = batch(SEED + 350, **widths)
+            rec, ok, _ = _replay_program(fluid, prog, [m.extra["infer"].out
+                                                       .name], state,
+                                         {n: f[n] for n in names})
+            results[name + "_detect"] = dict(rec, ok=ok)
+            if name == "faster_rcnn":
+                results.update(_box_coder_control(fluid, tool, widths))
+            else:
+                rec, ok = _map_state_parity(fluid, tool, m, state, widths)
+                results[name + "_map_state"] = dict(rec, ok=ok)
+        for cname, (lowerings, dtype, named) in controls.get(name,
+                                                             {}).items():
+            with mock.patch.dict(registry._LOWERINGS, **lowerings):
+                _, rec, passed = _lockstep(fluid, m[:3], feeds[:1],
+                                           exact_ops=DET_EXACT_OPS,
+                                           cancelling=cancelling)
+            results["control_" + cname] = dict(rec, ok=_named_miss(
+                rec, passed, dtype, named))
+    failed = [k for k, r in results.items() if not r["ok"]]
+    emit({"phase": "detection_lockstep", "ok": not failed, "card": _card(),
+          "steps": DET_PARITY_STEPS, "results": results,
+          "phase_seconds": time.perf_counter() - t0})
+    if failed:
+        raise AssertionError("detection_lockstep: %s failed" % failed)
+
+
+def detection_phases(fluid, counters, add):
+    """The object detection slice's phases, each with its launches
+    added."""
+    add(phase_mobilenet_ssd(fluid, counters))
+    add(phase_faster_rcnn(fluid, counters))
+    add(phase_detection_chain(fluid, counters))
+    phase_detection_lockstep(fluid)
+
+
 def _path_numbers(s, path):
     """A kernel's numbers over a path's mix of cases (weighted means)."""
     w = s["weight"]
@@ -8202,7 +8673,8 @@ def main():
               "--sequences": sequence_phases,
               "--recurrent": recurrent_phases,
               "--decoding": decoding_phases,
-              "--ctc": ctc_pool_phases}
+              "--ctc": ctc_pool_phases,
+              "--detection": detection_phases}
     if len(sys.argv) == 2 and sys.argv[1] in slices:
         # one slice's phases alone (no kernel line, no contract line)
         slices[sys.argv[1]](fluid, counters, add)
@@ -8371,6 +8843,11 @@ def main():
     # pooling and unpool, scored by mean_iou), SPP-net, and the four
     # programs in lockstep with the CPU
     ctc_pool_phases(fluid, counters, add)
+    # object detection: MobileNet-SSD (trained, then detect requests scored
+    # by both DetectionMAPs), Faster R-CNN (trained, then an inference
+    # request), every other detection lowering at its source's shape, and
+    # the three programs in lockstep with the CPU
+    detection_phases(fluid, counters, add)
 
     print(_card())
     sources = {"onepass": "attention.cu", "flash": "attention.cu",

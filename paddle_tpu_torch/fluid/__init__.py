@@ -4,7 +4,8 @@ Executor on one torch.device (the card by default), saved, loaded and served
 through fluid.io, fluid.transpiler and fluid.inference. Ragged batches are
 padded data with lengths (fluid.layers.data(lod_level=1), the sequence
 layers, fluid.create_lod_tensor). fluid.contrib holds the seq2seq
-decoders; fluid.metrics and fluid.evaluator the metric accumulators."""
+decoders; fluid.metrics and fluid.evaluator the metric accumulators;
+fluid.host_ops the detection_map host op."""
 from . import core_types
 from . import unique_name
 from . import framework
@@ -27,6 +28,7 @@ from . import clip
 from .clip import (GradientClipByValue, GradientClipByNorm,
                    GradientClipByGlobalNorm, set_gradient_clip)
 from .executor import Executor, Scope, global_scope, scope_guard
+from . import host_ops  # the detection_map host op
 from .interop import params_from_numpy
 from . import io
 from .io import save_vars, save_params, save_persistables, load_vars, \

@@ -3,9 +3,10 @@
 evaluator.py, deprecated there in favour of fluid.metrics). Accumulator
 state lives in persistable variables that the program updates itself:
 EditDistance sums each batch's distances, sequence count and errors into
-them on the device, and ``eval`` reads the sums from the scope.
-ChunkEvaluator (``chunk_eval``) and DetectionMAP (``detection_map``) wait
-for ROADMAP Queue 1 item 6: they raise."""
+them on the device, and ``eval`` reads the sums from the scope;
+DetectionMAP's detection_map host op carries its per-class counts and
+scored matches from run to run. ChunkEvaluator (``chunk_eval``) waits for
+ROADMAP Queue 1 item 6: it raises."""
 import numpy as np
 import torch
 
@@ -100,12 +101,56 @@ class EditDistance(Evaluator):
 
 
 class DetectionMAP(Evaluator):
-    """Detection mAP over the detection_map op's states waits for ROADMAP
-    Queue 1 item 6 (``detection_ops.py``)."""
+    """Detection mean average precision, per batch and accumulated
+    (reference evaluator.py DetectionMAP:298 over the detection_map op's
+    state slots): ``get_map_var()`` gives (this batch's mAP, the mAP over
+    every batch since the last ``reset``)."""
 
     def __init__(self, input, gt_label, gt_box, gt_difficult=None,
                  class_num=None, background_label=0, overlap_threshold=0.5,
                  evaluate_difficult=True, ap_version="integral"):
-        raise NotImplementedError(
-            "evaluator.DetectionMAP builds detection_map, which waits for "
-            "ROADMAP Queue 1 item 6 (detection_ops.py)")
+        super(DetectionMAP, self).__init__("map_eval")
+        gt_label = fluid_layers.cast(x=gt_label, dtype=gt_box.dtype)
+        # the dense layout is [B, M, slots], slots (label, box, difficult)
+        # in the detection_map host op's order
+        if gt_difficult is not None:
+            gt_difficult = fluid_layers.cast(x=gt_difficult,
+                                             dtype=gt_box.dtype)
+            label = fluid_layers.concat([gt_label, gt_box, gt_difficult],
+                                        axis=-1)
+        else:
+            label = fluid_layers.concat([gt_label, gt_box], axis=-1)
+        self.cur_map = fluid_layers.detection_map(
+            input, label, class_num, background_label,
+            overlap_threshold=overlap_threshold,
+            evaluate_difficult=evaluate_difficult, ap_version=ap_version)
+        # accumulation state: per-class (class, n_gt) rows and scored tp /
+        # fp rows
+        self._create_state("accum_pos_count", "float32", [0, 2])
+        self._create_state("accum_true_pos", "float32", [0, 2])
+        self._create_state("accum_false_pos", "float32", [0, 2])
+        self.has_state = self.helper.create_global_variable(
+            name="_".join([self.helper.name, "has_state"]),
+            persistable=True, dtype="int32", shape=[1])
+        self.helper.set_variable_initializer(self.has_state, Constant(0))
+        self.accum_map = fluid_layers.detection_map(
+            input, label, class_num, background_label,
+            overlap_threshold=overlap_threshold,
+            evaluate_difficult=evaluate_difficult,
+            has_state=self.has_state, input_states=self.states,
+            out_states=self.states, ap_version=ap_version)
+        fluid_layers.fill_constant(shape=[1], value=1, dtype="int32",
+                                   out=self.has_state)
+        self.metrics = [self.cur_map, self.accum_map]
+
+    def get_map_var(self):
+        """(this batch's mAP var, the accumulated mAP var)."""
+        return self.cur_map, self.accum_map
+
+    def reset(self, executor, reset_program=None):
+        super(DetectionMAP, self).reset(executor, reset_program)
+        scope = global_scope()
+        old = scope.get(self.has_state.name)
+        device = old.device if old is not None else executor.device
+        scope.set(self.has_state.name,
+                  torch.zeros([1], dtype=torch.int32, device=device))

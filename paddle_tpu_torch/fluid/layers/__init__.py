@@ -8,6 +8,7 @@ from .io import *          # noqa: F401,F403
 from .control_flow import *  # noqa: F401,F403
 from .metric_op import *   # noqa: F401,F403
 from .learning_rate_scheduler import *  # noqa: F401,F403
+from .detection import *   # noqa: F401,F403
 from .sequence import *    # noqa: F401,F403
 
 from . import nn
@@ -17,4 +18,5 @@ from . import io
 from . import control_flow
 from . import metric_op
 from . import learning_rate_scheduler
+from . import detection
 from . import sequence

@@ -1,13 +1,12 @@
 """Python-side metric accumulators (the port's counterpart of
 ``paddle_tpu/fluid/metrics.py``; reference: python/paddle/fluid/metrics.py):
 MetricBase, CompositeMetric, Precision, Recall, Accuracy, ChunkEvaluator,
-EditDistance and Auc, each host-side numpy state fed from fetched outputs
-(numpy arrays, or tensors on any device). DetectionMAP waits for ROADMAP
-Queue 1 item 6's ``detection_ops.py`` and the host ops' detection helpers:
-it raises."""
+EditDistance, Auc and DetectionMAP, each host-side numpy state fed from
+fetched outputs (numpy arrays, or tensors on any device)."""
 import numpy as np
 
 from .executor import as_numpy
+from .host_ops import _detection_batch_stats, _map_from_stats
 
 __all__ = ["MetricBase", "CompositeMetric", "Precision", "Recall", "Accuracy",
            "ChunkEvaluator", "EditDistance", "Auc", "DetectionMAP"]
@@ -180,12 +179,38 @@ class Auc(MetricBase):
 
 
 class DetectionMAP(object):
-    """The JAX package's host-side VOC mAP accumulator reads the host ops'
-    detection helpers, which wait for ROADMAP Queue 1 item 6
-    (``detection_ops.py``)."""
+    """Host-side VOC mAP accumulator (reference metrics.py DetectionMAP):
+    update() takes the fetched detections and ground truth, eval() returns
+    the mAP accumulated so far. The in-program accumulating variant is
+    evaluator.DetectionMAP over the detection_map op's state slots.
+
+    Layouts match the detection_map host op: detections [B, N, 6]
+    (label, score, x1, y1, x2, y2; label < 0 = padding), ground truth
+    [B, M, 5/6] (label, x1, y1, x2, y2[, difficult])."""
 
     def __init__(self, overlap_threshold=0.5, evaluate_difficult=True,
                  ap_version="integral"):
-        raise NotImplementedError(
-            "metrics.DetectionMAP waits for ROADMAP Queue 1 item 6 "
-            "(detection_ops.py and the host ops' detection helpers)")
+        if ap_version not in ("integral", "11point"):
+            raise ValueError("ap_version must be integral or 11point")
+        self.overlap_threshold = overlap_threshold
+        self.evaluate_difficult = evaluate_difficult
+        self.ap_version = ap_version
+        self.reset()
+
+    def reset(self):
+        self._stats = {}
+
+    def update(self, detections, gt):
+        det = as_numpy(detections).astype("float32")
+        gt = as_numpy(gt).astype("float32")
+        if det.ndim == 2:
+            det = det[None]
+            gt = gt[None]
+        batch = _detection_batch_stats(det, gt, self.overlap_threshold,
+                                       self.evaluate_difficult)
+        for cls, (n_gt, marks) in batch.items():
+            old_n, old_marks = self._stats.get(cls, (0, []))
+            self._stats[cls] = (old_n + n_gt, old_marks + marks)
+
+    def eval(self):
+        return _map_from_stats(self._stats, self.ap_version)

@@ -60,3 +60,36 @@ def flatten_to_2d(x, num_col_dims):
     for d in x.shape[num_col_dims:]:
         tail *= d
     return x.reshape(lead, tail)
+
+
+# ---------- ranking: the one place that decides the order of ties ----------
+
+_SAME_WIDTH_INT = {torch.float32: torch.int32, torch.float64: torch.int64,
+                   torch.bfloat16: torch.int16, torch.float16: torch.int16}
+
+
+def total_order_key(x):
+    """Integers that sort as ``jax.lax.top_k`` orders floats: the total
+    order -NaN < -inf < ... < -0.0 < +0.0 < ... < inf < NaN (torch's sort
+    takes -0.0 and +0.0 as equal and puts every NaN last). Integer tensors
+    are their own keys."""
+    if not x.is_floating_point():
+        return x
+    bits = x.view(_SAME_WIDTH_INT[x.dtype])
+    return torch.where(bits < 0, bits ^ torch.iinfo(bits.dtype).max, bits)
+
+
+def top_k(x, k):
+    """``jax.lax.top_k`` over the last axis: the k largest values and their
+    int64 indices in its total order (``total_order_key``), equal values
+    lower index first (``torch.topk`` promises no order among ties)."""
+    idx = torch.sort(total_order_key(x), dim=-1, descending=True,
+                     stable=True)[1][..., :k]
+    return torch.gather(x, -1, idx), idx
+
+
+def argsort(x, dim=-1):
+    """``jnp.argsort``: ascending and stable, -0.0 equal to +0.0 and every
+    NaN last, as torch's stable sort orders them (``torch.argsort`` is
+    unstable by default)."""
+    return torch.sort(x, dim=dim, stable=True)[1]

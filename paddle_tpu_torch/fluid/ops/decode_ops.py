@@ -11,8 +11,8 @@ decode step or a CRF costs launches and no sync. The CRF and Viterbi
 compute in float32, as the JAX lowerings cast.
 
 Ties: ``beam_search`` orders equal scores lower index first, as
-``jax.lax.top_k`` does (a stable descending sort; ``torch.topk`` promises
-no order among ties); Viterbi's ``argmax`` takes the first maximum, as
+``jax.lax.top_k`` does (``common.top_k``; ``torch.topk`` promises no order
+among ties); Viterbi's ``argmax`` takes the first maximum, as
 ``jnp.argmax`` does.
 
 Differences from the Paddle reference that the JAX lowerings have and the
@@ -37,7 +37,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .common import one
+from .common import one, top_k
 from .registry import register_grad_maker, register_lowering
 from .tensor_ops import _Gather, take_rows
 
@@ -57,8 +57,7 @@ def _beam_search(ctx, inputs, attrs):
     bw, v = scores.shape
     b = bw // beam
     grouped = (scores + pre_scores).reshape(b, beam * v)
-    vals, idx = torch.sort(grouped, dim=1, descending=True, stable=True)
-    top_val, top_idx = vals[:, :beam], idx[:, :beam]
+    top_val, top_idx = top_k(grouped, beam)
     parent = top_idx // v + torch.arange(b, device=scores.device)[:, None] \
         * beam
     return {"selected_ids": [(top_idx % v).reshape(-1, 1)],

@@ -45,9 +45,10 @@ class ForwardRecord(object):
 
 
 def record_forward(op, env, ctx, need_grad):
-    """Run forward op ``op`` under autograd, its inputs flagged in
-    ``need_grad`` ({slot: [bool]}) replaced by detached leaves; write its
-    outputs into env and return the ForwardRecord. With no input flagged
+    """Run forward op ``op`` under autograd, its floating-point inputs
+    flagged in ``need_grad`` ({slot: [bool]}) replaced by detached leaves
+    (an integer input, an index that a layer computed, has no gradient);
+    write its outputs into env and return the ForwardRecord. With no leaf
     (the forward op of a paired grad op) it runs without autograd and the
     record keeps only its outputs."""
     inputs, leaves = {}, []
@@ -56,7 +57,8 @@ def record_forward(op, env, ctx, need_grad):
         vals = []
         for i, n in enumerate(names):
             v = None if n == EMPTY_VAR else env[n]
-            if v is not None and i < len(flags) and flags[i]:
+            if v is not None and i < len(flags) and flags[i] and \
+                    v.is_floating_point():
                 v = v.detach().requires_grad_(True)
                 leaves.append(((slot, i), v))
             vals.append(v)

@@ -709,9 +709,9 @@ def _argsort(ctx, inputs, attrs):
     """Sorted values and their int64 indices, ascending and stable (equal
     values, -0.0 and 0.0 among them, keep their order; NaNs go last), as
     ``jnp.sort`` / ``jnp.argsort``."""
-    vals, idx = torch.sort(one(inputs, "X"), dim=attrs.get("axis", -1),
-                           stable=True)
-    return {"Out": [vals], "Indices": [idx]}
+    x, axis = one(inputs, "X"), attrs.get("axis", -1)
+    idx = common.argsort(x, axis)
+    return {"Out": [torch.gather(x, axis, idx)], "Indices": [idx]}
 
 
 @register_lowering("isinf", no_grad=True)
@@ -793,10 +793,8 @@ def _label_smooth(ctx, inputs, attrs):
 @register_lowering("top_k", no_grad=True)
 def _top_k(ctx, inputs, attrs):
     """The k largest values of each row of X's last axis and their int64
-    indices, largest first. Equal values come out lower index first, as
-    ``jax.lax.top_k`` orders them: a stable descending sort, where
-    ``torch.topk`` promises no order among ties."""
-    x = one(inputs, "X")
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    k = attrs["k"]
-    return {"Out": [vals[..., :k]], "Indices": [idx[..., :k]]}
+    indices, largest first, in ``jax.lax.top_k``'s order (``common.top_k``:
+    equal values lower index first, -0.0 below +0.0, NaN above inf and -NaN
+    below -inf)."""
+    vals, idx = common.top_k(one(inputs, "X"), attrs["k"])
+    return {"Out": [vals], "Indices": [idx]}

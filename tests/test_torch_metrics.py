@@ -13,8 +13,9 @@ package's, on the CPU.
 - The evaluator's edit_distance gets no lengths in both packages, so a
   padded row counts whole (ROADMAP Queue 3): [1, 2] against [1, 2, 5, 5]
   reads 0.5.
-- The classes that need later items raise and name ROADMAP Queue 1 item
-  6: metrics.DetectionMAP, evaluator.ChunkEvaluator, evaluator.DetectionMAP.
+- The class that needs a later item raises and names ROADMAP Queue 1 item
+  6: evaluator.ChunkEvaluator (the DetectionMAPs are held in
+  tests/test_torch_detection_layers.py).
 """
 import numpy as np
 import pytest
@@ -159,11 +160,8 @@ def test_evaluator_counts_padded_rows_whole_in_both_packages():
 
 
 @pytest.mark.parametrize("build", [
-    lambda fluid: fluid.metrics.DetectionMAP(),
     lambda fluid: fluid.evaluator.ChunkEvaluator(None, None, "IOB", 3),
-    lambda fluid: fluid.evaluator.DetectionMAP(None, None, None),
-], ids=["metrics.DetectionMAP", "evaluator.ChunkEvaluator",
-        "evaluator.DetectionMAP"])
+], ids=["evaluator.ChunkEvaluator"])
 def test_classes_of_later_items_raise_and_name_the_item(build):
     with pytest.raises(NotImplementedError, match="item 6"):
         build(tfluid)

@@ -453,6 +453,22 @@ def test_top_k_orders_ties_lower_index_first(k):
     np.testing.assert_array_equal(_np(got["Indices"][0]), first)
 
 
+def test_top_k_orders_signed_zeros_and_nans_as_jax():
+    """The top_k op on -0.0 beside +0.0 and NaN of both signs gives the JAX
+    lowering's values (bit for bit) and indices: jax.lax.top_k's total
+    order, which the detection lowerings' ranking shares."""
+    x = np.array([[0.0, -0.0, np.nan, 1.0, -np.nan, -np.inf, np.inf, -0.0],
+                  [-0.0, 0.0, -0.0, 0.0, 1.0, -1.0, 0.0, -0.0]], np.float32)
+    jin, tin = _pair({"X": x}, {})
+    want = jreg.get_lowering("top_k")(jreg.LoweringContext(), jin, {"k": 8})
+    got = treg.get_lowering("top_k")(treg.LoweringContext("cpu"), tin,
+                                     {"k": 8})
+    np.testing.assert_array_equal(_np(got["Out"][0]).view(np.int32),
+                                  _np(want["Out"][0]).view(np.int32))
+    np.testing.assert_array_equal(_np(got["Indices"][0]),
+                                  _np(want["Indices"][0]))
+
+
 @pytest.mark.parametrize("k", [1, 2])
 def test_accuracy_matches_jax_with_its_dtypes(k):
     """Accuracy a float32 scalar, Correct and Total int32 scalars."""

@@ -165,8 +165,10 @@ def op_by_op(model, dtype):
 def replay(tm, fetch, inputs, before, after, vals):
     """The port's plan of program ``tm`` (fetching ``fetch``) run op by op,
     each op on the JAX step's values of its inputs: the feeds ``inputs``,
-    the persistables ``before`` the step, the intermediates ``vals``; each
-    output against the JAX value (``after`` for a persistable). Returns
+    the persistables ``before`` the step (``after`` it, for an op that
+    reads one after the step's last write of it: a step counter that an
+    ``increment`` advanced), the intermediates ``vals``; each output
+    against the JAX value (``after`` for a persistable). Returns
     [(op type, output name, max |port - jax| / max |jax|)]."""
     block = tm.global_block()
     plan = texecutor._Plan(tm, fetch)
@@ -180,7 +182,10 @@ def replay(tm, fetch, inputs, before, after, vals):
         if n in port and n not in final:
             return port[n]
         meta = block.vars[n]
-        v = inputs.get(n, before.get(n, vals.get(n)))
+        if n in final and n in after:
+            v = after[n]      # a persistable read after its last writer
+        else:
+            v = inputs.get(n, before.get(n, vals.get(n)))
         t = tensor_from_numpy(np.asarray(v)).to(to_torch_dtype(meta.dtype))
         return t.reshape(()) if meta.shape == () else t
 
