@@ -2832,7 +2832,7 @@ RESNET_PARITY_BATCH = 4
 RESNET_PARITY_IMAGE = [3, 128, 128]
 RESNET_PARITY_STEPS = 3
 RESNET_OP_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -6, "int64": 0.0,
-                 "int32": 0.0}
+                 "int32": 0.0, "int8": 0.0}
 # A float32 output that cancels to rounding noise cannot be held to 1e-4 of
 # its own size on any device: two evaluations of it differ by their
 # rounding. _lockstep_step lets the card's value differ from the CPU's by
@@ -8238,9 +8238,10 @@ def _det_tool():
 
 
 def _det_window(name, fluid, counters, m, t0, batch, steps, work,
-                check=None):
+                check=None, lowerings=DET_LOWERINGS, info=None):
     """Model `m` (built since `t0`) at full width through _window (no port
-    kernel on the path), then its _step phase; returns (launches, the
+    kernel on the path), then its _step phase (host syncs in the slice's
+    `lowerings`); `info` adds to the window's line. Returns (launches, the
     trained scope)."""
     stacked = _stack_feeds([batch(SEED + k) for k in range(steps + 1)])
     kept = {}
@@ -8253,20 +8254,26 @@ def _det_window(name, fluid, counters, m, t0, batch, steps, work,
         name, fluid, counters, m[:3], {k: v[:1] for k, v in stacked.items()},
         {k: v[1:] for k, v in stacked.items()}, steps,
         dict.fromkeys(counters, 0), None,
-        {"build_seconds": time.perf_counter() - t0, "card": _card(),
-         "ops": len(m.main.global_block().ops)}, work, (fetch, keep))
-    _slice_step_phase(name, fluid, m, stacked, DET_LOWERINGS)
+        dict({"build_seconds": time.perf_counter() - t0, "card": _card(),
+              "ops": len(m.main.global_block().ops)}, **(info or {})),
+        work, (fetch, keep))
+    _slice_step_phase(name, fluid, m, stacked, lowerings)
     return launched, kept["scope"]
 
 
-def _detect_requests(fluid, counters, program, scope, feeds, fetch, images):
-    """_serve_requests of an inference program, with its host syncs in the
-    slice's lowerings (none may be: the detection_map host op reads the
-    card by design, in fluid/host_ops.py)."""
+def _detect_requests(fluid, counters, program, scope, feeds, fetch, images,
+                     lowerings=DET_LOWERINGS):
+    """_serve_requests of an inference program, with its peak memory and
+    its host syncs in the slice's `lowerings` (none may be: the
+    detection_map host op reads the card by design, in
+    fluid/host_ops.py)."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
     rec = _serve_requests(fluid, counters, program, scope, feeds, fetch,
                           images)
+    rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     rec["in_the_slices_lowerings"] = _slice_syncs(rec["host_sync_places"],
-                                                  DET_LOWERINGS)
+                                                  lowerings)
     rec["images_per_s"] = rec.pop("tokens_per_s")
     rec["images_a_request"] = rec.pop("tokens_a_request")
     rec.pop("host_syncs_in_the_search")
@@ -8635,6 +8642,605 @@ def detection_phases(fluid, counters, add):
     phase_detection_lockstep(fluid)
 
 
+# ---- model compression and chunk evaluation --------------------------------
+# tools/torch_compression_programs.py at its full widths (f32, seeded
+# synthetic images and ids; no port kernel on these paths: Momentum and
+# SGD). qat_resnet50: quantization-aware ResNet-50 (224, 1,000 classes,
+# batch 64, Momentum), its QAT_ROUND_TRIPS round trips counted; a _window
+# of QAT_STEPS, its _step phase (busy share, kernels a step, host syncs:
+# none may lie in COMP_LOWERINGS); then QAT_REQUESTS frozen is_test
+# requests of 64 images; the frozen model saved (float), the int8
+# Calibrator over the tool's calibration batches (8 images each) and its
+# int8 model saved, the two artifacts' bytes; the int8 model loaded and
+# QAT_REQUESTS requests of it, its QAT_WEIGHTS weights int8 on the card,
+# its logits against the float model's.
+QAT_STEPS = 3
+QAT_REQUESTS = 4
+QAT_ROUND_TRIPS = 104
+QAT_WEIGHTS = 54
+# slim_resnet: a ResNet-101 teacher merged into a ResNet-50 student (224,
+# batch 32, soft-label and FSP losses, Momentum): a _window of SLIM_STEPS,
+# its _step phase, then Compressor.run with PruneStrategy(0.5) on the
+# student over the tool's two batches: the sparsity read back within
+# SPARSITY_TOL of the ratio, every pruned weight 0 on the card, the host
+# ms of the masks (built on the host, a copy each way a parameter).
+SLIM_STEPS = 3
+SPARSITY_TOL = 0.01
+# srl_chunk_eval: the book's SRL trained SRL_CHUNK_STEPS ragged batches
+# (Executor.run), then CHUNK_REQUESTS tagging requests scored by
+# chunk_eval (busy share, kernels, host syncs), then the same requests
+# through evaluator.ChunkEvaluator (reset first) and metrics.ChunkEvaluator
+# fed the op's counts: their precision, recall and F1 within CHUNK_REL of
+# each other; chunk_eval's own kernels at the request's shape.
+SRL_CHUNK_STEPS = 3
+CHUNK_REQUESTS = 4
+CHUNK_REL = 1e-6
+# compression_chain: the tool's chain at CHAIN's widths (SGD): a _window of
+# COMP_CHAIN_STEPS on one feed with its outputs checked (buckets in [0,
+# vocab), int8 values in range, the channel-wise quantizer's values
+# integers in [-127, 127], pair counts no more than the batch's pairs),
+# then its _step phase.
+COMP_CHAIN_STEPS = 3
+# compression_lockstep: each program at COMP_PARITY's widths, one step in
+# lockstep with the CPU (_lockstep: every op replayed within RESNET_OP_TOL,
+# integers exact, the outputs of COMP_EXACT_OPS bit for bit: quantized
+# values, hash buckets, pair and chunk counts; the batch norms' cancelling
+# gradients passed as `cancelling`). qat_resnet replayed at 8 bits with its
+# whole-step loss not held (one value an ulp from a half step rounds apart
+# on two devices: the loss 15.5% apart at batch 2 on an H100 80GB HBM3 at
+# 700 W), then at the tool's FINE_BITS with the loss held to
+# RESNET_STEP_LIMITS, as resnet_parity's; its frozen program converted to int8
+# from one state on the card and on the CPU (int8 weights bit for bit)
+# and the converted request replayed; the Calibrator's ranges on both
+# within RESNET_OP_TOL. srl_chunk_eval's tagging request replayed, its
+# targets the CPU's own tags but for one position in five (a trained
+# tagger's agreement). Controls, each of which must miss with its op's
+# output the worst of its dtype: quantize by a reciprocal multiply (the
+# chain's activation holds boundary_values), round half away from zero
+# (the quantize op on the half-step grid), hash without its position
+# salt, the channel-wise quantizer with one scale a tensor, the moving
+# average with its rate swapped, chunk_eval without its type check.
+COMP_PARITY_STEPS = 1
+COMP_PARITY = {
+    "qat_resnet": dict(dataset="flowers", depth=50, image=[3, 64, 64],
+                       classes=10, batch=4, calib_batch=2, calib_batches=1),
+    "slim_resnet": dict(dataset="cifar10", teacher_depth=32, depth=20,
+                        image=[3, 32, 32], classes=10, batch=4),
+    "srl_chunk_eval": dict(batch=10),
+    "compression_chain": dict(act=[4, 64, 28, 28],
+                              filters=[[64, 3, 7, 7], [64, 64, 3, 3],
+                                       [256, 64, 1, 1]],
+                              ids_batch=512, queries=16, boundary=256)}
+COMP_EXACT_OPS = ("fake_quantize_abs_max",
+                  "fake_channel_wise_quantize_abs_max", "quantize", "hash",
+                  "positive_negative_pair", "chunk_eval", "crf_decoding")
+COMP_LOWERINGS = ("paddle_tpu_torch/fluid/ops/quantize_ops.py",
+                  "paddle_tpu_torch/fluid/ops/parity_ops.py")
+# a trained tagger's targets: its own tags but for this share of positions
+CHUNK_DISAGREE = 0.2
+
+
+def _comp_tool():
+    return _load_tool("torch_compression_programs")
+
+
+def _comp_io(name):
+    import shutil
+    path = os.path.join(IO_DIR, name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def phase_qat_resnet50(fluid, counters):
+    """QAT ResNet-50: training window and step phase, frozen requests, the
+    float and int8 artifacts, int8 requests. Returns the window's
+    launches."""
+    import numpy as np
+    import torch
+    tool = _comp_tool()
+    w = tool.QAT
+    t0 = time.perf_counter()
+    m = tool.qat_resnet(fluid, seed=SEED)
+    trips = m.extra["round_trips"]
+    launched, scope = _det_window(
+        "qat_resnet50", fluid, counters, m, t0, tool.qat_batch, QAT_STEPS,
+        {"images": w["batch"]}, lowerings=COMP_LOWERINGS,
+        info={"round_trips": trips, "round_trips_want": QAT_ROUND_TRIPS})
+    t0 = time.perf_counter()
+    exe = fluid.Executor()
+    infer = tool.infer_program(fluid, m)
+    logits = infer.global_block().var(m.out.name)
+    feeds = [{"img": tool.qat_batch(SEED + 60 + k)["img"]}
+             for k in range(QAT_REQUESTS)]
+    frozen = _detect_requests(fluid, counters, infer, scope, feeds,
+                              [logits], w["batch"], COMP_LOWERINGS)
+    float_logits = exe.run(infer, feed=feeds[0], fetch_list=[logits],
+                           scope=scope)[0]
+    float_dir, int8_dir = _comp_io("qat_float"), _comp_io("qat_int8")
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(float_dir, ["img"], [logits], exe,
+                                      main_program=infer)
+    cal = fluid.contrib.Calibrator(program=infer, exe=exe,
+                                   feed_var_names=["img"],
+                                   fetch_list=[logits], scope=scope)
+    sampled = len(cal.sampled_names())
+    t1 = time.perf_counter()
+    for k in range(w["calib_batches"]):
+        cal.sample_data(tool.calib_batch(SEED + 80 + k))
+    sample_ms = (time.perf_counter() - t1) * 1e3 / w["calib_batches"]
+    t1 = time.perf_counter()
+    with fluid.scope_guard(scope):
+        cal.save_int8_model(int8_dir)
+    save_s = time.perf_counter() - t1
+    loaded = fluid.Scope()
+    with fluid.scope_guard(loaded):
+        prog, feed_names, fetches = fluid.io.load_inference_model(int8_dir,
+                                                                  exe)
+    int8 = {n: t for n, t in loaded._vars.items() if n.endswith("@INT8")}
+    int8_rec = _detect_requests(fluid, counters, prog, loaded, feeds,
+                                fetches, w["batch"], COMP_LOWERINGS)
+    int8_logits = exe.run(prog, feed=feeds[0], fetch_list=fetches,
+                          scope=loaded)[0]
+    on_card = all(t.dtype == torch.int8 and t.is_cuda for t in int8.values())
+    rel = float(np.abs(int8_logits - float_logits).max() /
+                np.abs(float_logits).max())
+    rec = {"frozen_requests": frozen, "int8_requests": int8_rec,
+           "calibrated_outputs": sampled,
+           "calibration_ms_a_batch": sample_ms,
+           "calibration_batch": w["calib_batch"],
+           "int8_save_seconds": save_s,
+           "float_artifact_bytes": _artifact_bytes(float_dir),
+           "int8_artifact_bytes": _artifact_bytes(int8_dir),
+           "int8_weights": len(int8), "int8_weights_on_card": on_card,
+           "int8_scales": len(prog._dist_attrs.get("int8_scales", {})),
+           "calibrated_scales": len(cal.program._dist_attrs["int8_scales"]),
+           "logits_int8_vs_float_rel": rel,
+           "logits_finite": bool(np.isfinite(int8_logits).all() and
+                                 np.isfinite(float_logits).all()),
+           "feeds": feed_names}
+    rec["artifact_ratio"] = rec["int8_artifact_bytes"] / \
+        rec["float_artifact_bytes"]
+    ok = frozen["ok"] and int8_rec["ok"] and on_card and \
+        len(int8) == QAT_WEIGHTS and trips == QAT_ROUND_TRIPS and \
+        rec["logits_finite"] and 0 < sampled <= 256 and \
+        rec["calibrated_scales"] == sampled and feed_names == ["img"] and \
+        rec["int8_artifact_bytes"] < rec["float_artifact_bytes"]
+    emit(dict({"phase": "qat_resnet50_int8", "ok": ok, "card": _card(),
+               "phase_seconds": time.perf_counter() - t0}, **rec))
+    if not ok:
+        raise AssertionError("qat_resnet50: the int8 path failed %s" % rec)
+    return launched
+
+
+def phase_slim_resnet(fluid, counters):
+    """Distillation and pruning: training window and step phase of the
+    merged program, then Compressor.run with PruneStrategy. Returns the
+    window's launches."""
+    import torch
+    tool = _comp_tool()
+    w = tool.SLIM
+    slim = fluid.contrib.slim
+    t0 = time.perf_counter()
+    m = tool.slim_resnet(fluid, seed=SEED)
+    launched, scope = _det_window(
+        "slim_resnet", fluid, counters, m, t0, tool.slim_batch, SLIM_STEPS,
+        {"images": w["batch"]}, lowerings=COMP_LOWERINGS,
+        info={"teacher_depth": w["teacher_depth"], "depth": w["depth"],
+              "student_params": len(m.extra["student_params"])})
+    t0 = time.perf_counter()
+    host = {"prune": [], "apply_masks": []}
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            host[key].append((time.perf_counter() - t1) * 1e3)
+            return out
+        return run
+    batches = [tool.slim_batch(SEED + 90 + k)
+               for k in range(w["reader_batches"])]
+    strat = slim.PruneStrategy(
+        pruner=timed(slim.prune_parameters, "prune"),
+        target_ratio=w["prune_ratio"], params=m.extra["student_params"])
+    comp = fluid.contrib.Compressor(
+        fluid.CUDAPlace(0), scope, m.main, train_reader=lambda: iter(batches),
+        train_feed_list=["img"], train_fetch_list=[m.loss])
+    comp.strategies = [strat]
+    apply_masks = slim.prune.apply_masks
+    slim.prune.apply_masks = timed(apply_masks, "apply_masks")
+    try:
+        t1 = time.perf_counter()
+        final = comp.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+    finally:
+        slim.prune.apply_masks = apply_masks
+    sparsity = slim.sparsity(scope, strat.masks)
+    dead = all(bool((scope.get(n)[torch.from_numpy(mask).to(
+        scope.get(n).device) == 0] == 0).all())
+        for n, mask in strat.masks.items())
+    finite = all(bool(torch.isfinite(scope.get(n)).all())
+                 for n in strat.masks)
+    rec = {"compressor_seconds": run_s, "batches": len(batches),
+           "pruned_params": len(strat.masks), "sparsity": sparsity,
+           "prune_host_ms": host["prune"],
+           "apply_masks_host_ms_a_batch": host["apply_masks"],
+           "pruned_weights_zero": dead, "weights_finite": finite,
+           "final_ops": len(final.global_block().ops)}
+    ok = abs(sparsity - w["prune_ratio"]) <= SPARSITY_TOL and dead and \
+        finite and len(host["apply_masks"]) == len(batches)
+    emit(dict({"phase": "slim_resnet_compressor", "ok": ok, "card": _card(),
+               "phase_seconds": time.perf_counter() - t0}, **rec))
+    if not ok:
+        raise AssertionError("slim_resnet: the Compressor failed %s" % rec)
+    return launched
+
+
+def phase_srl_chunk_eval(fluid, counters):
+    """The SRL tagger's requests scored by chunk_eval and both
+    ChunkEvaluators. Returns the training window's launches."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.fluid.ops import registry
+    tool = _comp_tool()
+    t0 = time.perf_counter()
+    m = tool.srl_chunk_eval(fluid, seed=SEED)
+    draws = [tool.srl_batch(SEED + k) for k in range(SRL_CHUNK_STEPS + 1)]
+    launched, scope = _ragged_window(
+        "srl_chunk_eval", fluid, counters, m, draws[0], draws[1:],
+        "word_data", dict.fromkeys(counters, 0),
+        {"build_seconds": time.perf_counter() - t0,
+         "chunk_types": m.extra["chunk_types"]})
+    t0 = time.perf_counter()
+    exe = fluid.Executor()
+    tagger, ev = m.extra["tagger"], m.extra["evaluator"]
+    counts = m.extra["counts"]
+    exe.run(tagger.startup, scope=scope)
+    feeds = [tool.srl_batch(SEED + 60 + k) for k in range(CHUNK_REQUESTS)]
+    real = sum(int(f["word_data@LEN"].sum()) for f in feeds) / len(feeds)
+    rec = _detect_requests(fluid, counters, tagger.main, scope, feeds,
+                           [tagger.out] + ev.metrics + counts, real,
+                           COMP_LOWERINGS)
+    rec["labels_per_s"] = rec.pop("images_per_s")
+    rec["labels_a_request"] = rec.pop("images_a_request")
+    metric = fluid.metrics.ChunkEvaluator()
+    seen = []
+    with fluid.scope_guard(scope):
+        ev.reset(exe)
+        for f in feeds:
+            got = exe.run(tagger.main, feed=f, fetch_list=ev.metrics +
+                          counts, scope=scope)
+            metric.update(*got[-3:])
+            seen.append([int(np.asarray(v).reshape(-1)[0])
+                         for v in got[-3:]])
+        evaluated = [float(v[0]) for v in ev.eval(exe)]
+    metrics = list(metric.eval())
+    # chunk_eval alone at a request's shape: its kernels
+    f = feeds[0]
+    lab = torch.from_numpy(f["target"]).cuda()
+    lowering = registry.get_lowering("chunk_eval")
+    ctx = registry.LoweringContext("cuda")
+    attrs = {"chunk_scheme": tool.CHUNK_SCHEME,
+             "num_chunk_types": m.extra["chunk_types"]}
+    _, busy, by_kind = _busy_share(lambda: lowering(
+        ctx, {"Inference": [lab], "Label": [lab]}, attrs))
+    rec.update({"counts_infer_label_correct": seen,
+                "evaluator_prf": evaluated, "metrics_prf": metrics,
+                "chunk_eval_kernels": sum(c for _, c in by_kind.values()),
+                "chunk_eval_device_ms": busy,
+                "request_T": [int(f["word_data"].shape[1]) for f in feeds]})
+    agree = all(abs(a - b) <= CHUNK_REL * max(abs(b), 1e-12)
+                for a, b in zip(evaluated, metrics))
+    sane = all(0 <= c <= min(i, l) for i, l, c in seen) and \
+        all(i > 0 and l > 0 for i, l, _ in seen)
+    rec["ok"] = rec["ok"] and agree and sane
+    emit(dict({"phase": "srl_chunk_eval_requests", "card": _card(),
+               "phase_seconds": time.perf_counter() - t0}, **rec))
+    if not rec["ok"]:
+        raise AssertionError("srl_chunk_eval: the requests failed %s" % rec)
+    return launched
+
+
+def phase_compression_chain(fluid, counters):
+    """The chain at CHAIN's widths: a _window with its outputs checked,
+    then its _step phase. Returns the window's launches."""
+    import numpy as np
+    tool = _comp_tool()
+    w = tool.CHAIN
+
+    def check(scope, extra):
+        buckets, int8, pairs, quantized = extra[0], extra[1], extra[2:5], \
+            extra[5:]
+        b = buckets.cpu().numpy()
+        q8 = int8.cpu().numpy().astype(np.int64)
+        n = w["ids_batch"]
+        rec = {"buckets_in_range": bool(((b >= 0) &
+                                         (b < w["vocab"])).all()),
+               "int8_range": [int(q8.min()), int(q8.max())],
+               "pairs_a_step": [float(p.cpu().numpy().sum()) /
+                                COMP_CHAIN_STEPS for p in pairs],
+               "pairs_bound": n * (n - 1) // 2,
+               "channel_quantized_integers": all(
+                   bool((q.cpu() == q.cpu().round()).all()) and
+                   float(q.abs().max()) <= 127 for q in quantized)}
+        ok = rec["buckets_in_range"] and rec["channel_quantized_integers"] \
+            and -128 <= rec["int8_range"][0] and rec["int8_range"][1] <= 127 \
+            and sum(rec["pairs_a_step"]) <= rec["pairs_bound"]
+        return {"outputs": rec}, ok
+    t0 = time.perf_counter()
+    m = tool.compression_chain(fluid, seed=SEED)
+    ex = m.extra
+    fetch = [ex["buckets"], ex["int8"]] + ex["pairs"] + \
+        ex["channel_quantized"]
+    # one feed for every step: its two [64, 256, 56, 56] activations take
+    # seconds to draw on the host
+    one = tool.chain_batch(SEED)
+    launched, _ = _det_window("compression_chain", fluid, counters, m, t0,
+                              lambda seed: one, COMP_CHAIN_STEPS,
+                              {"chains": 1}, (fetch, check),
+                              lowerings=COMP_LOWERINGS)
+    return launched
+
+
+def _quant_by_reciprocal(x, scale, bits):
+    """quantize_ops._quant multiplying by the scale's reciprocal, as a CUDA
+    kernel divides by a number (a control)."""
+    import torch
+    bnt = float((1 << (bits - 1)) - 1)
+    s = torch.clamp(scale, min=1e-8)
+    return torch.round(torch.clamp(x * (1.0 / s), -1.0, 1.0) * bnt), bnt
+
+
+def _on_card_only(real, control):
+    """`control` on the card, `real` on the CPU."""
+    def lower(ctx, inputs, attrs):
+        fn = control if ctx.device.type == "cuda" else real
+        return fn(ctx, inputs, attrs)
+    return lower
+
+
+def _quantize_half_away(ctx, inputs, attrs):
+    import torch
+    v = inputs["Input"][0] * attrs.get("Scale", 1.0)
+    r = torch.sign(v) * torch.floor(torch.abs(v) + 0.5)
+    return {"Output": [torch.clamp(r, -128, 127).to(torch.int8)]}
+
+
+def _hash_without_salt(ctx, inputs, attrs):
+    import torch
+    from paddle_tpu_torch.fluid.ops import parity_ops as P
+    x = inputs["X"][0]
+    flat = x.reshape(x.shape[0], -1).to(torch.int64) & 0xFFFFFFFF
+    outs = []
+    for i in range(attrs.get("num_hash", 1)):
+        mixed = (P.mul32(flat, 2654435761) +
+                 ((0x9E3779B9 * (i + 1)) & 0xFFFFFFFF)) & 0xFFFFFFFF
+        mixed = P.mul32(mixed ^ (mixed >> 16), 0xC2B2AE35)
+        outs.append(torch.remainder(mixed.sum(dim=1) & 0xFFFFFFFF,
+                                    attrs.get("mod_by", 1)))
+    return {"Out": [torch.stack(outs, dim=1)[..., None]]}
+
+
+def _channel_wise_one_scale(ctx, inputs, attrs):
+    import torch
+    from paddle_tpu_torch.fluid.ops import parity_ops as P
+    outs = P._fake_cw_quant(ctx, inputs, attrs)
+    x = inputs["X"][0]
+    rng = float(2 ** (attrs.get("bit_length", 8) - 1) - 1)
+    s = torch.clamp(x.abs().amax(), min=1e-12)
+    outs["Out"] = [torch.round(x / s * rng)]
+    return outs
+
+
+def _without_type_check(matched):
+    """parity_ops.matched_chunks (`matched`) with the label's chunk types
+    taken to be the inference's: a match opens where both begin any chunk
+    (a control)."""
+    def run(ib, ie, ity, lb, le, lty):
+        import torch
+        return matched(ib, ie, ity, lb, le, torch.where(lty >= 0, ity, lty))
+    return run
+
+
+def _comp_controls():
+    """{program: {control: ({op type: lowering}, dtype, named op types)}}
+    for compression_lockstep."""
+    from paddle_tpu_torch.fluid.ops import parity_ops as P
+    from paddle_tpu_torch.fluid.ops import quantize_ops as Q
+    return {
+        "compression_chain": {
+            "quantize_by_a_reciprocal_multiply": (
+                {"fake_quantize_abs_max": _on_card_patched(
+                    Q._fake_quantize_abs_max, Q, "_quant",
+                    _quant_by_reciprocal)},
+                "float32", ("fake_quantize_abs_max",)),
+            "round_half_away_from_zero": (
+                {"quantize": _on_card_only(Q._quantize,
+                                           _quantize_half_away)},
+                "int8", ("quantize",)),
+            "hash_without_its_position_salt": (
+                {"hash": _on_card_only(P._hash, _hash_without_salt)},
+                "int64", ("hash",)),
+            "channel_wise_quantize_with_one_scale_a_tensor": (
+                {"fake_channel_wise_quantize_abs_max": _on_card_only(
+                    P._fake_cw_quant, _channel_wise_one_scale)},
+                "float32", ("fake_channel_wise_quantize_abs_max",)),
+            "moving_average_with_its_rate_swapped": (
+                {"fake_quantize_moving_average_abs_max": _on_the_card(
+                    Q._fake_quantize_moving_avg, lambda i, a: (i, dict(
+                        a, moving_rate=1.0 - a.get("moving_rate", 0.9))))},
+                "float32", ("fake_quantize_moving_average_abs_max",))},
+        "srl_chunk_eval": {
+            "chunk_eval_without_its_type_check": (
+                {"chunk_eval": _on_card_patched(
+                    P._chunk_eval, P, "matched_chunks",
+                    _without_type_check(P.matched_chunks))},
+                "int64", ("chunk_eval",))}}
+
+
+def _cpu_state(fluid, m):
+    """The persistables after m's startup on the CPU."""
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(m.startup, scope=scope)
+    return {n: scope.get(n) for n, v in m.main.global_block().vars.items()
+            if v.persistable and scope.get(n) is not None}
+
+
+def _tagging_request(fluid, tool, m, state, widths):
+    """The tagger's request feed whose targets are the CPU's own tags but
+    for CHUNK_DISAGREE of positions, and the CPU state with the
+    evaluator's."""
+    import numpy as np
+    tagger = m.extra["tagger"]
+    scope = fluid.Scope()
+    for n, t in state.items():
+        scope.set(n, t.clone())
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(tagger.startup, scope=scope)
+    f = tool.srl_batch(SEED + 500, **widths)
+    tags, = exe.run(tagger.main, feed=f, fetch_list=[tagger.out],
+                    scope=scope)
+    rng = np.random.RandomState(SEED)
+    other = rng.randint(0, tool.SRL["label_dict"], tags.shape)
+    f["target"] = np.where(rng.rand(*tags.shape) < CHUNK_DISAGREE, other,
+                           tags).astype(np.int64)[..., None]
+    full = dict(state)
+    for v in m.extra["evaluator"].states:
+        full[v.name] = scope.get(v.name)
+    return f, full
+
+
+def phase_compression_lockstep(fluid):
+    """The slice's programs in lockstep with the CPU at COMP_PARITY's
+    widths, the int8 conversion and calibration on both, the tagging
+    request replayed, and the six controls (checks: no launch counted)."""
+    from unittest import mock
+    from paddle_tpu_torch.fluid.ops import registry
+    tool = _comp_tool()
+    t0 = time.perf_counter()
+    results = {}
+    controls = _comp_controls()
+    for name, (build, batch, _) in tool.PROGRAMS.items():
+        widths = COMP_PARITY[name]
+        m = build(fluid, seed=SEED, **widths)
+        feeds = [batch(SEED + 300 + k, **widths)
+                 for k in range(COMP_PARITY_STEPS)]
+        cancelling = _bn_gradients(m.main)
+        if name == "qat_resnet":
+            # 8 bits: every op replayed, the whole step's loss not held
+            # (nor its float64 run taken: it rounds apart too)
+            _, rec, ok = _lockstep(fluid, m[:3], feeds,
+                                   exact_ops=COMP_EXACT_OPS,
+                                   loss_rel_max=float("inf"))
+            results[name + "_8_bits"] = dict(rec, widths=widths, ok=ok)
+            widths = dict(widths, bits=tool.FINE_BITS)
+            results.update(_int8_parity(fluid, tool, build(
+                fluid, seed=SEED, **widths), widths))
+        elif name == "srl_chunk_eval":
+            feed, full = _tagging_request(fluid, tool, m,
+                                          _cpu_state(fluid, m), widths)
+            tagger = m.extra["tagger"]
+            fetch = [tagger.out.name] + [v.name for v in m.extra["counts"]]
+            # the request to its tags and counts (the evaluator's sums,
+            # which update its states, left out: no state changes)
+            request = tagger.main._prune(list(feed), fetch)
+            rec, ok, vals = _replay_program(fluid, request, fetch, full,
+                                            feed)
+            counts = [int(vals[n].reshape(-1)[0]) for n in fetch[1:]]
+            results[name + "_request"] = dict(rec, counts=counts,
+                                               ok=ok and counts[2] > 0)
+            for cname, (lowerings, dtype, named) in controls[name].items():
+                with mock.patch.dict(registry._LOWERINGS, **lowerings):
+                    rec, passed, _ = _replay_program(fluid, request, fetch,
+                                                     full, feed)
+                results["control_" + cname] = dict(rec, ok=_named_miss(
+                    rec, passed, dtype, named))
+        else:
+            _, rec, ok = _lockstep(fluid, m[:3], feeds,
+                                   exact_ops=COMP_EXACT_OPS,
+                                   cancelling=cancelling)
+            results[name] = dict(rec, widths=widths, ok=ok)
+            for cname, (lowerings, dtype, named) in controls.get(
+                    name, {}).items():
+                with mock.patch.dict(registry._LOWERINGS, **lowerings):
+                    _, rec, passed = _lockstep(fluid, m[:3], feeds[:1],
+                                               exact_ops=COMP_EXACT_OPS)
+                results["control_" + cname] = dict(rec, ok=_named_miss(
+                    rec, passed, dtype, named))
+    failed = [k for k, r in results.items() if not r["ok"]]
+    emit({"phase": "compression_lockstep", "ok": not failed, "card": _card(),
+          "steps": COMP_PARITY_STEPS, "results": results,
+          "phase_seconds": time.perf_counter() - t0})
+    if failed:
+        raise AssertionError("compression_lockstep: %s failed" % failed)
+
+
+def _int8_parity(fluid, tool, m, widths):
+    """The QAT model at FINE_BITS: one step in lockstep with its loss held
+    to RESNET_STEP_LIMITS (a random-init ResNet-50's whole step: 2.6e-5 at
+    batch 2, 64 x 64, on an H100 80GB HBM3 at 700 W);
+    from the CPU's startup state, the frozen program calibrated and
+    converted to int8 on the card and on the CPU (the ranges within
+    RESNET_OP_TOL, the int8 weights bit for bit) and the converted request
+    replayed on the card. {result: readings}."""
+    import numpy as np
+    out = {}
+    feeds = [tool.qat_batch(SEED + 300, **widths)]
+    _, rec, ok = _lockstep(fluid, m[:3], feeds, exact_ops=COMP_EXACT_OPS,
+                           loss_rel_max=RESNET_STEP_LIMITS["loss"],
+                           cancelling=_bn_gradients(m.main))
+    out["qat_resnet_fine_bits"] = dict(rec, widths=widths, ok=ok)
+    state = _cpu_state(fluid, m)
+    runs = {}
+    for place in ("cpu", "cuda"):
+        exe = fluid.Executor(fluid.CPUPlace() if place == "cpu" else None)
+        infer = tool.infer_program(fluid, m)
+        scope = fluid.Scope()
+        for n, t in state.items():
+            if infer.global_block().has_var(n):
+                scope.set(n, t.to(place, copy=True))
+        cal = fluid.contrib.Calibrator(
+            program=infer, exe=exe, feed_var_names=["img"],
+            fetch_list=[infer.global_block().var(m.out.name)], scope=scope)
+        cal.sample_data(tool.calib_batch(SEED + 310, **widths))
+        ranges = dict(cal._ranges)
+        with fluid.scope_guard(scope):
+            cal.save_int8_model()
+        int8 = {n: fluid.executor.as_numpy(t) for n, t in scope._vars.items()
+                if n.endswith("@INT8")}
+        runs[place] = (ranges, int8, infer, scope)
+    (cr, ci, cprog, cscope), (gr, gi, _, _) = runs["cpu"], runs["cuda"]
+    range_err = max(abs(gr[n] - v) / max(v, 1e-12) for n, v in cr.items())
+    same_int8 = set(gi) == set(ci) and all(
+        gi[n].dtype == np.int8 and (gi[n] == ci[n]).all() for n in ci)
+    out["qat_int8_conversion"] = {
+        "calibrated_outputs": len(cr), "range_rel_err": range_err,
+        "int8_weights": len(ci), "int8_bit_for_bit": bool(same_int8),
+        "ok": bool(same_int8) and range_err <= RESNET_OP_TOL["float32"] and
+        set(gr) == set(cr)}
+    converted = {n: cscope.get(n) for n, v in cprog.global_block()
+                 .vars.items() if v.persistable and
+                 cscope.get(n) is not None}
+    rec, ok, _ = _replay_program(
+        fluid, cprog, [m.out.name], converted,
+        {"img": tool.qat_batch(SEED + 320, **widths)["img"]})
+    out["qat_int8_request"] = dict(rec, ok=ok)
+    return out
+
+
+def compression_phases(fluid, counters, add):
+    """The model compression and chunk evaluation slice's phases, each
+    with its launches added."""
+    add(phase_qat_resnet50(fluid, counters))
+    add(phase_slim_resnet(fluid, counters))
+    add(phase_srl_chunk_eval(fluid, counters))
+    add(phase_compression_chain(fluid, counters))
+    phase_compression_lockstep(fluid)
+
+
 def _path_numbers(s, path):
     """A kernel's numbers over a path's mix of cases (weighted means)."""
     w = s["weight"]
@@ -8674,7 +9280,8 @@ def main():
               "--recurrent": recurrent_phases,
               "--decoding": decoding_phases,
               "--ctc": ctc_pool_phases,
-              "--detection": detection_phases}
+              "--detection": detection_phases,
+              "--compression": compression_phases}
     if len(sys.argv) == 2 and sys.argv[1] in slices:
         # one slice's phases alone (no kernel line, no contract line)
         slices[sys.argv[1]](fluid, counters, add)
@@ -8848,6 +9455,12 @@ def main():
     # request), every other detection lowering at its source's shape, and
     # the three programs in lockstep with the CPU
     detection_phases(fluid, counters, add)
+    # model compression and chunk evaluation: a quantization-aware ResNet-50
+    # (trained, frozen, calibrated, saved and served in int8), a ResNet-101
+    # teacher distilled into a ResNet-50 student pruned by the Compressor,
+    # the book's SRL tagger scored by chunk_eval, every other compression
+    # lowering at its source's shape, and the four in lockstep with the CPU
+    compression_phases(fluid, counters, add)
 
     print(_card())
     sources = {"onepass": "attention.cu", "flash": "attention.cu",

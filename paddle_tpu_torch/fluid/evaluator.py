@@ -5,8 +5,8 @@ state lives in persistable variables that the program updates itself:
 EditDistance sums each batch's distances, sequence count and errors into
 them on the device, and ``eval`` reads the sums from the scope;
 DetectionMAP's detection_map host op carries its per-class counts and
-scored matches from run to run. ChunkEvaluator (``chunk_eval``) waits for
-ROADMAP Queue 1 item 6: it raises."""
+scored matches from run to run; ChunkEvaluator sums the chunk_eval op's
+three counts into its states on the device."""
 import numpy as np
 import torch
 
@@ -49,14 +49,47 @@ class Evaluator(object):
 
 
 class ChunkEvaluator(Evaluator):
-    """Chunk F1 over the chunk_eval op's counts waits for ROADMAP Queue 1
-    item 6 (``parity_ops.py``'s chunk_eval)."""
+    """Chunk (NER span) F1 accumulated across minibatches by in-program
+    sums over the chunk_eval op's counts (reference evaluator.py
+    ChunkEvaluator:120). chunk_eval gets no lengths, as in the JAX
+    package: a padded tail is scored as tags."""
 
     def __init__(self, input, label, chunk_scheme, num_chunk_types,
                  excluded_chunk_types=None):
-        raise NotImplementedError(
-            "evaluator.ChunkEvaluator builds chunk_eval, which waits for "
-            "ROADMAP Queue 1 item 6 (parity_ops.py)")
+        super(ChunkEvaluator, self).__init__("chunk_eval")
+        self.num_infer_chunks = self._create_state(
+            "num_infer_chunks", "int64", [1])
+        self.num_label_chunks = self._create_state(
+            "num_label_chunks", "int64", [1])
+        self.num_correct_chunks = self._create_state(
+            "num_correct_chunks", "int64", [1])
+        (precision, recall, f1, num_infer, num_label,
+         num_correct) = fluid_layers.chunk_eval(
+            input=input, label=label, chunk_scheme=chunk_scheme,
+            num_chunk_types=num_chunk_types,
+            excluded_chunk_types=excluded_chunk_types)
+        fluid_layers.sums([self.num_infer_chunks, num_infer],
+                          out=self.num_infer_chunks)
+        fluid_layers.sums([self.num_label_chunks, num_label],
+                          out=self.num_label_chunks)
+        fluid_layers.sums([self.num_correct_chunks, num_correct],
+                          out=self.num_correct_chunks)
+        self.metrics = [precision, recall, f1]
+
+    def eval(self, executor, eval_program=None):
+        """(precision, recall, f1), each float32 [1], from the states in
+        the global scope."""
+        scope = global_scope()
+        ni = float(as_numpy(scope.get(self.num_infer_chunks.name)).sum())
+        nl = float(as_numpy(scope.get(self.num_label_chunks.name)).sum())
+        nc = float(as_numpy(scope.get(self.num_correct_chunks.name)).sum())
+        precision = nc / ni if ni else 0.0
+        recall = nc / nl if nl else 0.0
+        f1 = (2.0 * precision * recall / (precision + recall)
+              if precision + recall else 0.0)
+        return (np.asarray([precision], "float32"),
+                np.asarray([recall], "float32"),
+                np.asarray([f1], "float32"))
 
 
 class EditDistance(Evaluator):

@@ -87,6 +87,11 @@ class Scope(object):
     def set(self, name, value):
         self._vars[name] = value
 
+    def erase(self, names):
+        """Drop the values of `names` (absent names are skipped)."""
+        for n in names:
+            self._vars.pop(n, None)
+
 
 class _VarHandle(object):
     """The reference pybind Variable handle surface (get_tensor etc.)."""

@@ -205,6 +205,15 @@ class Operator(object):
     def attr(self, name, default=None):
         return self.attrs.get(name, default)
 
+    def has_attr(self, name):
+        return name in self.attrs
+
+    def rename_input(self, old, new):
+        """Read `new` wherever this op reads `old`."""
+        for slot, vs in self.inputs.items():
+            self.inputs[slot] = [new if n == old else n for n in vs]
+        self.block.program._bump_version()
+
     @property
     def op_role(self):
         return self.attrs.get(OpRole.KEY, OpRole.Forward)
@@ -357,6 +366,9 @@ class Program(object):
         self._is_test = False
         Program._id_counter += 1
         self.id = Program._id_counter
+        # side-band metadata serialized with the program's JSON form and
+        # carried by clone: the int8 Calibrator's per-tensor scales
+        self._dist_attrs = {}
 
     def _bump_version(self):
         self.version += 1
@@ -458,12 +470,14 @@ class Program(object):
     # ---- serialization ----
     def to_dict(self):
         return {"version": 1, "random_seed": self.random_seed,
-                "blocks": [b.to_dict() for b in self.blocks]}
+                "blocks": [b.to_dict() for b in self.blocks],
+                "dist_attrs": self._dist_attrs}
 
     @staticmethod
     def from_dict(d):
         p = Program()
         p.random_seed = d.get("random_seed", 0)
+        p._dist_attrs = dict(d.get("dist_attrs", {}))
         p.blocks = []
         for bd in d["blocks"]:
             b = Block(p, bd["idx"], bd.get("parent_idx", -1))

@@ -60,7 +60,7 @@ __all__ = [
     "lod_reset", "dynamic_lstm", "dynamic_lstmp", "dynamic_gru", "gru_unit",
     "lstm_unit", "lstm", "linear_chain_crf", "crf_decoding", "nce",
     "beam_search", "beam_search_decode", "warpctc", "ctc_greedy_decoder",
-    "edit_distance", "mean_iou",
+    "edit_distance", "mean_iou", "chunk_eval", "hash",
 ]
 
 
@@ -1276,6 +1276,46 @@ def similarity_focus(input, axis, indexes, name=None):
                      outputs={"Out": [out]},
                      attrs={"axis": axis, "indexes": list(indexes)})
     return out
+
+
+def hash(input, hash_size, num_hash=1, name=None):
+    """Hash int id rows into hash_size buckets, num_hash ways: int64 [B,
+    num_hash, 1] (reference hash_op.cc; the JAX package's mixer, not
+    xxHash: ROADMAP Queue 3)."""
+    helper = LayerHelper("hash", input=input, name=name)
+    out = helper.create_variable_for_type_inference("int64",
+                                                    stop_gradient=True)
+    helper.append_op(type="hash", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"mod_by": hash_size, "num_hash": num_hash})
+    return out
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None):
+    """Chunk (NER span) evaluation over tag ids [B, T] or [B, T, 1]
+    (reference chunk_eval_op): (precision, recall, f1, num_infer_chunks,
+    num_label_chunks, num_correct_chunks). No Length input, as in the JAX
+    package: a padded tail is scored as tags (ROADMAP Queue 3)."""
+    helper = LayerHelper("chunk_eval", input=input)
+
+    def out(dtype):
+        return helper.create_variable_for_type_inference(dtype,
+                                                         stop_gradient=True)
+    precision, recall, f1 = out("float32"), out("float32"), out("float32")
+    num_infer, num_label, num_correct = out("int64"), out("int64"), \
+        out("int64")
+    helper.append_op(
+        type="chunk_eval",
+        inputs={"Inference": [input], "Label": [label]},
+        outputs={"Precision": [precision], "Recall": [recall],
+                 "F1-Score": [f1], "NumInferChunks": [num_infer],
+                 "NumLabelChunks": [num_label],
+                 "NumCorrectChunks": [num_correct]},
+        attrs={"chunk_scheme": chunk_scheme,
+               "num_chunk_types": num_chunk_types,
+               "excluded_chunk_types": excluded_chunk_types or []})
+    return precision, recall, f1, num_infer, num_label, num_correct
 
 
 def fsp_matrix(x, y):

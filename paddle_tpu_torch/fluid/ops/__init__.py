@@ -22,6 +22,8 @@ from . import sequence_ops    # noqa: F401
 from . import decode_ops      # noqa: F401
 from . import ctc_pool_ops    # noqa: F401
 from . import detection_ops   # noqa: F401
+from . import quantize_ops    # noqa: F401
+from . import parity_ops      # noqa: F401
 from . import grad_ops        # noqa: F401
 
 __all__ = ["register_lowering", "get_lowering", "has_lowering",

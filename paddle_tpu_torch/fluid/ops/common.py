@@ -34,6 +34,22 @@ def round_scalar(value, dtype):
     return torch.tensor(value, dtype=dtype).item()
 
 
+def jnp_abs(x):
+    """|x| with ``jnp.abs``'s gradient: 1 at 0, where ``torch.abs`` gives
+    0."""
+    return torch.where(x >= 0, x, -x)
+
+
+def true_div(a, b):
+    """a / b for a Python number b, rounded as IEEE division on every
+    device: PyTorch's CUDA kernels multiply by a scalar divisor's
+    reciprocal, which can land an ulp off (7 / 3 then times 3 is
+    7.0000005, and a bin edge's ceil 8 where the CPU's and XLA's give
+    7; a quantized value on a .5 boundary then rounds to its
+    neighbour)."""
+    return a / torch.full((), b, dtype=a.dtype, device=a.device)
+
+
 def align_rank(x, y, axis):
     """Fluid elementwise broadcast: y's dims align to x starting at ``axis``
     (reference: operators/elementwise/elementwise_op_function.h trim-and-expand

@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from .registry import register_lowering
-from .common import argsort, one, top_k
+from .common import argsort, one, top_k, true_div
 
 # roi_pool gathers the map of at most this many elements for a chunk of
 # RoIs at a time
@@ -58,15 +58,6 @@ def device_constant(array, device):
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
-
-
-def true_div(a, b):
-    """a / b for a Python number b, rounded as IEEE division on every
-    device: PyTorch's CUDA kernels multiply by a scalar divisor's
-    reciprocal, which can land an ulp off (7 / 3 then times 3 is
-    7.0000005, and a bin edge's ceil 8 where the CPU's and XLA's give
-    7)."""
-    return a / torch.full((), b, dtype=a.dtype, device=a.device)
 
 
 def _gather_rows(x, idx):

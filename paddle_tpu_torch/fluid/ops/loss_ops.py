@@ -19,7 +19,7 @@ import torch
 
 from . import common
 from .registry import register_lowering, register_grad_maker
-from .common import one
+from .common import one, jnp_abs as _abs
 
 
 def _hard_label(label, v, ignore):
@@ -173,12 +173,6 @@ def _take_label(x, label):
 
 def _zero_like_scalar(x):
     return torch.zeros((), dtype=x.dtype, device=x.device)
-
-
-def _abs(x):
-    """|x| with ``jnp.abs``'s gradient: 1 at 0, where ``torch.abs`` gives
-    0."""
-    return torch.where(x >= 0, x, -x)
 
 
 @register_lowering("cross_entropy")

@@ -299,15 +299,16 @@ def test_array_op_on_the_gradient_path_raises_as_in_jax():
 
 
 def test_the_cases_cover_the_slice():
-    """278 lowerings and 5 env lowerings in the port (203 before this
+    """297 lowerings and 5 env lowerings in the port (203 before this
     slice, 232 with the sequence slice's 15, 240 with the recurrent
     slice's 8, 246 with the decoding slice's 6, 255 with the CTC and
-    index-pooling slice's 9, 278 with the detection slice's 23); each of
+    index-pooling slice's 9, 278 with the detection slice's 23, 297 with
+    the compression slice's 19); each of
     the slice's 19
     is an op of a program held against the JAX package in
     tests/test_torch_array_ops.py, test_torch_control_flow.py or
     test_torch_static_rnn.py."""
-    assert len(treg._LOWERINGS) == 278
+    assert len(treg._LOWERINGS) == 297
     assert set(treg._ENV_LOWERINGS) == set(jreg._ENV_LOWERINGS) == ENV_SLICE
 
     def module(op):

@@ -13,9 +13,10 @@ package's, on the CPU.
 - The evaluator's edit_distance gets no lengths in both packages, so a
   padded row counts whole (ROADMAP Queue 3): [1, 2] against [1, 2, 5, 5]
   reads 0.5.
-- The class that needs a later item raises and names ROADMAP Queue 1 item
-  6: evaluator.ChunkEvaluator (the DetectionMAPs are held in
-  tests/test_torch_detection_layers.py).
+- A class that needs a later item raises and names ROADMAP Queue 1 item
+  6: ``layers.Go`` (a host op; the DetectionMAPs are held in
+  tests/test_torch_detection_layers.py, evaluator.ChunkEvaluator in
+  tests/test_torch_compression.py).
 """
 import numpy as np
 import pytest
@@ -160,8 +161,8 @@ def test_evaluator_counts_padded_rows_whole_in_both_packages():
 
 
 @pytest.mark.parametrize("build", [
-    lambda fluid: fluid.evaluator.ChunkEvaluator(None, None, "IOB", 3),
-], ids=["evaluator.ChunkEvaluator"])
+    lambda fluid: fluid.layers.Go(),
+], ids=["layers.Go"])
 def test_classes_of_later_items_raise_and_name_the_item(build):
     with pytest.raises(NotImplementedError, match="item 6"):
         build(tfluid)

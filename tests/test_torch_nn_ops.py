@@ -392,24 +392,25 @@ def _lower(op, inputs, attrs, gen=None):
 
 def test_the_cases_cover_the_slice():
     """Each of the 24 lowerings has a case here or a random-op test, in
-    both packages; the port holds 278 (203 after this slice, 14 more with
+    both packages; the port holds 297 (203 after this slice, 14 more with
     the control-flow slice: tests/test_torch_array_ops.py, 15 more with
     the sequence slice: tests/test_torch_sequence_ops.py, 8 more with the
     recurrent slice: tests/test_torch_rnn_ops.py, 6 more with the decoding
     slice: tests/test_torch_decode_ops.py, 9 more with the CTC and
     index-pooling slice: tests/test_torch_ctc_pool_ops.py, 23 more with
-    the detection slice: tests/test_torch_detection_ops.py), and the JAX
-    package's 39 others are what ROADMAP.md lists as still to port: of
+    the detection slice: tests/test_torch_detection_ops.py, 19 more with
+    the compression slice: tests/test_torch_quantize_ops.py and
+    test_torch_parity_ops.py), and the JAX package's 20 others are what ROADMAP.md lists as still to port: of
     nn_ops.py's only switch_moe, sync_batch_norm and sync_batch_norm_grad,
     of misc_nn_ops.py none."""
     assert {_op(c) for c in CASES} | {"sample_logits"} == set(SLICE)
     assert len(SLICE) == 24
     assert all(treg.has_lowering(op) and jreg.has_lowering(op)
                for op in SLICE)
-    assert len(treg._LOWERINGS) == 278
+    assert len(treg._LOWERINGS) == 297
     assert set(treg._LOWERINGS) <= set(jreg._LOWERINGS)
     missing = set(jreg._LOWERINGS) - set(treg._LOWERINGS)
-    assert len(missing) == 39
+    assert len(missing) == 20
 
     def module(op):
         return jreg._LOWERINGS[op].__module__.rsplit(".", 1)[-1]

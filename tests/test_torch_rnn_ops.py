@@ -226,7 +226,7 @@ def _compare(case, want, bf16):
 def test_the_cases_cover_the_slice():
     """The 8 lowerings, each with a case, in both packages, all with a
     gradient; with recurrent, every lowering of the JAX rnn_ops.py; the
-    port holds 278 (with test_torch_decode_ops.py's 6 and
+    port holds 297 (with test_torch_decode_ops.py's 6 and
     test_torch_ctc_pool_ops.py's 9), none the JAX package lacks."""
     assert {_op(c) for c in CASES} == RNN_OPS
     assert {op for op in jreg._LOWERINGS if jreg._LOWERINGS[op].__module__
@@ -235,7 +235,7 @@ def test_the_cases_cover_the_slice():
                for op in RNN_OPS)
     assert not any(jreg.is_no_grad(op) or treg.is_no_grad(op)
                    for op in RNN_OPS)
-    assert len(treg._LOWERINGS) == 278
+    assert len(treg._LOWERINGS) == 297
     assert set(treg._LOWERINGS) <= set(jreg._LOWERINGS)
 
 

@@ -24,10 +24,18 @@ op on the values the JAX executor computed for each op's inputs ("teacher
 forcing"), so that the amplification of rounding through fifty layers does
 not hide an op's error. ``e2e_errors`` compares the port executor's whole
 step with the JAX executor's.
+
+For a float32 value that cancels to rounding noise (a batch norm's scale
+gradient), ``jax_float64_errors`` measures the JAX value's own error
+against the JAX package's step run in float64, and ``bn_gradient_noise``
+the JAX batch-norm gradients' against numpy's float64 sums on the JAX
+step's inputs.
 """
 import collections
+import contextlib
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -370,3 +378,123 @@ def e2e_errors(model, fetched, state, loss, dtype="float32"):
         errs[key + "_max"] = max(r[0] for r in rels)
         errs[key + "_norm"] = max(r[1] for r in rels)
     return errs
+
+
+# ---- float64 references ----------------------------------------------------
+
+def wide(program):
+    """A clone of `program` with every float32 variable, and every float32
+    dtype attr (fill_constant's, cast's), float64."""
+    out = program.clone()
+    block = out.global_block()
+    for v in block.vars.values():
+        if v.dtype == "float32":
+            v.dtype = "float64"
+    for op in block.ops:
+        for k, v in op.attrs.items():
+            if k.endswith("dtype") and v == "float32":
+                op.attrs[k] = "float64"
+    return out
+
+
+@contextlib.contextmanager
+def float64():
+    """x64 on, and ``jnp.float32`` read as ``jnp.float64``, for the JAX
+    runs inside alone: the JAX lowerings cast to ``jnp.float32`` where
+    they want float32 or wider (batch_norm's statistics, the softmax
+    cross-entropy), which in a float64 run means float64.
+    ``jax_enable_x64`` is not set globally: it would reach the later test
+    files of the same worker."""
+    f32 = jnp.float32
+    jnp.float32 = jnp.float64
+    try:
+        with jax.enable_x64(True):
+            yield
+    finally:
+        jnp.float32 = f32
+
+
+def _wide_scope(state):
+    """A JAX scope holding `state`, float32 values widened to float64 (run
+    it with x64 on: int64 values stay int64)."""
+    scope = jfluid.Scope()
+    for n, v in state.items():
+        v = np.asarray(v)
+        scope.set(n, v.astype(np.float64) if v.dtype == np.float32 else v)
+    return scope
+
+
+def rel(want, ref):
+    """max |want - ref| / max |want|."""
+    want, ref = f64(want), f64(ref)
+    if not want.size:
+        return 0.0
+    return float(np.abs(want - ref).max() / (np.abs(want).max() or 1.0))
+
+
+def jax_float64_errors(jmodel, start, steps):
+    """The JAX values' own float32 error against the JAX package's program
+    `jmodel.main` with every float32 variable float64 (``wide``), run under
+    ``float64``: (for each step of `steps` [(feed, the JAX step's
+    intermediates, the state after)] from the JAX state before it, {name:
+    the JAX value's largest error relative to its largest magnitude}, every
+    float intermediate and persistable; and the losses of the float64
+    steps run free from `start`). Nothing of the port runs here, so that a
+    fault of the port's step cannot widen its own limit."""
+    wide_main = wide(jmodel.main)
+    exe = jfluid.Executor(jfluid.CPUPlace())
+    loss = jmodel.loss.name
+    names = sorted(set(steps[0][1]) - {loss})
+    state, out = start, []
+    with float64():
+        for feed, vals, after in steps:
+            scope = _wide_scope(state)
+            ref = dict(zip(names, exe.run(wide_main, feed=feed,
+                                          fetch_list=names, scope=scope)))
+            ref.update({n: np.asarray(scope.get(n)) for n in state})
+            out.append({n: rel(vals.get(n, after.get(n)), r)
+                        for n, r in ref.items()
+                        if np.asarray(vals.get(n, after.get(n))).dtype.kind
+                        == "f"})
+            state = after
+        scope = _wide_scope(start)
+        losses = [float(np.asarray(exe.run(wide_main, feed=feed,
+                                           fetch_list=[loss],
+                                           scope=scope)[0]).reshape(-1)[0])
+                  for feed, _, _ in steps]
+    return out, losses
+
+
+def bn_gradients(program):
+    """The scale and bias gradients of the program's batch norms: sums over
+    a channel that cancel to rounding noise."""
+    block = program.global_block()
+    return {op.input(s)[0] + "@GRAD" for op in block.ops
+            if op.type == "batch_norm" for s in ("Scale", "Bias")
+            if block.has_var(op.input(s)[0] + "@GRAD")}
+
+
+def bn_gradient_noise(program, vals):
+    """{scale or bias gradient: the JAX value's largest error, relative to
+    its largest magnitude, against the gradient in float64 from the JAX
+    step's own X and Y@GRAD} for each batch_norm_grad op (NCHW): the sums
+    over N, H and W of dy * (x - mean) / sqrt(var + eps) and of dy, the
+    batch's statistics taken in two passes, in numpy and not by the port."""
+    out = {}
+    for op in program.global_block().ops:
+        if op.type != "batch_norm_grad":
+            continue
+        assert op.attr("data_layout") in (None, "NCHW")
+        assert not op.attr("is_test") and not op.attr("use_global_stats")
+        x = f64(vals[op.input("X")[0]])
+        dy = f64(vals[op.input("Y@GRAD")[0]])
+        axes = (0,) + tuple(range(2, x.ndim))
+        mean = x.mean(axes, keepdims=True)
+        var = np.square(x - mean).mean(axes, keepdims=True)
+        eps = op.attr("epsilon")
+        xhat = (x - mean) / np.sqrt(var + (1e-5 if eps is None else eps))
+        for slot, ref in (("Scale@GRAD", (dy * xhat).sum(axes)),
+                          ("Bias@GRAD", dy.sum(axes))):
+            n = op.output(slot)[0]
+            out[n] = rel(vals[n], ref)
+    return out
