@@ -9,6 +9,8 @@ toolkit:
     python3 chip_smoke.py --recurrent      # build, then phases 49a-51 only
     python3 chip_smoke.py --decoding       # build, then phases 52-55 only
     python3 chip_smoke.py --ctc            # build, then phases 56-60 only
+    python3 chip_smoke.py --fusion         # build, then phases 61-65 only
+    python3 chip_smoke.py --host-io        # build, then phases 66-67 only
 
 Phases, each printing one JSON line (any failure ends the script with a
 non-zero exit):
@@ -482,6 +484,29 @@ non-zero exit):
               first maximum, unpool's first write winning, edit_distance
               normalized by the hypothesis's length, ctc_align without
               merging.
+61. fused_stacked_lstm - the stacked LSTM with its fc -> dynamic_lstm
+              pairs fused (fusion_lstm), Adam: window, step phase, the
+              unfused twin's busy share, one step of each from one state,
+              folded (fused_embedding_fc_lstm) and unfused requests.
+62. fused_ctr - a Criteo-shaped CTR model through the embedding, pool,
+              FM and tower fusions: window, step phase, its twin, requests.
+63. fused_resnet50 - ResNet-50's request folded by InferenceTranspiler,
+              its conv epilogues fused (conv2d_fusion), against the
+              unfused request.
+64. fusion_chain - every other fused op at its source's shape, forward and
+              backward.
+65. fusion_lockstep - the fused programs and requests in lockstep with
+              the CPU; four controls.
+66. input_pipeline - ResNet-50 from a PyReader and as numpy feeds, the
+              stacked LSTM from a DataFeeder, the py_reader chain, the
+              graph readers to EOFException, the CTR reader.
+67. host_ops_chain - Go blocks, split and merge of DeepFM's ids, py_func in
+              a training step, the combined save and load of ResNet-50's
+              persistables, delete_var, fake_init, the engine stubs; then
+              host_io_lockstep: their exact values against the CPU's,
+              two controls.
+
+Every line carries "script_seconds", the time since the script started.
 
 The kernel cases also time rows 1, 3, 8 and 11 at BERT-base's shapes
 (attention at batch 256, 12 heads, seq 128, D 64; LayerNorm on [32768,
@@ -573,8 +598,12 @@ LOGITS_REL_ERR_MAX = 0.03
 TOP1_AGREE_MIN = 0.93
 
 
+_START = time.perf_counter()
+
+
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    print(json.dumps(dict(obj, script_seconds=time.perf_counter() - _START)),
+          flush=True)
 
 
 def time_ms(fn, iters=20, warmup=3):
@@ -8238,9 +8267,11 @@ def _det_tool():
 
 
 def _det_window(name, fluid, counters, m, t0, batch, steps, work,
-                check=None, lowerings=DET_LOWERINGS, info=None):
-    """Model `m` (built since `t0`) at full width through _window (no port
-    kernel on the path), then its _step phase (host syncs in the slice's
+                check=None, lowerings=DET_LOWERINGS, info=None, want=None,
+                adam_tensors=None):
+    """Model `m` (built since `t0`) at full width through _window (`want`
+    launches a step, none by default; an Adam launch covering
+    `adam_tensors`), then its _step phase (host syncs in the slice's
     `lowerings`); `info` adds to the window's line. Returns (launches, the
     trained scope)."""
     stacked = _stack_feeds([batch(SEED + k) for k in range(steps + 1)])
@@ -8253,7 +8284,7 @@ def _det_window(name, fluid, counters, m, t0, batch, steps, work,
     launched = _window(
         name, fluid, counters, m[:3], {k: v[:1] for k, v in stacked.items()},
         {k: v[1:] for k, v in stacked.items()}, steps,
-        dict.fromkeys(counters, 0), None,
+        want or dict.fromkeys(counters, 0), adam_tensors,
         dict({"build_seconds": time.perf_counter() - t0, "card": _card(),
               "ops": len(m.main.global_block().ops)}, **(info or {})),
         work, (fetch, keep))
@@ -9241,6 +9272,889 @@ def compression_phases(fluid, counters, add):
     phase_compression_lockstep(fluid)
 
 
+# ---- fused ops, host ops and the input pipeline ----------------------------
+# tools/torch_fusion_programs.py and tools/torch_input_programs.py at their
+# full widths (f32, seeded synthetic ids, features and images).
+# fused_stacked_lstm: models/stacked_lstm.py at fluid_benchmark's widths
+# (batch 64, T 64) with each fc -> dynamic_lstm pair one fusion_lstm, Adam:
+# a window of FUSED_STEPS with one Adam launch a step over
+# FUSED_LSTM_ADAM_TENSORS parameters (the stacked LSTM's 7 the kernel
+# takes), its _step phase (no host sync in fusion_ops.py), the unfused
+# twin's busy share and kernels a step, one whole step of each from one
+# state on the card (the loss within FUSED_TWIN_REL, every parameter
+# after it within FUSED_TWIN_REL of its size: the same products and
+# recurrences either way), then FUSED_REQUESTS serving requests of 64
+# sentences, folded (fused_embedding_fc_lstm over W_emb · W_fc) and
+# unfused, their probabilities within FOLD_REL of each other (the fold
+# rounds one product differently).
+FUSED_STEPS = 3
+FUSED_REQUESTS = 4
+FUSED_LSTM_ADAM_TENSORS = 7
+FUSED_TWIN_REL = 1e-5
+FOLD_REL = 1e-4
+# fused_ctr: the Criteo-shaped CTR model (batch 4,096, SGD): a window, its
+# _step phase, the twin's busy share, one step of each from one state
+# (FUSED_TWIN_REL), FUSED_REQUESTS click-probability requests of 4,096,
+# fused and unfused, equal within FUSED_TWIN_REL.
+# fused_resnet50: ResNet-50's is_test request of 64 images with drawn
+# batch-norm statistics, folded by InferenceTranspiler, its 53 conv
+# epilogues fused into conv2d_fusion: FUSED_REQUESTS requests of each,
+# the probabilities within FUSED_TWIN_REL.
+RESNET_FUSED_CONVS = 53
+# fusion_chain: every other fused op at its source's shape, SGD: a window
+# with its outputs finite, then its _step phase.
+FUSION_LOWERINGS = ("paddle_tpu_torch/fluid/ops/fusion_ops.py",)
+HOST_OPS_FILE = "paddle_tpu_torch/fluid/host_ops.py"
+# input_pipeline: ResNet-50 (batch 64, Momentum) trained from a
+# fluid.io.PyReader (decorate_sample_generator, capacity 64) to its end,
+# READER_BATCHES batches, then the same batches fed as numpy; the stacked
+# LSTM from a DataFeeder over FEEDER_BATCHES ragged batches (one Adam
+# launch each); the py_reader -> Preprocessor chain; the graph reader
+# chain READER_READS reads on the random source, then to EOFException on a
+# finite one; create_ctr_reader over a written file of 4,096 lines.
+READER_BATCHES = 8
+FEEDER_BATCHES = 4
+READER_READS = 4
+# fusion_lockstep at FUSION_PARITY's widths: each program one step in
+# lockstep with the CPU, each request replayed; the fused and unfused
+# stacked LSTM's whole steps on the card within FUSED_TWIN_REL. Controls,
+# each of which must miss: fusion_lstm with is_reverse dropped,
+# attention_lstm with LSTMWeight's rows taken x-first,
+# fused_embedding_seq_pool without its Length mask, conv2d_fusion without
+# its residual. host_io_lockstep: split_ids and merge_ids, the
+# DataFeeder's bucketed feeds and the combined file's arrays bit for bit
+# the CPU's; the Go block's copy bit for bit the weight before the step.
+# Controls: merge_ids in shard order, a go block without its input clone.
+FUSION_PARITY = {
+    "fused_stacked_lstm": dict(vocab=500, seq=16, emb=32, hidden=32,
+                               layers=3, classes=2, batch=8, lr=0.001),
+    "fused_ctr": dict(slots=6, max_len=8, vocab=1000, emb=10, dense=13,
+                      factors=10, tower=[64, 64, 64], batch=64, lr=0.001),
+    "fusion_chain": dict(ffn_rows=256, ffn_in=64, ffn=256,
+                         gru_batch=4, gru_t=12, gru_in=48, gru_hidden=20,
+                         conv_batch=4, conv_t=24, conv_emb=16, conv_ctx=3,
+                         conv_filters=32, expand_batch=4, expand_t=8,
+                         expand_seq=16, expand_vec=8, expand_out=16,
+                         ssd_batch=2, ssd_heads=[[32, 10, 3], [64, 5, 6],
+                                                 [32, 3, 6]],
+                         inc_batch=2, inc_in=24, inc_side=14,
+                         inc_filters=[[8, 1], [16, 3], [4, 5], [4, 1]],
+                         att_batch=4, att_t=12, att_m=16, att_d=8,
+                         lr=0.001)}
+RESNET_PARITY = dict(dataset="cifar10", depth=20, classes=10,
+                     image=[3, 32, 32], batch=4)
+
+
+def _fusion_tool():
+    return _load_tool("torch_fusion_programs")
+
+
+def _input_tool():
+    return _load_tool("torch_input_programs")
+
+
+def _twin_steps(fluid, fused, twin, feed):
+    """One step of each from the twin's startup state on the card: (the
+    losses' relative difference, the parameters' largest relative
+    difference after it)."""
+    import torch
+    exe = fluid.Executor()
+    su, sf = fluid.Scope(), fluid.Scope()
+    exe.run(twin.startup, scope=su)
+    exe.run(fused.startup, scope=sf)
+    for n in list(sf._vars):
+        if su.get(n) is not None:
+            sf.set(n, su.get(n).clone())
+    lu, = exe.run(twin.main, feed=feed, fetch_list=[twin.loss], scope=su)
+    lf, = exe.run(fused.main, feed=feed, fetch_list=[fused.loss], scope=sf)
+    params = [p.name for p in twin.main.all_parameters()]
+    rel = max(float((sf.get(n) - su.get(n)).abs().max() /
+                    su.get(n).abs().max().clamp(min=1e-30)) for n in params)
+    torch.cuda.synchronize()
+    return abs(float(lf) - float(lu)) / abs(float(lu)), rel
+
+
+def _twin_busy(fluid, twin, feed):
+    """The unfused twin's step: busy share and device kernels."""
+    busy = _busy_rec(*_step_busy(fluid, twin, feed))
+    busy["device_kernels_a_step"] = sum(
+        c for _, c in busy["device_ms_by_kind"].values())
+    return busy
+
+
+def _request_pair(fluid, counters, fused, unfused, scope, feeds, fetch,
+                  work):
+    """FUSED_REQUESTS requests of the fused program, of the unfused one and
+    of the fused one again over `scope` (the order a time's own check):
+    each's timings (_detect_requests) and their outputs' largest relative
+    difference."""
+    import numpy as np
+    recs, outs = {}, {}
+    for key, prog in (("fused", fused), ("unfused", unfused),
+                      ("fused_again", fused)):
+        recs[key] = _detect_requests(fluid, counters, prog, scope, feeds,
+                                     [fetch], work, FUSION_LOWERINGS)
+        recs[key]["samples_per_s"] = recs[key].pop("images_per_s")
+        outs[key] = fluid.Executor().run(prog, feed=feeds[0],
+                                         fetch_list=[fetch], scope=scope)[0]
+    top = np.abs(outs["unfused"]).max()
+    rel = float(np.abs(outs["fused"] - outs["unfused"]).max() / top)
+    finite = bool(np.isfinite(outs["fused"]).all())
+    return recs, rel, finite
+
+
+def phase_fused_stacked_lstm(fluid, counters):
+    """The fused stacked LSTM: window, step phase, the twin, one step of
+    each, the folded requests. Returns the window's launches."""
+    tool = _fusion_tool()
+    w = tool.STACKED
+    t0 = time.perf_counter()
+    m = tool.fused_stacked_lstm(fluid, seed=SEED)
+    twin = tool.stacked_lstm(fluid, seed=SEED)
+    want = dict(dict.fromkeys(counters, 0), adam=1)
+    launched, _ = _det_window(
+        "fused_stacked_lstm", fluid, counters, m, t0, tool.stacked_batch,
+        FUSED_STEPS, {"sentences": w["batch"]},
+        lowerings=FUSION_LOWERINGS, want=want,
+        adam_tensors=FUSED_LSTM_ADAM_TENSORS)
+    t0 = time.perf_counter()
+    feed = tool.stacked_batch(SEED + 40)
+    twin_busy = _twin_busy(fluid, twin, feed)
+    loss_rel, param_rel = _twin_steps(fluid, m, twin, feed)
+    # the requests over the twin's state after one step, folded
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(twin.startup, scope=scope)
+    exe.run(twin.main, feed=feed, fetch_list=[twin.loss], scope=scope)
+    tool.fold_embedding_fc(scope)
+    folded = tool.stacked_lstm_request(fluid, True)
+    plain = tool.stacked_lstm_request(fluid, False)
+    feeds = []
+    for k in range(FUSED_REQUESTS):
+        f = tool.stacked_batch(SEED + 50 + k)
+        f.pop("label")
+        feeds.append(f)
+    recs, rel, finite = _request_pair(fluid, counters, folded.main,
+                                      plain.main, scope, feeds,
+                                      folded.out.name, w["batch"])
+    ok = loss_rel <= FUSED_TWIN_REL and param_rel <= FUSED_TWIN_REL and \
+        rel <= FOLD_REL and finite and \
+        all(r["ok"] for r in recs.values())
+    rec = {"phase": "fused_stacked_lstm_twin", "ok": ok, "card": _card(),
+           "twin_busy": twin_busy, "twin_loss_rel": loss_rel,
+           "twin_param_rel": param_rel, "twin_limit": FUSED_TWIN_REL,
+           "requests": recs, "folded_vs_unfused_rel": rel,
+           "fold_limit": FOLD_REL,
+           "phase_seconds": time.perf_counter() - t0}
+    emit(rec)
+    if not ok:
+        raise AssertionError("fused_stacked_lstm: %s" % rec)
+    return launched
+
+
+def phase_fused_ctr(fluid, counters):
+    """The fused CTR model: window, step phase, the twin, one step of
+    each, the requests. Returns the window's launches."""
+    tool = _fusion_tool()
+    w = tool.CTR
+    t0 = time.perf_counter()
+    m = tool.fused_ctr(fluid, seed=SEED)
+    twin = tool.ctr(fluid, seed=SEED)
+    launched, scope = _det_window(
+        "fused_ctr", fluid, counters, m, t0, tool.ctr_batch, FUSED_STEPS,
+        {"examples": w["batch"]}, lowerings=FUSION_LOWERINGS)
+    t0 = time.perf_counter()
+    feed = tool.ctr_batch(SEED + 40)
+    twin_busy = _twin_busy(fluid, twin, feed)
+    loss_rel, param_rel = _twin_steps(fluid, m, twin, feed)
+    feeds = [{k: v for k, v in tool.ctr_batch(SEED + 50 + k).items()
+              if k != "label"} for k in range(FUSED_REQUESTS)]
+    names = list(feeds[0])
+    fused = m.main.clone(for_test=True)._prune(names, [m.out.name])
+    plain = twin.main.clone(for_test=True)._prune(names, [twin.out.name])
+    recs, rel, finite = _request_pair(fluid, counters, fused, plain, scope,
+                                      feeds, m.out.name, w["batch"])
+    ok = loss_rel <= FUSED_TWIN_REL and param_rel <= FUSED_TWIN_REL and \
+        rel <= FUSED_TWIN_REL and finite and \
+        all(r["ok"] for r in recs.values())
+    rec = {"phase": "fused_ctr_twin", "ok": ok, "card": _card(),
+           "twin_busy": twin_busy, "twin_loss_rel": loss_rel,
+           "twin_param_rel": param_rel, "twin_limit": FUSED_TWIN_REL,
+           "requests": recs, "fused_vs_unfused_rel": rel,
+           "phase_seconds": time.perf_counter() - t0}
+    emit(rec)
+    if not ok:
+        raise AssertionError("fused_ctr: %s" % rec)
+    return launched
+
+
+def phase_fused_resnet50(fluid, counters):
+    """ResNet-50's request, folded and its conv epilogues fused, against
+    the transpiled unfused request. Returns its launches (none)."""
+    import torch
+    tool = _fusion_tool()
+    w = tool.RESNET
+    t0 = time.perf_counter()
+    exe, scope = fluid.Executor(), fluid.Scope()
+    m = tool.fused_resnet50(fluid, exe, fluid.CUDAPlace(0), scope, seed=SEED)
+    transpile_s = time.perf_counter() - t0
+    feeds = [tool.resnet_batch(SEED + 50 + k) for k in range(FUSED_REQUESTS)]
+    _zero(counters)
+    recs, rel, finite = _request_pair(fluid, counters, m.main,
+                                      m.extra["unfused"], scope, feeds,
+                                      m.out.name, w["batch"])
+    launched = _read(counters)
+    block = m.main.global_block()
+    ok = m.extra["fused_ops"] == RESNET_FUSED_CONVS and \
+        rel <= FUSED_TWIN_REL and finite and \
+        all(r["ok"] for r in recs.values()) and \
+        "conv2d" not in {op.type for op in block.ops}
+    rec = {"phase": "fused_resnet50", "ok": ok, "card": _card(),
+           "conv2d_fusion_ops": m.extra["fused_ops"],
+           "ops": len(block.ops),
+           "unfused_ops": len(m.extra["unfused"].global_block().ops),
+           "transpile_and_fuse_seconds": transpile_s, "requests": recs,
+           "fused_vs_unfused_rel": rel,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "phase_seconds": time.perf_counter() - t0}
+    emit(rec)
+    if not ok:
+        raise AssertionError("fused_resnet50: %s" % rec)
+    return launched
+
+
+def phase_fusion_chain(fluid, counters):
+    """The chain at CHAIN's widths: a window with every fused output
+    finite, then its _step phase. Returns the window's launches."""
+    import torch
+    tool = _fusion_tool()
+    t0 = time.perf_counter()
+    m = tool.fusion_chain(fluid, seed=SEED)
+    outs = [v for vs in m.extra["outputs"].values() for v in vs]
+
+    def check(scope, extra):
+        finite = [bool(torch.isfinite(v).all()) for v in extra]
+        return {"outputs_checked": len(finite),
+                "fused_op_types": sorted(m.extra["outputs"])}, all(finite)
+    one = tool.chain_batch(SEED)
+    launched, _ = _det_window(
+        "fusion_chain", fluid, counters, m, t0, lambda seed: one,
+        FUSED_STEPS, {"chains": 1}, (outs, check),
+        lowerings=FUSION_LOWERINGS)
+    return launched
+
+
+def _timed_host(name, times):
+    """Executor host handler `name` wrapped to append its ms (the card
+    synchronized before and after) to `times`; returns the original."""
+    import torch
+    from paddle_tpu_torch.fluid import executor as E
+    real = E._HOST_HANDLERS[name]
+
+    def run(exe, op, st):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        real(exe, op, st)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    E._HOST_HANDLERS[name] = run
+    return real
+
+
+def _py_reader_window(fluid, counters, tool):
+    """ResNet-50 trained from its PyReader to the reader's end, then on
+    the same batches fed as numpy: each batch's feed ms (the wait on the
+    reader's queue) and step ms, the busy share of a numpy-fed step and
+    of a reader-fed one (the reader's second pass, after its first
+    batch), the copy of a batch's images to the card."""
+    import numpy as np
+    import torch
+    m, reader = tool.resnet_reader(fluid, seed=SEED,
+                                   batches=READER_BATCHES)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(m.startup, scope=scope)
+    batches = tool.image_batches(SEED, batches=READER_BATCHES)
+    exe.run(m.main, feed=batches[0], fetch_list=[m.loss], scope=scope)
+    torch.cuda.synchronize()
+    gc.collect()
+    feed_ms, step_ms, losses = [], [], []
+    _zero(counters)
+    reader.start()
+    while True:
+        t = time.perf_counter()
+        try:
+            feed = reader.next()
+        except StopIteration:
+            break
+        t1 = time.perf_counter()
+        loss, = exe.run(m.main, feed=feed, fetch_list=[m.loss], scope=scope,
+                        return_numpy=False)
+        torch.cuda.synchronize()
+        feed_ms.append((t1 - t) * 1e3)
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(loss.reshape(-1)[0]))
+    launched = _read(counters)
+    numpy_ms = []
+    for b in batches:
+        t = time.perf_counter()
+        exe.run(m.main, feed=b, fetch_list=[m.loss], scope=scope,
+                return_numpy=False)
+        torch.cuda.synchronize()
+        numpy_ms.append((time.perf_counter() - t) * 1e3)
+    wall, busy, by_kind = _busy_share(lambda: exe.run(
+        m.main, feed=batches[0], fetch_list=[m.loss], scope=scope,
+        return_numpy=False))
+    # the reader's second pass: its first step (the wait for the first
+    # batch) unprofiled, the next two profiled, the rest read off
+    reader.start()
+    exe.run(m.main, feed=reader.next(), fetch_list=[m.loss], scope=scope,
+            return_numpy=False)
+    r_wall, r_busy, r_kind = _busy_share(lambda: exe.run(
+        m.main, feed=reader.next(), fetch_list=[m.loss], scope=scope,
+        return_numpy=False))
+    while True:
+        try:
+            reader.next()
+        except StopIteration:
+            break
+    _, places = _sync_places(lambda: exe.run(
+        m.main, feed=batches[0], fetch_list=[m.loss], scope=scope,
+        return_numpy=False))
+    img = batches[0]["img"]
+    copies = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        torch.from_numpy(img).cuda()
+        torch.cuda.synchronize()
+        copies.append((time.perf_counter() - t) * 1e3)
+    rec = {"batch": m.extra["widths"]["batch"], "batches": len(step_ms),
+           "reader_feed_ms_a_batch": feed_ms, "reader_step_ms": step_ms,
+           "reader_step_ms_mean": float(np.mean(step_ms)),
+           "numpy_step_ms": numpy_ms,
+           "numpy_step_ms_mean": float(np.mean(numpy_ms)),
+           "images_per_s_reader": len(step_ms) * img.shape[0] /
+           (sum(step_ms) + sum(feed_ms)) * 1e3,
+           "busy": _busy_rec(wall, busy, by_kind),
+           "reader_busy": _busy_rec(r_wall, r_busy, r_kind),
+           "host_syncs_a_step": len(places), "host_sync_places": places,
+           "image_copy_ms": copies, "image_batch_bytes": img.nbytes,
+           "losses": losses}
+    ok = len(step_ms) == READER_BATCHES and \
+        bool(np.isfinite(losses).all()) and not any(launched.values())
+    return rec, ok, launched
+
+
+def _feeder_run(fluid, counters, tool):
+    """The stacked LSTM over FEEDER_BATCHES DataFeeder batches: the
+    bucketed lengths and one Adam launch a batch."""
+    import numpy as np
+    import torch
+    m, feeder = tool.lstm_feeder(fluid, fluid.CUDAPlace(0), seed=SEED)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(m.startup, scope=scope)
+    samples = tool.ragged_samples(SEED, batches=FEEDER_BATCHES)
+    lens, feed_ms, step_ms, losses = [], [], [], []
+    _zero(counters)
+    for batch in samples:
+        t = time.perf_counter()
+        feed = feeder.feed(batch)
+        t1 = time.perf_counter()
+        loss, = exe.run(m.main, feed=feed, fetch_list=[m.loss], scope=scope,
+                        return_numpy=False)
+        torch.cuda.synchronize()
+        feed_ms.append((t1 - t) * 1e3)
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(loss.reshape(-1)[0]))
+        lens.append([max(len(s[0]) for s in batch),
+                     int(feed["words"].shape[1])])
+    launched = _read(counters)
+    rec = {"longest_and_bucketed": lens, "feed_ms": feed_ms,
+           "step_ms": step_ms, "losses": losses, "launches": launched}
+    ok = launched["adam"] == FEEDER_BATCHES and \
+        bool(np.isfinite(losses).all()) and all(
+            b == max(8, 1 << (n - 1).bit_length()) for n, b in lens)
+    return rec, ok, launched
+
+
+def _reader_ops_run(fluid, tool):
+    """The py_reader chain, the graph reader chain and the CTR reader."""
+    import numpy as np
+    exe = fluid.Executor()
+    m, reader = tool.py_reader_chain(fluid, seed=SEED)
+    slots = tool.slot_batches(SEED)
+    reader.decorate_tensor_provider(lambda: iter(slots))
+    scope = fluid.Scope()
+    exe.run(m.startup, scope=scope)
+    py_losses = [float(exe.run(m.main, feed=f, fetch_list=[m.loss],
+                               scope=scope)[0]) for f in reader]
+    g = tool.reader_chain(fluid)
+    w = g.extra["widths"]
+    scope = fluid.Scope()
+    sums = [float(exe.run(g.main, fetch_list=[g.loss, g.out], scope=scope)
+                  [0]) for _ in range(READER_READS)]
+    shape = list(exe.run(g.main, fetch_list=[g.out],
+                         scope=scope)[0].shape)
+    n_samples = 9
+    scope = fluid.Scope()
+    scope.set(g.extra["source"], tool.finite_source(
+        fluid, tool.reader_samples(SEED, n_samples)))
+    reads, eof = 0, False
+    try:
+        for _ in range(100):
+            exe.run(g.main, fetch_list=[g.loss], scope=scope)
+            reads += 1
+    except fluid.EOFException:
+        eof = True
+    path = os.path.join(IO_DIR, "ctr_slots.txt")
+    os.makedirs(IO_DIR, exist_ok=True)
+    t = time.perf_counter()
+    rows = tool.write_ctr_file(path, SEED)
+    write_s = time.perf_counter() - t
+    c = tool.ctr_reader_program(fluid, path)
+    scope = fluid.Scope()
+    exe.run(c.main, scope=scope)
+    ctr = scope.get(c.extra["reader"])
+    got, t = [], time.perf_counter()
+    try:
+        while True:
+            got.append(ctr.read())
+    except fluid.EOFException:
+        pass
+    read_ms = (time.perf_counter() - t) * 1e3
+    os.remove(path)
+    labels = np.concatenate([b[0] for b in got]).reshape(-1)
+    want_reads = n_samples // w["batch"] * w["passes"]
+    rec = {"py_reader_losses": py_losses,
+           "graph_chain_sums": sums, "graph_chain_shape": shape,
+           "finite_source_reads": reads, "reads_want": want_reads,
+           "eof": eof, "ctr_batches": len(got), "ctr_rows": len(labels),
+           "ctr_slot_widths": [int(a.shape[1]) for a in got[0][1:]],
+           "ctr_read_ms": read_ms, "ctr_write_seconds": write_s}
+    ok = len(py_losses) == len(slots) and \
+        bool(np.isfinite(py_losses).all()) and \
+        shape == [w["batch"]] + list(w["shape"]) and eof and \
+        reads == want_reads and \
+        labels.tolist() == [r[0] for r in rows] and \
+        len(got[0]) == 1 + tool.CTR_FILE["slots"]
+    return rec, ok
+
+
+def phase_input_pipeline(fluid, counters):
+    """The PyReader, DataFeeder, py_reader and graph-reader paths. Returns
+    their launches."""
+    t0 = time.perf_counter()
+    tool = _input_tool()
+    reader, ok1, l1 = _py_reader_window(fluid, counters, tool)
+    feeder, ok2, l2 = _feeder_run(fluid, counters, tool)
+    ops, ok3 = _reader_ops_run(fluid, tool)
+    ok = ok1 and ok2 and ok3
+    import torch
+    rec = {"phase": "input_pipeline", "ok": ok, "card": _card(),
+           "py_reader_resnet50": reader, "data_feeder_lstm": feeder,
+           "reader_ops": ops,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "phase_seconds": time.perf_counter() - t0}
+    emit(rec)
+    if not ok:
+        raise AssertionError("input_pipeline: %s" % rec)
+    return {k: l1[k] + l2[k] for k in l1}
+
+
+def _go_run(fluid, tool, widths=None):
+    """go_program once on the card, its first block released after the
+    parent's step: (the weight before the step, after it, the block's
+    copy, the product, x, the places that waited)."""
+    import threading
+    import torch
+    ev = threading.Event()
+    m = tool.go_program(fluid, ev.wait, seed=SEED, **(widths or {}))
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(m.startup, scope=scope)
+    feed = tool.go_batch(SEED, **(widths or {}))
+    before = scope.get("go_w").clone()
+    exe.run(m.main, feed=feed, fetch_list=[m.loss], scope=scope)
+    torch.cuda.synchronize()
+    after = scope.get("go_w").clone()
+    ev.set()
+    kids = exe.go_join(120)
+    return (before, after, kids[0].get(m.extra["snapshot"]),
+            kids[1].get(m.extra["product"]), feed["x"], len(kids))
+
+
+def _combine_round_trip(fluid, tool, exe, state, path):
+    """save_combine of `state` ({name: tensor}) into `path` and
+    load_combine back: (save ms, load ms, bytes, the loaded values)."""
+    import torch
+    names = sorted(state)
+    dtypes = {torch.float32: "float32", torch.int64: "int64",
+              torch.bfloat16: "bfloat16", torch.int32: "int32"}
+    save, load = tool.combine_programs(
+        fluid, names, [list(state[n].shape) for n in names],
+        [dtypes[state[n].dtype] for n in names], path)
+    scope = fluid.Scope()
+    for n in names:
+        scope.set(n, state[n])
+    t = time.perf_counter()
+    exe.run(save, scope=scope)
+    save_ms = (time.perf_counter() - t) * 1e3
+    loaded = fluid.Scope()
+    t = time.perf_counter()
+    exe.run(load, scope=loaded)
+    if exe.device.type == "cuda":
+        torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t) * 1e3
+    return save_ms, load_ms, os.path.getsize(path), \
+        {n: loaded.get(n) for n in names}
+
+
+def phase_host_ops_chain(fluid, counters):
+    """Go blocks, split and merge of DeepFM's ids, py_func in a training
+    step, the combined save and load of ResNet-50's persistables, and the
+    other host ops. Returns the launches (the Go program's Adam)."""
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    tool = _input_tool()
+    ftool = _fusion_tool()
+    rec = {"phase": "host_ops_chain", "card": _card()}
+    _zero(counters)
+    before, after, snap, prod, x, n_kids = _go_run(fluid, tool)
+    launched = _read(counters)
+    x_dev = torch.from_numpy(x).cuda()
+    rec["go"] = {"blocks_joined": n_kids,
+                 "copy_is_the_weight_before": bool(torch.equal(snap,
+                                                               before)),
+                 "step_updated_the_weight": not bool(torch.equal(before,
+                                                                 after)),
+                 "product_rel": float((prod - x_dev @ before).abs().max() /
+                                      (x_dev @ before).abs().max()),
+                 "launches": launched}
+    ok = n_kids == 2 and rec["go"]["copy_is_the_weight_before"] and \
+        rec["go"]["step_updated_the_weight"] and \
+        rec["go"]["product_rel"] <= FUSED_TWIN_REL and launched["adam"] == 1
+    # split_ids / merge_ids at DeepFM's 106,496 ids
+    m = tool.split_merge_program(fluid, seed=SEED)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(m.startup, scope=scope)
+    feed = tool.split_ids_batch(SEED)
+    fetch = [m.out.name, m.extra["direct"]]
+    exe.run(m.main, feed=feed, fetch_list=fetch, scope=scope)
+    times = {"split_ids": [], "merge_ids": []}
+    real = {k: _timed_host(k, v) for k, v in times.items()}
+    try:
+        t = time.perf_counter()
+        merged, direct = exe.run(m.main, feed=feed, fetch_list=fetch,
+                                 scope=scope, return_numpy=False)
+        torch.cuda.synchronize()
+        run_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        from paddle_tpu_torch.fluid import executor as E
+        E._HOST_HANDLERS.update(real)
+    _, syncs = _sync_places(lambda: exe.run(m.main, feed=feed,
+                                            fetch_list=fetch, scope=scope,
+                                            return_numpy=False))
+    exact = bool(torch.equal(merged, direct.reshape(merged.shape)))
+    rec["split_merge"] = {"ids": int(feed["ids"].size),
+                          "shards": m.extra["widths"]["shards"],
+                          "merged_equals_lookup": exact,
+                          "split_ids_ms": times["split_ids"],
+                          "merge_ids_ms": times["merge_ids"],
+                          "program_ms": run_ms,
+                          "host_sync_places": syncs}
+    ok = ok and exact
+    # py_func forward and backward in a training step
+    grads = {}
+    for use in (True, False):
+        p = tool.py_func_programs(fluid, use, seed=SEED)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(p.startup, scope=scope)
+        f = tool.py_func_batch(SEED)
+        fetch = [p.loss.name] + [n + "@GRAD" for n in
+                                 ("pf_w1", "pf_b1", "pf_w2", "pf_b2")]
+        grads[use] = exe.run(p.main, feed=f, fetch_list=fetch, scope=scope)
+        if use:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            exe.run(p.main, feed=f, fetch_list=[p.loss], scope=scope,
+                    return_numpy=False)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t) * 1e3
+            _, places = _sync_places(lambda: exe.run(
+                p.main, feed=f, fetch_list=[p.loss], scope=scope,
+                return_numpy=False))
+    rels = [float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+            for a, b in zip(grads[True], grads[False])]
+    rec["py_func"] = {"rel_vs_tanh": rels, "limit": FUSED_TWIN_REL,
+                      "step_ms": step_ms, "host_syncs_a_step": len(places),
+                      "host_sync_places": places}
+    ok = ok and max(rels) <= FUSED_TWIN_REL
+    # save_combine / load_combine of ResNet-50's persistables
+    r = ftool.resnet_request(fluid, seed=SEED)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(r.startup, scope=scope)
+    state = {n: scope.get(n) for n in _persistables(r.main)
+             if scope.get(n) is not None}
+    path = os.path.join(IO_DIR, "resnet50_combined")
+    os.makedirs(IO_DIR, exist_ok=True)
+    save_ms, load_ms, size, loaded = _combine_round_trip(
+        fluid, tool, exe, state, path)
+    os.remove(path)
+    same = all(torch.equal(loaded[n], state[n]) for n in state)
+    rec["combine"] = {"variables": len(state), "bytes": size,
+                      "save_ms": save_ms, "load_ms": load_ms,
+                      "loaded_bit_for_bit": same,
+                      "on_card": all(v.is_cuda for v in loaded.values())}
+    ok = ok and same and rec["combine"]["on_card"]
+    # delete_var, fake_init, the engine stubs
+    mi = tool.misc_program(fluid)
+    scope = fluid.Scope()
+    out, = exe.run(mi.main, feed={"x": np.ones((2, 4), np.float32)},
+                   fetch_list=[mi.out], scope=scope)
+    table = scope.get(mi.extra["table"])
+    raised = []
+    for kind in ("tensorrt_engine", "ngraph_engine"):
+        try:
+            exe.run(tool.engine_program(fluid, kind), scope=fluid.Scope())
+        except NotImplementedError:
+            raised.append(kind)
+    rec["misc"] = {"deleted": scope.get(mi.extra["deleted"]) is None,
+                   "fake_init_zeros_on_card": bool(
+                       table.is_cuda and not table.any()),
+                   "stubs_raised": raised}
+    ok = ok and rec["misc"]["deleted"] and \
+        rec["misc"]["fake_init_zeros_on_card"] and len(raised) == 2 and \
+        bool((out == 3).all())
+    rec.update({"ok": ok, "launches": launched,
+                "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                "phase_seconds": time.perf_counter() - t0})
+    emit(rec)
+    if not ok:
+        raise AssertionError("host_ops_chain: %s" % rec)
+    return launched
+
+
+def _shard_order(ids, rows):
+    """merge_ids putting each shard's rows one shard after the other (a
+    control)."""
+    import torch
+    dim = rows[0].shape[-1] if rows[0].dim() > 1 else 1
+    return torch.cat([r.reshape(r.shape[0], dim) for r in rows])
+
+
+def _lstm_x_rows_first(inputs, attrs):
+    """attention_lstm's LSTMWeight read with its x rows first (a control's
+    change)."""
+    import torch
+    lw, d = inputs["LSTMWeight"][0], inputs["C0"][0].shape[1]
+    return dict(inputs, LSTMWeight=[torch.cat([lw[d:], lw[:d]])]), attrs
+
+
+def _fusion_controls():
+    """{program: {control: ({op type: lowering}, dtype, named op types)}}
+    for fusion_lockstep's programs."""
+    from paddle_tpu_torch.fluid.ops import fusion_ops as FO
+    return {
+        "fused_stacked_lstm": {
+            "fusion_lstm_with_is_reverse_dropped": (
+                {"fusion_lstm": _on_the_card(
+                    FO._fusion_lstm, lambda i, a: (i, dict(
+                        a, is_reverse=False)))},
+                "float32", ("fusion_lstm", "grad_of:fusion_lstm"))},
+        "fused_ctr": {
+            "fused_embedding_seq_pool_without_its_length_mask": (
+                {"fused_embedding_seq_pool": _on_the_card(
+                    FO._fused_embedding_seq_pool, _without_length)},
+                "float32", ("fused_embedding_seq_pool",
+                            "grad_of:fused_embedding_seq_pool"))},
+        "fusion_chain": {
+            "attention_lstm_with_lstm_weight_x_rows_first": (
+                {"attention_lstm": _on_the_card(FO._attention_lstm,
+                                                _lstm_x_rows_first)},
+                "float32", ("attention_lstm", "grad_of:attention_lstm"))}}
+
+
+def _cpu_resnet_state(fluid, tool):
+    """fused_resnet50 at RESNET_PARITY's widths built on the CPU: (the
+    model, its persistables after the fold)."""
+    exe, scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    m = tool.fused_resnet50(fluid, exe, fluid.CPUPlace(), scope, seed=SEED,
+                            **RESNET_PARITY)
+    state = {n: scope.get(n) for n in _persistables(m.main)
+             if scope.get(n) is not None}
+    return m, state
+
+
+def _lockstep_programs(fluid, results):
+    """fusion_lockstep's cases and controls into `results`."""
+    from unittest import mock
+    from paddle_tpu_torch.fluid.ops import fusion_ops as FO
+    from paddle_tpu_torch.fluid.ops import registry
+    tool = _fusion_tool()
+    controls = _fusion_controls()
+    for name, widths in FUSION_PARITY.items():
+        build, batch, _ = tool.PROGRAMS[name]
+        m = build(fluid, seed=SEED, **widths)
+        feeds = [batch(SEED + 300, **widths)]
+        _, rec, ok = _lockstep(fluid, m[:3], feeds)
+        results[name] = dict(rec, ok=ok)
+        for cname, (lowerings, dtype, named) in controls[name].items():
+            with mock.patch.dict(registry._LOWERINGS, **lowerings):
+                _, rec, passed = _lockstep(fluid, m[:3], feeds)
+            results["control_" + cname] = dict(rec, ok=_named_miss(
+                rec, passed, dtype, named))
+    # the stacked LSTM's fused and unfused whole steps on the card
+    w = FUSION_PARITY["fused_stacked_lstm"]
+    loss_rel, param_rel = _twin_steps(
+        fluid, tool.fused_stacked_lstm(fluid, seed=SEED, **w),
+        tool.stacked_lstm(fluid, seed=SEED, **w),
+        tool.stacked_batch(SEED + 301, **w))
+    results["stacked_lstm_fused_vs_unfused_on_the_card"] = {
+        "loss_rel": loss_rel, "param_rel": param_rel,
+        "limit": FUSED_TWIN_REL,
+        "ok": loss_rel <= FUSED_TWIN_REL and param_rel <= FUSED_TWIN_REL}
+    # the folded request replayed
+    twin = tool.stacked_lstm(fluid, seed=SEED, **w)
+    state = _cpu_state(fluid, twin)
+    scope = fluid.Scope()
+    for n, t in state.items():
+        scope.set(n, t)
+    tool.fold_embedding_fc(scope)
+    state[tool.FOLD] = scope.get(tool.FOLD)
+    req = tool.stacked_lstm_request(fluid, True, **w)
+    feed = tool.stacked_batch(SEED + 302, **w)
+    feed.pop("label")
+    rec, ok, _ = _replay_program(fluid, req.main, [req.out.name], {
+        n: state[n] for n in _persistables(req.main)}, feed)
+    results["stacked_lstm_folded_request"] = dict(rec, ok=ok)
+    # ResNet's fused request replayed, and without its residual
+    m, state = _cpu_resnet_state(fluid, tool)
+    feed = tool.resnet_batch(SEED + 303, **RESNET_PARITY)
+    rec, ok, _ = _replay_program(fluid, m.main, [m.out.name], state, feed)
+    results["fused_resnet_request"] = dict(rec, ok=ok)
+    with mock.patch.dict(registry._LOWERINGS, conv2d_fusion=_on_the_card(
+            FO._conv2d_fusion, lambda i, a: (dict(i, ResidualData=[]), a))):
+        rec, passed, _ = _replay_program(fluid, m.main, [m.out.name], state,
+                                         feed)
+    results["control_conv2d_fusion_without_its_residual"] = dict(
+        rec, ok=_named_miss(rec, passed, "float32", ("conv2d_fusion",)))
+
+
+def _split_merge_values(fluid, tool, place, table=None):
+    """split_merge_program at its full width on `place`: (the table, the
+    merged rows and the shards, as numpy)."""
+    import torch
+    exe = fluid.Executor(place)
+    m = tool.split_merge_program(fluid, seed=SEED)
+    scope = fluid.Scope()
+    exe.run(m.startup, scope=scope)
+    if table is not None:
+        scope.set("split_table", torch.from_numpy(table).to(exe.device))
+    got = exe.run(m.main, feed=tool.split_ids_batch(SEED),
+                  fetch_list=[m.out.name] + m.extra["shards"], scope=scope)
+    return fluid.executor.as_numpy(scope.get("split_table")), got
+
+
+def _lockstep_host(fluid, results):
+    """host_io_lockstep's cases into `results`: split_ids / merge_ids,
+    the bucketed feeds, the combined file, the Go block's copy, and their
+    two controls."""
+    import numpy as np
+    import torch
+    from unittest import mock
+    from paddle_tpu_torch.fluid import host_ops
+    tool = _input_tool()
+    table, cpu = _split_merge_values(fluid, tool, fluid.CPUPlace())
+    _, card = _split_merge_values(fluid, tool, fluid.CUDAPlace(0), table)
+    same = [bool(np.array_equal(a, b)) for a, b in zip(card, cpu)]
+    results["split_merge_ids"] = {"outputs": len(same),
+                                  "bit_for_bit": all(same), "ok": all(same)}
+    with mock.patch.object(host_ops, "merge_rows", _shard_order):
+        _, control = _split_merge_values(fluid, tool, fluid.CUDAPlace(0),
+                                         table)
+    results["control_merge_ids_in_shard_order"] = {
+        "merged_equal": bool(np.array_equal(control[0], cpu[0])),
+        "ok": not np.array_equal(control[0], cpu[0])}
+    feeds = []
+    for place in (fluid.CPUPlace(), fluid.CUDAPlace(0)):
+        m, feeder = tool.lstm_feeder(fluid, place, seed=SEED)
+        feeds.append([feeder.feed(b) for b in
+                      tool.ragged_samples(SEED, batches=FEEDER_BATCHES)])
+    same = all(np.array_equal(a[k], b[k]) for a, b in zip(*feeds)
+               for k in a)
+    results["data_feeder_bucketed_feeds"] = {
+        "lengths": [int(f["words"].shape[1]) for f in feeds[1]],
+        "ok": bool(same)}
+    r = _fusion_tool().resnet_request(fluid, seed=SEED, **RESNET_PARITY)
+    state = _cpu_state(fluid, r)
+    arrays = {}
+    for place in ("cpu", "cuda"):
+        exe = fluid.Executor(fluid.CPUPlace() if place == "cpu" else None)
+        path = os.path.join(IO_DIR, "combined_" + place)
+        os.makedirs(IO_DIR, exist_ok=True)
+        _combine_round_trip(fluid, tool, exe, {
+            n: t.to(place, copy=True) for n, t in state.items()}, path)
+        with np.load(path) as z:
+            arrays[place] = {k: z[k].tobytes() for k in z.files}
+        os.remove(path)
+    results["combined_file_arrays"] = {
+        "arrays": len(arrays["cpu"]),
+        "ok": arrays["cpu"] == arrays["cuda"]}
+    before, after, snap, _, _, _ = _go_run(fluid, tool)
+    results["go_block_copy"] = {"ok": bool(torch.equal(snap, before)) and
+                                not bool(torch.equal(before, after))}
+    with mock.patch.object(host_ops, "_snapshot", lambda v: v):
+        before, after, snap, _, _, _ = _go_run(fluid, tool)
+    results["control_go_block_without_its_input_clone"] = {
+        "copy_equals_the_weight_before": bool(torch.equal(snap, before)),
+        "ok": not bool(torch.equal(snap, before))}
+
+
+def _lockstep_verdict(phase, t0, results):
+    """Emit a lockstep phase's line from its `results`; raise if any case
+    or control failed."""
+    failed = [k for k, r in results.items() if not r["ok"]]
+    emit({"phase": phase, "ok": not failed, "card": _card(),
+          "results": results,
+          "controls": sorted(k for k in results if k.startswith("control_")),
+          "phase_seconds": time.perf_counter() - t0})
+    if failed:
+        raise AssertionError("%s: %s failed" % (phase, failed))
+
+
+def phase_fusion_lockstep(fluid):
+    """The fused programs and requests in lockstep with the CPU; four
+    controls."""
+    t0 = time.perf_counter()
+    results = {}
+    _lockstep_programs(fluid, results)
+    _lockstep_verdict("fusion_lockstep", t0, results)
+
+
+def phase_host_io_lockstep(fluid):
+    """The host ops' and the feeds' exact values against the CPU's; two
+    controls."""
+    t0 = time.perf_counter()
+    results = {}
+    _lockstep_host(fluid, results)
+    _lockstep_verdict("host_io_lockstep", t0, results)
+
+
+def fusion_phases(fluid, counters, add):
+    """The fused ops' phases, each with its launches added."""
+    add(phase_fused_stacked_lstm(fluid, counters))
+    add(phase_fused_ctr(fluid, counters))
+    add(phase_fused_resnet50(fluid, counters))
+    add(phase_fusion_chain(fluid, counters))
+    phase_fusion_lockstep(fluid)
+
+
+def host_io_phases(fluid, counters, add):
+    """The input pipeline's and the host ops' phases."""
+    add(phase_input_pipeline(fluid, counters))
+    add(phase_host_ops_chain(fluid, counters))
+    phase_host_io_lockstep(fluid)
+
+
 def _path_numbers(s, path):
     """A kernel's numbers over a path's mix of cases (weighted means)."""
     w = s["weight"]
@@ -9281,7 +10195,9 @@ def main():
               "--decoding": decoding_phases,
               "--ctc": ctc_pool_phases,
               "--detection": detection_phases,
-              "--compression": compression_phases}
+              "--compression": compression_phases,
+              "--fusion": fusion_phases,
+              "--host-io": host_io_phases}
     if len(sys.argv) == 2 and sys.argv[1] in slices:
         # one slice's phases alone (no kernel line, no contract line)
         slices[sys.argv[1]](fluid, counters, add)
@@ -9461,6 +10377,16 @@ def main():
     # the book's SRL tagger scored by chunk_eval, every other compression
     # lowering at its source's shape, and the four in lockstep with the CPU
     compression_phases(fluid, counters, add)
+    # fused ops: the stacked LSTM fused (one Adam launch a step) and
+    # served folded, a Criteo-shaped CTR model, ResNet-50's request with
+    # its conv epilogues fused, every other fused op at its source's
+    # shape, and the four in lockstep with the CPU
+    fusion_phases(fluid, counters, add)
+    # the in-process input pipeline (PyReader, DataFeeder, py_reader, the
+    # graph readers) and the host ops (Go, split and merge of ids,
+    # py_func, the combined save and load), their exact values held
+    # against the CPU's
+    host_io_phases(fluid, counters, add)
 
     print(_card())
     sources = {"onepass": "attention.cu", "flash": "attention.cu",

@@ -8,5 +8,7 @@ default. The attention kernels are CUDA C++ written for Hopper
 JAX or ``paddle_tpu``.
 """
 from . import fluid  # noqa: F401
+from . import reader  # noqa: F401
+from .reader import batch  # noqa: F401
 
 __version__ = "0.1.0"

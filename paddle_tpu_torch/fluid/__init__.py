@@ -5,19 +5,21 @@ through fluid.io, fluid.transpiler and fluid.inference. Ragged batches are
 padded data with lengths (fluid.layers.data(lod_level=1), the sequence
 layers, fluid.create_lod_tensor). fluid.contrib holds the seq2seq
 decoders; fluid.metrics and fluid.evaluator the metric accumulators;
-fluid.host_ops the detection_map host op."""
+fluid.host_ops the host ops (go, py_func, the combined save and load, the
+graph readers, detection_map); fluid.io.PyReader and fluid.DataFeeder
+feed a program from Python readers."""
 from . import core_types
 from . import unique_name
 from . import framework
 from .framework import (Program, Variable, Parameter, Operator, Block,
                         default_main_program, default_startup_program,
-                        program_guard, CPUPlace, CUDAPlace,
+                        program_guard, name_scope, CPUPlace, CUDAPlace,
                         cpu_places, cuda_places)
 from .core_types import VarType, OpRole
 
 from . import ops  # registers all op lowerings
 from . import initializer
-from .param_attr import ParamAttr
+from .param_attr import ParamAttr, WeightNormParamAttr
 from . import layers
 from .layer_helper import LayerHelper
 from . import backward
@@ -25,12 +27,15 @@ from .backward import append_backward, calc_gradient, gradients
 from . import optimizer
 from . import regularizer
 from . import clip
-from .clip import (GradientClipByValue, GradientClipByNorm,
-                   GradientClipByGlobalNorm, set_gradient_clip)
-from .executor import Executor, Scope, global_scope, scope_guard
-from . import host_ops  # the detection_map host op
+from .clip import (ErrorClipByValue, GradientClipByValue,
+                   GradientClipByNorm, GradientClipByGlobalNorm,
+                   set_gradient_clip)
+from .executor import (Executor, Scope, global_scope, scope_guard,
+                       EOFException)
+from . import host_ops  # the host ops: go, py_func, readers, detection_map
 from .interop import params_from_numpy
 from . import io
+from .data_feeder import DataFeeder
 from .io import save_vars, save_params, save_persistables, load_vars, \
     load_params, load_persistables, save_inference_model, load_inference_model
 from . import transpiler
@@ -44,12 +49,14 @@ from . import contrib
 from . import evaluator
 
 __all__ = framework.__all__ + [
-    "ops", "initializer", "ParamAttr", "layers", "LayerHelper", "backward",
+    "ops", "initializer", "ParamAttr", "WeightNormParamAttr", "layers",
+    "LayerHelper", "backward",
     "append_backward", "calc_gradient", "gradients", "optimizer",
-    "regularizer", "clip",
+    "regularizer", "clip", "ErrorClipByValue",
     "GradientClipByValue", "GradientClipByNorm", "GradientClipByGlobalNorm",
     "set_gradient_clip",
-    "Executor", "Scope", "global_scope", "scope_guard", "params_from_numpy",
+    "Executor", "Scope", "global_scope", "scope_guard", "EOFException",
+    "params_from_numpy", "DataFeeder",
     "io", "save_vars", "save_params", "save_persistables", "load_vars",
     "load_params", "load_persistables", "save_inference_model",
     "load_inference_model", "transpiler", "memory_optimize",

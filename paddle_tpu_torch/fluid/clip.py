@@ -9,9 +9,32 @@ from .core_types import OpRole
 from . import sparse_grads
 from . import unique_name
 
-__all__ = ["GradientClipByValue", "GradientClipByNorm",
+__all__ = ["ErrorClipByValue", "GradientClipByValue", "GradientClipByNorm",
            "GradientClipByGlobalNorm", "set_gradient_clip",
            "append_gradient_clip_ops", "error_clip_callback"]
+
+
+class BaseErrorClipAttr(object):
+    def _append_clip_op(self, block, grad_name):
+        raise NotImplementedError()
+
+
+class ErrorClipByValue(BaseErrorClipAttr):
+    """Clip a variable's gradient to [min, max] (a Variable's
+    ``error_clip``). ``_append_clip_op`` appends the clip op; the backward
+    pass calls no such hook (``error_clip_callback`` adds no op), as in
+    the JAX package (ROADMAP Queue 3)."""
+
+    def __init__(self, max, min=None):
+        max = float(max)
+        self.max = max
+        self.min = float(min) if min is not None else -max
+
+    def _append_clip_op(self, block, grad_name):
+        block.append_op(type="clip", inputs={"X": [grad_name]},
+                        outputs={"Out": [grad_name]},
+                        attrs={"min": self.min, "max": self.max,
+                               OpRole.KEY: OpRole.Backward})
 
 
 def error_clip_callback(block, context):
@@ -25,6 +48,11 @@ class BaseGradientClipAttr(object):
 
     def _create_operators(self, param, grad):
         raise NotImplementedError()
+
+
+class NullGradientClipAttr(BaseGradientClipAttr):
+    def _create_operators(self, param, grad):
+        return param, grad
 
 
 class GradientClipByValue(BaseGradientClipAttr):

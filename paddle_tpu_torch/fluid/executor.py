@@ -1,4 +1,5 @@
-"""Executor: runs a Program's block 0 eagerly, op by op, on one torch.device.
+"""Executor: runs a Program's block eagerly, op by op, on one torch.device
+(block 0 through ``run``; a ``go`` op's sub-block through ``_run_block``).
 
 The port's counterpart of ``paddle_tpu/fluid/executor.py``. Where the JAX
 executor traces the block into one jitted XLA function, this one walks the
@@ -59,15 +60,24 @@ from .ops.registry import (CONTROL_OPS, LoweringContext, fold_const,
                            lower_op_list, mark_host_op, paired_forward)
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard", "as_numpy",
-           "register_host_handler"]
+           "register_host_handler", "EOFException"]
+
+
+class EOFException(Exception):
+    """A graph reader (host_ops.py) reached the end of its data (reference:
+    reader/blocking_queue.h's EOF, ``core.EOFException``)."""
 
 
 class Scope(object):
     """name -> runtime value (torch tensor) (reference: framework/scope.h:48),
-    plus the random streams of the programs run in it."""
+    plus the random streams of the programs run in it. A child scope
+    (``Scope(parent=...)``, as a ``go`` block's) reads through to its
+    parent where it holds no value of its own, writes only its own, and
+    has random streams of its own."""
 
-    def __init__(self):
+    def __init__(self, parent=None):
         self._vars = {}
+        self._parent = parent
         self._generators = {}   # (program fingerprint, device) -> Generator
 
     def var(self, name):
@@ -75,14 +85,24 @@ class Scope(object):
         self._vars.setdefault(name, None)
         return _VarHandle(self, name)
 
+    def _owner(self, name):
+        s = self
+        while s is not None:
+            if name in s._vars:
+                return s
+            s = s._parent
+        return None
+
     def find_var(self, name):
-        return _VarHandle(self, name) if name in self._vars else None
+        s = self._owner(name)
+        return _VarHandle(s, name) if s is not None else None
 
     def get(self, name):
-        return self._vars.get(name)
+        s = self._owner(name)
+        return s._vars[name] if s is not None else None
 
     def has(self, name):
-        return self._vars.get(name) is not None
+        return self.get(name) is not None
 
     def set(self, name, value):
         self._vars[name] = value
@@ -415,12 +435,13 @@ class _Plan(object):
     with several grad ops is taped once for all of them. Runs of ops with a
     group lowering (``runs``: first step -> its steps) run as one call."""
 
-    def __init__(self, program, fetch_names, steps=False):
-        block = program.global_block()
+    def __init__(self, program, fetch_names, steps=False, block_idx=0):
+        block = program.block(block_idx)
         self.rng_fp = _program_rng_fp(program)
 
         def persistable(n):
-            meta = block.vars.get(n)
+            meta = block._var_recursive(n) if block._has_var_recursive(n) \
+                else None
             return meta is not None and meta.persistable
 
         ops = block.ops
@@ -516,11 +537,13 @@ class Executor(object):
         # set by hand
         self.check_nan_inf = flags.get("check_nan_inf")
 
-    def _plan(self, program, fetch_names, steps=False):
-        key = (program.id, program.version, tuple(fetch_names), steps)
+    def _plan(self, program, fetch_names, steps=False, block_idx=0):
+        key = (program.id, program.version, tuple(fetch_names), steps,
+               block_idx)
         plan = self._plans.get(key)
         if plan is None:
-            plan = self._plans[key] = _Plan(program, fetch_names, steps)
+            plan = self._plans[key] = _Plan(program, fetch_names, steps,
+                                            block_idx)
         return plan
 
     def run(self, program=None, feed=None, fetch_list=None,
@@ -535,21 +558,56 @@ class Executor(object):
         if program is None:
             program = default_main_program()
         scope = scope if scope is not None else global_scope()
-        fetch_names = _fetch_names(fetch_list)
-        block = program.global_block()
-        plan = self._plan(program, fetch_names)
-        env = {n: self._to_device(v, block.vars.get(n))
-               for n, v in (feed or {}).items()}
-        gen = self._generator(scope, program, plan.rng_fp)
-        st = _RunState(env, feed or {}, scope, program)
-        self._run_step(plan, env, scope, block, gen, program._is_test, st)
-        if self.check_nan_inf:
-            self._check_finite(plan, env, scope)
-        results = st.fetch_results + [self._fetch(env, scope, n)
-                                      for n in fetch_names]
+        results = self._run_block(program, 0, feed or {},
+                                  _fetch_names(fetch_list), scope)
         if return_numpy:
             results = [as_numpy(r) for r in results]
         return results
+
+    def _run_block(self, program, block_idx, feed, fetch_names, scope):
+        """Run block ``block_idx`` of ``program`` once over ``scope`` (the
+        JAX executor's ``_run_block``): the values of its fetch ops, then
+        those of ``fetch_names``, as tensors."""
+        block = program.block(block_idx)
+        plan = self._plan(program, fetch_names, block_idx=block_idx)
+        env = {n: self._to_device(v, block.vars.get(n))
+               for n, v in feed.items()}
+        gen = self._generator(scope, program, plan.rng_fp)
+        st = _RunState(env, feed, scope, program)
+        self._run_step(plan, env, scope, block, gen, program._is_test, st)
+        if self.check_nan_inf:
+            self._check_finite(plan, env, scope)
+        return st.fetch_results + [self._fetch(env, scope, n)
+                                   for n in fetch_names]
+
+    def go_join(self, timeout=None):
+        """Wait for every block spawned by a ``go`` op (layers.Go) and
+        return their child scopes, oldest first. The reference detaches
+        its go threads (csp/go_op.cc); joining is the JAX package's
+        extension. A block that raised re-raises here; a block still
+        running past ``timeout`` raises TimeoutError and stays
+        joinable."""
+        pending = getattr(self, "_go_threads", [])
+        scopes, still_running, errors = [], [], []
+        for entry in pending:
+            t, child = entry[0], entry[1]
+            t.join(timeout)
+            if t.is_alive():
+                still_running.append(entry)
+                continue
+            err = getattr(t, "_go_error", None)
+            if err is not None:
+                errors.append(err)
+            scopes.append(child)
+        self._go_threads = still_running
+        if still_running:
+            raise TimeoutError(
+                "%d go block(s) still running after %.1fs; call go_join() "
+                "again to keep waiting" % (len(still_running),
+                                           timeout or 0.0))
+        if errors:
+            raise errors[0]
+        return scopes
 
     def run_steps(self, program=None, feed=None, n_steps=1, fetch_list=None,
                   scope=None, return_numpy=True):

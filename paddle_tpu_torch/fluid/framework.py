@@ -26,6 +26,7 @@ __all__ = [
     "switch_main_program", "switch_startup_program", "program_guard",
     "cpu_places", "cuda_places",
     "CPUPlace", "CUDAPlace", "GRAD_VAR_SUFFIX", "grad_var_name",
+    "name_scope",
 ]
 
 GRAD_VAR_SUFFIX = "@GRAD"
@@ -33,6 +34,23 @@ GRAD_VAR_SUFFIX = "@GRAD"
 
 def grad_var_name(name):
     return name + GRAD_VAR_SUFFIX
+
+
+_name_scope_stack = [""]
+
+
+@contextlib.contextmanager
+def name_scope(prefix=None):
+    """Debug name scoping for ops (reference: framework.py name_scope): an
+    op appended inside carries the scope's path in its ``name_scope``
+    attr."""
+    _name_scope_stack.append(
+        (_name_scope_stack[-1] + "/" if _name_scope_stack[-1] else "") +
+        (prefix or ""))
+    try:
+        yield
+    finally:
+        _name_scope_stack.pop()
 
 
 class Variable(object):
@@ -157,6 +175,8 @@ class Operator(object):
         self.attrs = dict(attrs) if attrs else {}
         if OpRole.KEY not in self.attrs:
             self.attrs[OpRole.KEY] = OpRole.Forward
+        if _name_scope_stack[-1]:
+            self.attrs.setdefault("name_scope", _name_scope_stack[-1])
 
     @staticmethod
     def _canon(io):

@@ -38,6 +38,7 @@ from .core_types import VarType, to_torch_dtype
 from .executor import as_numpy, global_scope, register_host_handler
 from .framework import Parameter, Program, Variable, default_main_program
 from .interop import tensor_from_numpy
+from .layers.io import PyReader  # noqa: F401  (reference: fluid.io.PyReader)
 
 __all__ = [
     "PyReader", "save_vars", "save_params", "save_persistables", "load_vars",
@@ -60,12 +61,6 @@ def _live_export_staging():
     """Staging (and displaced-old) dirs this process created that still
     exist on disk."""
     return sorted(p for p in _EXPORT_STAGING if os.path.exists(p))
-
-
-def PyReader(*args, **kwargs):
-    raise NotImplementedError(
-        "fluid.io.PyReader is not ported yet (ROADMAP Queue 1 item 9: "
-        "distributed training and input)")
 
 
 def _hash_file(path):

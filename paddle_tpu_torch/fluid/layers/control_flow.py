@@ -8,7 +8,8 @@ appends one ``recurrent`` op that carries its step ops, with the lengths
 of its first step input (``length=``, or the ragged input's
 ``seq_length_var``) as the op's Length input; IfElse is a row-wise select
 over both branches. DynamicRNN takes its lengths from its ragged step
-input; Go waits for ROADMAP Queue 1 item 6."""
+input; Go records a sub-block that one ``go`` host op runs on a thread
+(fluid/host_ops.py)."""
 from ..layer_helper import LayerHelper
 from ..core_types import VarType
 from .. import unique_name
@@ -253,13 +254,49 @@ class WhileGuard(BlockGuard):
 
 
 class Go(object):
-    """The reference's goroutine-style block (csp/go_op.cc), a host op in
-    the JAX package (``fluid/host_ops.py``), waits for ROADMAP Queue 1 item
-    6, which holds the host ops."""
+    """Spawn a sub-block onto a host thread, goroutine-style (reference:
+    operators/csp/go_op.cc:110, the experimental CSP op).
+
+    The block's reads of enclosing variables become the ``go`` op's inputs;
+    the block runs over a child scope, so its writes never race the parent
+    program, on a copy of its inputs taken when the op runs.
+    ``Executor.go_join()`` waits for the spawned blocks and returns their
+    child scopes (the JAX package's extension of the reference's detached
+    thread).
+
+        with fluid.layers.Go().block():
+            heavy_side_computation(x)
+    """
 
     def __init__(self, name=None):
-        raise NotImplementedError(
-            "Go waits for ROADMAP Queue 1 item 6 (the host ops)")
+        self.helper = LayerHelper("go", name=name)
+
+    def block(self):
+        return GoGuard(self)
+
+
+class GoGuard(BlockGuard):
+    def __init__(self, go_op):
+        super(GoGuard, self).__init__(go_op.helper.main_program)
+        self.go_op = go_op
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        if exc_type is not None:
+            return False
+        program = self.go_op.helper.main_program
+        sub_block = program.current_block()
+        parent = program.block(sub_block.parent_idx)
+        inner_reads = set()
+        for op in sub_block.ops:
+            inner_reads.update(op.input_arg_names)
+        external = sorted(
+            n for n in inner_reads
+            if not sub_block.has_var(n) and parent._has_var_recursive(n))
+        ret = super(GoGuard, self).__exit__(exc_type, exc_val, exc_tb)
+        parent.append_op(
+            type="go", inputs={"X": external}, outputs={},
+            attrs={"sub_block": sub_block.idx})
+        return ret
 
 
 class Switch(object):

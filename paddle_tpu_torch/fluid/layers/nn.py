@@ -60,7 +60,7 @@ __all__ = [
     "lod_reset", "dynamic_lstm", "dynamic_lstmp", "dynamic_gru", "gru_unit",
     "lstm_unit", "lstm", "linear_chain_crf", "crf_decoding", "nce",
     "beam_search", "beam_search_decode", "warpctc", "ctc_greedy_decoder",
-    "edit_distance", "mean_iou", "chunk_eval", "hash",
+    "edit_distance", "mean_iou", "chunk_eval", "hash", "py_func",
 ]
 
 
@@ -1929,3 +1929,44 @@ def spp(input, pyramid_height=3, pool_type="max", name=None):
                      attrs={"pyramid_height": pyramid_height,
                             "pooling_type": pool_type})
     return out
+
+
+class PyFuncRegistry(object):
+    """Process-local registry of py_func callables (reference py_func_op.cc
+    PyFuncRegistry: callables cannot serialize, so programs carry ids)."""
+    _funcs = []
+
+    @classmethod
+    def register(cls, fn):
+        cls._funcs.append(fn)
+        return len(cls._funcs) - 1
+
+    @classmethod
+    def get(cls, idx):
+        return cls._funcs[idx]
+
+
+def py_func(func, x, out, backward_func=None, skip_vars_in_backward_input=None):
+    """Call a Python function as an op (reference: layers/nn.py py_func,
+    operators/py_func_op.cc). ``func`` receives the inputs as numpy arrays
+    on the host (the ``py_func`` host op, fluid/host_ops.py) and its
+    results go back to the device.
+
+    ``out`` variables must be created beforehand (create_variable): their
+    shapes and dtypes are the caller's contract, as in the reference. With
+    ``backward_func``, the grad op calls it with (inputs, outputs, output
+    grads) less ``skip_vars_in_backward_input``, and it returns one grad
+    per input (None allowed)."""
+    helper = LayerHelper("py_func")
+    xs = [x] if isinstance(x, Variable) else list(x or [])
+    outs = [out] if isinstance(out, Variable) else list(out)
+    skip = skip_vars_in_backward_input or []
+    skip_names = [v.name if isinstance(v, Variable) else str(v) for v in skip]
+    fid = PyFuncRegistry.register(func)
+    bid = PyFuncRegistry.register(backward_func) if backward_func else -1
+    helper.append_op(type="py_func",
+                     inputs={"X": xs},
+                     outputs={"Out": outs},
+                     attrs={"func_id": fid, "backward_func_id": bid,
+                            "skip_vars_in_backward_input": skip_names})
+    return outs if len(outs) > 1 else outs[0]

@@ -24,6 +24,7 @@ from . import ctc_pool_ops    # noqa: F401
 from . import detection_ops   # noqa: F401
 from . import quantize_ops    # noqa: F401
 from . import parity_ops      # noqa: F401
+from . import fusion_ops      # noqa: F401
 from . import grad_ops        # noqa: F401
 
 __all__ = ["register_lowering", "get_lowering", "has_lowering",

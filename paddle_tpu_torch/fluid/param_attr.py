@@ -2,7 +2,7 @@
 ``paddle_tpu/fluid/param_attr.py``)."""
 from .initializer import Constant, Xavier
 
-__all__ = ["ParamAttr"]
+__all__ = ["ParamAttr", "WeightNormParamAttr"]
 
 
 class ParamAttr(object):
@@ -53,3 +53,18 @@ class ParamAttr(object):
             "gradient_clip_attr": self.gradient_clip,
             "do_model_average": self.do_model_average,
         }
+
+
+class WeightNormParamAttr(ParamAttr):
+    """A ParamAttr that records the weight norm's ``dim``. Nothing applies
+    a weight norm, as in the JAX package (ROADMAP Queue 3): the parameter
+    is an ordinary one."""
+
+    def __init__(self, dim=None, name=None, initializer=None,
+                 learning_rate=1.0, regularizer=None, trainable=True,
+                 gradient_clip=None, do_model_average=False):
+        super(WeightNormParamAttr, self).__init__(
+            name=name, initializer=initializer, learning_rate=learning_rate,
+            regularizer=regularizer, trainable=trainable,
+            gradient_clip=gradient_clip, do_model_average=do_model_average)
+        self.dim = dim

@@ -669,9 +669,23 @@ def test_print_prints_the_value_and_passes_it_on(capsys):
     assert printed[1].startswith("twice ")
 
 
-def test_go_waits_for_the_host_ops():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tfluid.layers.Go()
+def test_go_runs_its_block_and_go_join_returns_its_scope():
+    """layers.Go records a sub-block that one go op runs on a thread over
+    a child scope, as in the JAX package; go_join returns that scope."""
+    xv = np.arange(6, dtype="float32").reshape(2, 3)
+    for fluid in (jfluid, tfluid):
+        main = fluid.Program()
+        with fluid.program_guard(main, fluid.Program()):
+            x = fluid.layers.data(name="x", shape=[3], dtype="float32")
+            with fluid.layers.Go().block():
+                y = fluid.layers.scale(x, scale=2.0)
+        assert [op.type for op in main.global_block().ops] == ["go"]
+        assert main.global_block().ops[0].input("X") == ["x"]
+        exe = fluid.Executor(fluid.CPUPlace())
+        exe.run(main, feed={"x": xv}, scope=fluid.Scope())
+        child, = exe.go_join(30)
+        np.testing.assert_array_equal(np.asarray(
+            fluid.executor.as_numpy(child.get(y.name))), 2 * xv)
 
 
 def _untaken_new_output(fluid):

@@ -163,6 +163,17 @@ def test_evaluator_counts_padded_rows_whole_in_both_packages():
 @pytest.mark.parametrize("build", [
     lambda fluid: fluid.layers.Go(),
 ], ids=["layers.Go"])
-def test_classes_of_later_items_raise_and_name_the_item(build):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        build(tfluid)
+def test_classes_of_later_items_now_build(build):
+    """layers.Go, which waited for the host ops, builds its block and its
+    go op as the JAX package's does."""
+    progs = []
+    for fluid in (jfluid, tfluid):
+        main = fluid.Program()
+        with fluid.program_guard(main, fluid.Program()):
+            x = fluid.layers.data(name="x", shape=[2], dtype="float32")
+            with build(fluid).block():
+                fluid.layers.mean(x)
+        progs.append([(op.type, dict(op.inputs), dict(op.attrs))
+                      for op in main.global_block().ops])
+    assert progs[0] == progs[1]
+    assert progs[1][0][0] == "go"
