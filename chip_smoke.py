@@ -11,6 +11,7 @@ toolkit:
     python3 chip_smoke.py --ctc            # build, then phases 56-60 only
     python3 chip_smoke.py --fusion         # build, then phases 61-65 only
     python3 chip_smoke.py --host-io        # build, then phases 66-67 only
+    python3 chip_smoke.py --recordio       # build, then phases 68-70 only
 
 Phases, each printing one JSON line (any failure ends the script with a
 non-zero exit):
@@ -505,6 +506,15 @@ non-zero exit):
               persistables, delete_var, fake_init, the engine stubs; then
               host_io_lockstep: their exact values against the CPU's,
               two controls.
+68. recordio_io - the flowers dataset's 256 images written into a record
+              file and over 4, read by RecordScanner and by the threaded
+              feeder (MB/s), a corrupt copy, the dataset modules' digests.
+69. recordio_resnet50 - ResNet-50 f32 trained from that file through the
+              graph reader ops; its first step bit for bit the numpy-fed
+              twin's (control: a sample swapped).
+70. async_ctr - DeepFM through AsyncExecutor(thread_num=4) over 4 record
+              files, one Adam launch a step, every sample once; one thread
+              bit for bit an Executor.run loop (control: a batch skipped).
 
 Every line carries "script_seconds", the time since the script started.
 
@@ -10155,6 +10165,375 @@ def host_io_phases(fluid, counters, add):
     phase_host_io_lockstep(fluid)
 
 
+# recordio_io: dataset.flowers.train()'s 256 synthetic samples (3x224x224
+# f32 images, labels as [1] int64, about 154 MB) written into one record
+# file and split over RECORDIO_FILES files, in a temporary directory that
+# the phase deletes; the one file read by RecordScanner, the split ones by
+# MultiFileFeeder at RECORDIO_THREADS threads (the page cache warm from
+# the write): MB/s of the records' bytes, the decoded samples held against
+# those written by a digest (in order for the scanner, as a multiset for
+# the feeder). A copy with one payload byte flipped must raise through
+# RecordScanner; the feeder's records from it are counted (it drops the
+# rest of a file silently, as the JAX package's does: ROADMAP Queue 3).
+# Each dataset module's first 64 train samples (no cache present) must
+# give the digest tools/torch_recordio_programs.py pins, which the CPU
+# tests hold against the JAX package.
+RECORDIO_FILES = 4
+RECORDIO_THREADS = 4
+# recordio_resnet50: bench.py's ResNet-50 leg in f32 (224, 1,000 classes,
+# Momentum(0.01, 0.9), batch 64) reading that file through
+# create_recordio_file_reader -> create_batch_reader(64) ->
+# create_double_buffer_reader -> read: 4 batches, then EOFException, then a
+# second pass (its first step unprofiled, the next two traced for the busy
+# share, the fourth, then EOFException again). The read op's host ms (the
+# card synchronized around it) and a batch's pageable copy to the card.
+# Card check: the first reader-fed step's loss bit for bit the numpy-fed
+# twin's on the same 64 samples from the same state; the control, the
+# batch with its last sample swapped for the next batch's first, must
+# differ. No port kernel is on this path.
+RECORDIO_RESNET_PASSES = 2
+# async_ctr: bench.py's DeepFM leg (26 fields, vocab 100,000, embed 16, MLP
+# 128-64, sparse tables, Adam(1e-3), batch 4,096) through
+# AsyncExecutor.run(thread_num=4) over 4 record files of 32,768 seeded
+# samples (ids repeat in a batch): 8 steps, one Adam launch each (the
+# [416, 128] weight), every sample fed once (the fetched ids and labels
+# against those written, as multisets), then the same run traced for its
+# busy share. Card check: AsyncExecutor.run(thread_num=1) over one file of
+# the samples in order gives, bit for bit, the losses of an Executor.run
+# loop over the same batches from the same state; the control, the loop
+# with its second batch skipped, must differ.
+ASYNC_THREADS = 4
+
+
+def _recordio_tool():
+    return _load_tool("torch_recordio_programs")
+
+
+def _scope_copy(fluid, scope):
+    """A new scope holding a copy of each of `scope`'s tensors."""
+    import torch
+    out = fluid.Scope()
+    for n, v in scope._vars.items():
+        out.set(n, v.clone() if isinstance(v, torch.Tensor) else v)
+    return out
+
+
+def _mb_s(nbytes, seconds):
+    return nbytes / seconds / 1e6
+
+
+def phase_recordio_io(fluid):
+    """Record files written and read at the flowers images' size, a
+    corrupt copy, and the dataset modules' digests."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch import dataset, native
+    from paddle_tpu_torch.reader import recordio as rio
+    t0 = time.perf_counter()
+    tool = _recordio_tool()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_recordio_")
+    try:
+        t = time.perf_counter()
+        samples = tool.image_samples(fluid)
+        draw_s = time.perf_counter() - t
+        sample_bytes = sum(s[0].nbytes + s[1].nbytes for s in samples)
+        written = [tool.sample_digest(s) for s in samples]
+        one = os.path.join(tmp, "flowers.rec")
+        t = time.perf_counter()
+        n_one = tool.write_samples(fluid, one, samples)
+        write_one_s = time.perf_counter() - t
+        t = time.perf_counter()
+        split = rio.convert_reader_to_recordio_files(
+            os.path.join(tmp, "flowers"), len(samples) // RECORDIO_FILES,
+            lambda: iter(samples))
+        write_split_s = time.perf_counter() - t
+        one_bytes = os.path.getsize(one)
+        split_bytes = sum(os.path.getsize(p) for p in split)
+        t = time.perf_counter()
+        with native.RecordScanner(one) as sc:
+            recs = list(sc)
+        scan_s = time.perf_counter() - t
+        t = time.perf_counter()
+        scanned = [tool.sample_digest(rio.decode_sample(r)) for r in recs]
+        decode_s = time.perf_counter() - t
+        t = time.perf_counter()
+        with native.MultiFileFeeder(split, RECORDIO_THREADS) as f:
+            fed = list(f)
+        feed_s = time.perf_counter() - t
+        fed_digests = sorted(tool.sample_digest(rio.decode_sample(r))
+                             for r in fed)
+        del recs, fed
+        bad = os.path.join(tmp, "corrupt.rec")
+        blob = bytearray(open(split[0], "rb").read())
+        blob[24 + 100] ^= 0xFF            # inside the first chunk's payload
+        open(bad, "wb").write(bytes(blob))
+        try:
+            with native.RecordScanner(bad) as sc:
+                list(sc)
+            corrupt_raised = False
+        except IOError:
+            corrupt_raised = True
+        with native.MultiFileFeeder([bad], 1) as f:
+            feeder_from_corrupt = sum(1 for _ in f)
+        home = os.path.join(tmp, "empty_data_home")
+        os.makedirs(home)
+        saved, dataset.common.DATA_HOME = dataset.common.DATA_HOME, home
+        try:
+            digests = {name: tool.dataset_digest(stream(dataset))
+                       for name, stream in tool.DATASET_STREAMS.items()}
+        finally:
+            dataset.common.DATA_HOME = saved
+    finally:
+        shutil.rmtree(tmp)
+    wrong = sorted(n for n, d in digests.items()
+                   if d != tool.DATASET_DIGESTS[n])
+    rec = {"phase": "recordio_io", "card": _card(),
+           "samples": len(samples), "sample_bytes": sample_bytes,
+           "draw_seconds": draw_s,
+           "one_file": {"records": n_one, "bytes": one_bytes,
+                        "write_seconds": write_one_s,
+                        "write_mb_s": _mb_s(one_bytes, write_one_s),
+                        "scan_seconds": scan_s,
+                        "scan_mb_s": _mb_s(one_bytes, scan_s),
+                        "decode_seconds": decode_s,
+                        "in_order": scanned == written},
+           "split_files": {"files": len(split), "bytes": split_bytes,
+                           "write_seconds": write_split_s,
+                           "write_mb_s": _mb_s(split_bytes, write_split_s),
+                           "threads": RECORDIO_THREADS,
+                           "feeder_seconds": feed_s,
+                           "feeder_mb_s": _mb_s(split_bytes, feed_s),
+                           "same_samples": fed_digests == sorted(written)},
+           "page_cache": "warm (read just after the write)",
+           "corrupt_copy_raised": corrupt_raised,
+           "feeder_records_from_corrupt_copy": feeder_from_corrupt,
+           "dataset_digests": digests, "dataset_digests_wrong": wrong,
+           "phase_seconds": time.perf_counter() - t0}
+    rec["ok"] = bool(n_one == len(samples) == len(scanned) and
+                     scanned == written and fed_digests == sorted(written)
+                     and corrupt_raised and not wrong)
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError("recordio_io: %s" % rec)
+
+
+def _loss_bits(loss):
+    """A fetched float32 loss's bytes."""
+    import numpy as np
+    return np.asarray(loss, np.float32).tobytes()
+
+
+def phase_recordio_resnet50(fluid, counters):
+    """ResNet-50 trained from a record file through the graph reader ops;
+    its first step against the numpy-fed twin's. Returns its launches."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    tool = _recordio_tool()
+    w = tool.RESNET
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_recordio_")
+    try:
+        samples = tool.image_samples(fluid)
+        path = os.path.join(tmp, "flowers.rec")
+        tool.write_samples(fluid, path, samples)
+        batches = len(samples) // w["batch"]
+        with fluid.unique_name.guard():
+            m = tool.recordio_resnet(fluid, path, seed=SEED)
+        with fluid.unique_name.guard():
+            twin = tool.recordio_resnet(fluid, path, seed=SEED, reader=False)
+        exe = fluid.Executor()
+        scope = fluid.Scope()
+        exe.run(m.startup, scope=scope)
+        start = _scope_copy(fluid, scope)
+        first = tool.image_feed(samples[:w["batch"]])
+        swapped = tool.image_feed(samples[:w["batch"] - 1] +
+                                  samples[w["batch"]:w["batch"] + 1])
+        twin_loss, control_loss = [
+            exe.run(twin.main, feed=feed, fetch_list=[twin.loss],
+                    scope=_scope_copy(fluid, start))[0]
+            for feed in (first, swapped)]
+        del start
+        torch.cuda.synchronize()
+        gc.collect()
+        read_ms, step_ms, losses, eofs = [], [], [], []
+        busy = None
+        run = lambda: exe.run(m.main, fetch_list=[m.loss], scope=scope)[0]
+        real = _timed_host("read", read_ms)
+        _zero(counters)
+        try:
+            for p in range(RECORDIO_RESNET_PASSES):
+                k = 0
+                while k < batches:
+                    if p == 1 and k == 1:
+                        busy = _busy_share(run, n=2)
+                        k += 2
+                        continue
+                    t = time.perf_counter()
+                    loss = run()
+                    step_ms.append((time.perf_counter() - t) * 1e3)
+                    losses.append(float(np.asarray(loss).reshape(-1)[0]))
+                    if p == 0 and k == 0:
+                        reader_loss = loss
+                    k += 1
+                try:
+                    run()
+                    eofs.append(False)
+                except fluid.EOFException:
+                    eofs.append(True)
+        finally:
+            from paddle_tpu_torch.fluid import executor as E
+            E._HOST_HANDLERS["read"] = real
+        launched = _read(counters)
+        copies = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            torch.from_numpy(first["img"]).cuda()
+            torch.cuda.synchronize()
+            copies.append((time.perf_counter() - t) * 1e3)
+    finally:
+        shutil.rmtree(tmp)
+    wall, busy_ms, by_kind = busy
+    bit_equal = _loss_bits(reader_loss) == _loss_bits(twin_loss)
+    control_differs = _loss_bits(control_loss) != _loss_bits(twin_loss)
+    rec = {"phase": "recordio_resnet50", "card": _card(),
+           "batch": w["batch"], "batches_a_pass": batches,
+           "passes": RECORDIO_RESNET_PASSES, "eof_after_each_pass": eofs,
+           "step_ms": step_ms,
+           "step_ms_mean_after_the_first": float(np.mean(step_ms[1:])),
+           "images_per_s": w["batch"] / np.mean(step_ms[1:]) * 1e3,
+           "read_op_host_ms": read_ms,
+           "busy": _busy_rec(wall, busy_ms, by_kind),
+           "image_copy_ms": copies, "image_batch_bytes": first["img"].nbytes,
+           "losses": losses,
+           "reader_loss": float(np.asarray(reader_loss).reshape(-1)[0]),
+           "twin_loss": float(np.asarray(twin_loss).reshape(-1)[0]),
+           "first_step_bit_for_bit": bit_equal,
+           "control_loss": float(np.asarray(control_loss).reshape(-1)[0]),
+           "control_differs": control_differs, "launches": launched,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "phase_seconds": time.perf_counter() - t0}
+    rec["ok"] = bool(eofs == [True] * RECORDIO_RESNET_PASSES and
+                     len(losses) == 2 * batches - 2 and
+                     np.isfinite(losses).all() and bit_equal and
+                     control_differs and not any(launched.values()))
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError("recordio_resnet50: %s" % rec)
+    return launched
+
+
+def _ctr_rows(samples):
+    """(ids, label) samples as the rows of one float64 array (the ids
+    exact), sorted: a multiset to compare."""
+    import numpy as np
+    a = np.concatenate([np.stack([s[0] for s in samples]),
+                        np.stack([s[1] for s in samples])], axis=1,
+                       dtype=np.float64)
+    return a[np.lexsort(a.T[::-1])]
+
+
+def phase_async_ctr(fluid, counters):
+    """DeepFM trained by AsyncExecutor from record files; its losses
+    against an Executor.run loop. Returns the launches of the main run."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    tool = _recordio_tool()
+    w = tool.CTR
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_recordio_")
+    try:
+        rows = tool.ctr_samples(SEED)
+        t = time.perf_counter()
+        paths = tool.write_ctr_files(fluid, os.path.join(tmp, "ctr"), rows)
+        write_s = time.perf_counter() - t
+        one = os.path.join(tmp, "ctr_all.rec")
+        tool.write_samples(fluid, one, rows)
+        with fluid.unique_name.guard():
+            m = tool.ctr_programs(fluid, seed=SEED)
+        exe = fluid.AsyncExecutor()            # CUDAPlace(0)
+        desc = fluid.DataFeedDesc(slots=m.feeds, batch_size=w["batch"])
+        feeds = tool.ctr_feeds(rows, w["batch"])
+        scope = fluid.Scope()
+        with fluid.scope_guard(scope):
+            exe.run(m.startup)
+            start = _scope_copy(fluid, scope)
+            warm = tool.ctr_feeds(tool.ctr_samples(SEED + 1), w["batch"])[0]
+            exe.run(m.main, feed=warm, fetch_list=[m.loss])
+            torch.cuda.synchronize()
+            gc.collect()
+            _zero(counters)
+            t = time.perf_counter()
+            out = exe.run(m.main, data_feed=desc, filelist=paths,
+                          thread_num=ASYNC_THREADS,
+                          fetch=["feat_ids", "label", m.loss])
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t
+            launched = _read(counters)
+            wall, busy_ms, by_kind = _busy_share(lambda: exe.run(
+                m.main, data_feed=desc, filelist=paths,
+                thread_num=ASYNC_THREADS, fetch=[m.loss]), n=1)
+        fed = [(i, l) for ids, labels, _ in out
+               for i, l in zip(ids, labels)]
+        every_once = len(fed) == len(rows) and bool(
+            (_ctr_rows(fed) == _ctr_rows(rows)).all())
+        # the card check: one thread over one file against a loop
+        checks = {}
+        for name, run_feeds in (("loop", feeds),
+                                ("control", feeds[:1] + feeds[2:])):
+            sc = _scope_copy(fluid, start)
+            checks[name] = [exe.run(m.main, feed=f, fetch_list=[m.loss],
+                                    scope=sc)[0] for f in run_feeds]
+        sc = _scope_copy(fluid, start)
+        with fluid.scope_guard(sc):
+            checks["async"] = [o[0] for o in exe.run(
+                m.main, data_feed=desc, filelist=[one], thread_num=1,
+                fetch=[m.loss])]
+    finally:
+        shutil.rmtree(tmp)
+    bits = {k: [_loss_bits(v) for v in vs] for k, vs in checks.items()}
+    bit_equal = bits["async"] == bits["loop"]
+    control_differs = bits["control"] != bits["async"][:len(bits["control"])]
+    steps = len(out)
+    losses = [float(np.asarray(o[2]).reshape(-1)[0]) for o in out]
+    rec = {"phase": "async_ctr", "card": _card(), "batch": w["batch"],
+           "samples": len(rows), "files": len(paths),
+           "threads": ASYNC_THREADS, "steps": steps,
+           "write_seconds": write_s, "run_seconds": wall_s,
+           "steps_per_s": steps / wall_s,
+           "examples_per_s": len(rows) / wall_s,
+           "busy": _busy_rec(wall, busy_ms, by_kind),
+           "every_sample_once": every_once, "losses": losses,
+           "one_thread_losses": [float(np.asarray(v).reshape(-1)[0])
+                                 for v in checks["async"]],
+           "one_thread_bit_for_bit_the_loop": bit_equal,
+           "control_losses": [float(np.asarray(v).reshape(-1)[0])
+                              for v in checks["control"]],
+           "control_differs": control_differs, "launches": launched,
+           "phase_seconds": time.perf_counter() - t0}
+    rec["ok"] = bool(steps == len(rows) // w["batch"] and every_once and
+                     launched["adam"] == steps and
+                     sum(launched.values()) == steps and
+                     np.isfinite(losses).all() and bit_equal and
+                     control_differs)
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError("async_ctr: %s" % rec)
+    return launched
+
+
+def recordio_phases(fluid, counters, add):
+    """The record files, ResNet-50 from a record file and DeepFM through
+    AsyncExecutor."""
+    phase_recordio_io(fluid)
+    add(phase_recordio_resnet50(fluid, counters))
+    add(phase_async_ctr(fluid, counters))
+
+
 def _path_numbers(s, path):
     """A kernel's numbers over a path's mix of cases (weighted means)."""
     w = s["weight"]
@@ -10197,7 +10576,8 @@ def main():
               "--detection": detection_phases,
               "--compression": compression_phases,
               "--fusion": fusion_phases,
-              "--host-io": host_io_phases}
+              "--host-io": host_io_phases,
+              "--recordio": recordio_phases}
     if len(sys.argv) == 2 and sys.argv[1] in slices:
         # one slice's phases alone (no kernel line, no contract line)
         slices[sys.argv[1]](fluid, counters, add)
@@ -10387,6 +10767,10 @@ def main():
     # py_func, the combined save and load), their exact values held
     # against the CPU's
     host_io_phases(fluid, counters, add)
+    # record files: written and read at the flowers images' size, ResNet-50
+    # trained from one through the graph reader ops, DeepFM through
+    # AsyncExecutor (one Adam launch a step), each with a card check
+    recordio_phases(fluid, counters, add)
 
     print(_card())
     sources = {"onepass": "attention.cu", "flash": "attention.cu",

@@ -9,6 +9,7 @@ JAX or ``paddle_tpu``.
 """
 from . import fluid  # noqa: F401
 from . import reader  # noqa: F401
+from . import dataset  # noqa: F401
 from .reader import batch  # noqa: F401
 
 __version__ = "0.1.0"

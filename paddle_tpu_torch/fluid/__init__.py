@@ -7,7 +7,8 @@ layers, fluid.create_lod_tensor). fluid.contrib holds the seq2seq
 decoders; fluid.metrics and fluid.evaluator the metric accumulators;
 fluid.host_ops the host ops (go, py_func, the combined save and load, the
 graph readers, detection_map); fluid.io.PyReader and fluid.DataFeeder
-feed a program from Python readers."""
+feed a program from Python readers; fluid.recordio_writer writes record
+files, which the graph reader ops and fluid.AsyncExecutor read."""
 from . import core_types
 from . import unique_name
 from . import framework
@@ -36,6 +37,8 @@ from . import host_ops  # the host ops: go, py_func, readers, detection_map
 from .interop import params_from_numpy
 from . import io
 from .data_feeder import DataFeeder
+from .async_executor import AsyncExecutor, DataFeedDesc
+from . import recordio_writer
 from .io import save_vars, save_params, save_persistables, load_vars, \
     load_params, load_persistables, save_inference_model, load_inference_model
 from . import transpiler
@@ -56,7 +59,8 @@ __all__ = framework.__all__ + [
     "GradientClipByValue", "GradientClipByNorm", "GradientClipByGlobalNorm",
     "set_gradient_clip",
     "Executor", "Scope", "global_scope", "scope_guard", "EOFException",
-    "params_from_numpy", "DataFeeder",
+    "params_from_numpy", "DataFeeder", "AsyncExecutor", "DataFeedDesc",
+    "recordio_writer",
     "io", "save_vars", "save_params", "save_persistables", "load_vars",
     "load_params", "load_persistables", "save_inference_model",
     "load_inference_model", "transpiler", "memory_optimize",

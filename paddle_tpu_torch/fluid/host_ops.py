@@ -15,9 +15,9 @@ the block, as the JAX executor runs it between its segments:
   package's format), ``delete_var``, ``fake_init`` and the two engine
   stubs;
 - the graph readers (operators/reader/*): a READER variable holds a Python
-  reader object in the scope, the decorators wrap it, and ``read`` pulls
-  its next batch onto the device, raising ``fluid.EOFException`` at its
-  end.
+  reader object in the scope (a record file's, ``open_files``' or a
+  generator's), the decorators wrap it, and ``read`` pulls its next batch
+  onto the device, raising ``fluid.EOFException`` at its end.
 
 A handler reads its inputs back from the card where it needs numpy and
 puts its outputs on the executor's device in their variables' dtypes.
@@ -506,6 +506,26 @@ def _sub_reader(st, op):
     if r is None:
         raise RuntimeError("underlying reader %r is not created" % name)
     return r
+
+
+@register_host_handler("create_recordio_file_reader")
+def _h_recordio_reader(exe, op, st):
+    """One record file's samples (reference
+    create_recordio_file_reader_op.cc), in order."""
+    from ..reader.recordio import recordio_reader
+    fname = op.attr("filename")
+    _put_reader(st, op, _GraphReader(lambda: recordio_reader([fname])()))
+
+
+@register_host_handler("open_files")
+def _h_open_files(exe, op, st):
+    """The samples of the record files of the attr ``file_names``
+    (reference open_files_op.cc), through the threaded feeder. As in the
+    JAX package, layers.open_files writes ``filenames``, which this does
+    not read (ROADMAP Queue 3)."""
+    from ..reader.recordio import recordio_reader
+    names = op.attr("file_names") or []
+    _put_reader(st, op, _GraphReader(lambda: recordio_reader(names)()))
 
 
 @register_host_handler("create_shuffle_reader")

@@ -21,7 +21,10 @@
   3).
 - ``Preprocessor`` records its ops in the main block between the reader's
   variables and their consumers.
-- ``open_files`` reads recordio files and waits for ROADMAP Queue 1 item 9.
+- ``open_files`` appends the graph reader op over record files. It writes
+  the attr ``filenames``, which the handler does not read (it reads
+  ``file_names``), as in the JAX package (ROADMAP Queue 3): the layer's
+  reader reads no file.
 """
 import queue as _queue
 import threading
@@ -183,10 +186,17 @@ def _reader_var(name_hint):
 
 def open_files(filenames, shapes=None, lod_levels=None, dtypes=None,
                thread_num=None, buffer_size=None, pass_num=1, is_test=None):
-    """The recordio file reader (reference: layers/io.py open_files)."""
-    raise NotImplementedError(
-        "open_files reads recordio files, which wait for ROADMAP Queue 1 "
-        "item 9 (recordio)")
+    """Graph-side reader over record files (reference: layers/io.py
+    open_files -> operators/reader/open_files_op.cc); a reader variable
+    for read_file(). The op carries the attr ``filenames``, as the JAX
+    layer writes it, where the open_files handler of both packages reads
+    ``file_names`` (ROADMAP Queue 3)."""
+    from ..framework import default_main_program
+    out = _reader_var("open_files_reader")
+    default_main_program().global_block().append_op(
+        type="open_files", inputs={}, outputs={"Out": [out]},
+        attrs={"filenames": list(filenames), "pass_num": pass_num})
+    return out
 
 
 def _decorator(op_type, hint, reader, attrs):

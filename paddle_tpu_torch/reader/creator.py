@@ -28,7 +28,10 @@ def text_file(path):
 
 
 def recordio(paths, buf_size=100):
-    """Reader over recordio files (creator.py:57)."""
-    raise NotImplementedError(
-        "reader.creator.recordio waits for ROADMAP Queue 1 item 9 "
-        "(recordio)")
+    """Reader over record files written by fluid.recordio_writer
+    (creator.py:57): ``paths`` a list or a comma-separated string; the
+    samples as lists of numpy arrays."""
+    from .recordio import recordio_reader
+    if isinstance(paths, str):
+        paths = paths.split(",")
+    return recordio_reader(paths)

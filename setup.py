@@ -65,6 +65,7 @@ setup(
     package_data={
         "paddle_tpu.native": ["*.cc", "*.h"],
         "paddle_tpu_torch.ops": ["csrc/*.cu"],
+        "paddle_tpu_torch.native": ["*.cc"],
     },
     python_requires=">=3.9",
     install_requires=[

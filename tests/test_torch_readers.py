@@ -17,9 +17,10 @@ deadlock.
   not read; ``read`` over the py_reader and CTR readers, which have no
   ``next()``; ``read_file`` of a graph reader returning the reader
   variable; ``WeightNormParamAttr``, which applies no weight norm; and
-  ``error_clip_callback``, which adds no clip op. ``open_files`` writes
-  ``filenames`` where its JAX handler reads ``file_names``; the port's
-  layer raises (recordio waits for ROADMAP Queue 1 item 9).
+  ``error_clip_callback``, which adds no clip op; ``open_files``, which
+  writes ``filenames`` where the handlers read ``file_names``, so that
+  the layer's reader reads nothing. ``reader.creator.recordio`` reads
+  either package's record files.
 - Item 2(i): ``fluid.name_scope`` marks the ops built inside it with the
   JAX package's ``name_scope`` attr; ``ErrorClipByValue`` appends the
   JAX package's clip op; ``NullGradientClipAttr`` passes the gradient.
@@ -47,6 +48,11 @@ spec = importlib.util.spec_from_file_location(
                                          "torch_input_programs.py"))
 tool = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(tool)
+spec = importlib.util.spec_from_file_location(
+    "torch_recordio_programs", os.path.join(ROOT, "tools",
+                                            "torch_recordio_programs.py"))
+tool_rio = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(tool_rio)
 
 TOL = 1e-5
 PACKAGES = [tfluid, jfluid]
@@ -323,9 +329,25 @@ def test_text_file_and_pipe_readers(tmp_path):
         assert list(pipe.get_line()) == ["a b", "c", "", "d"]
 
 
-def test_recordio_creator_waits_for_item_9():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        treader.creator.recordio("x.recordio")
+def test_recordio_creator_waits_for_item_9(tmp_path):
+    """reader.creator.recordio reads the record files that either package
+    wrote (a comma-separated string or a list), in order; the same samples
+    as the JAX package's creator. (The name is from before record files
+    were ported, when the port's creator raised.)"""
+    samples = [[np.arange(3, dtype=np.float32) + i, np.array([i], np.int64)]
+               for i in range(5)]
+    paths = []
+    for R in (treader, jreader):
+        paths.append(str(tmp_path / ("%s.rec" % R.__name__)))
+        R.recordio.convert_reader_to_recordio_file(paths[-1],
+                                                   lambda: iter(samples))
+    for R in (treader, jreader):
+        got = list(R.creator.recordio(",".join(paths))())
+        assert len(got) == 2 * len(samples)
+        for g, w in zip(got, samples + samples):
+            for a, b in zip(g, w):
+                assert a.dtype == b.dtype
+                np.testing.assert_array_equal(a, b)
     import paddle_tpu_torch
     assert paddle_tpu_torch.batch is treader.batch
 
@@ -443,17 +465,23 @@ def test_read_op_over_readers_without_next_in_both_packages(kind, tmp_path):
             _cpu(fluid).run(main, scope=fluid.Scope())
 
 
-def test_open_files_attr_and_the_ports_raise_in_both_packages():
-    main = jfluid.Program()
-    with jfluid.program_guard(main, jfluid.Program()):
-        jfluid.layers.open_files(["a.recordio"], shapes=[[1]],
-                                 lod_levels=[0], dtypes=["float32"])
-    op = main.global_block().ops[0]
-    assert op.attr("filenames") == ["a.recordio"]
-    assert op.attr("file_names") is None
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tfluid.layers.open_files(["a.recordio"], shapes=[[1]],
-                                 lod_levels=[0], dtypes=["float32"])
+def test_open_files_attr_and_the_ports_raise_in_both_packages(tmp_path):
+    """layers.open_files writes the attr ``filenames`` in both packages
+    and the open_files handlers read ``file_names``: a program built by
+    the layer reads nothing (the first read raises EOFException) in
+    either package (ROADMAP Queue 3). (The name is from before record
+    files were ported, when the port's layer raised.)"""
+    path = str(tmp_path / "a.recordio")
+    tool_rio.write_samples(tfluid, path, tool_rio.counting_samples(4))
+    for fluid in PACKAGES:
+        m = tool_rio.open_files_program(fluid, [path], layer=True)
+        op = m.main.global_block().ops[0]
+        assert op.type == "open_files"
+        assert op.attr("filenames") == [path]
+        assert op.attr("file_names") is None
+        with pytest.raises(fluid.EOFException):
+            _cpu(fluid).run(m.main, fetch_list=[m.loss],
+                            scope=fluid.Scope())
 
 
 def test_weight_norm_param_attr_applies_no_norm_in_both_packages():
